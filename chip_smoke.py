@@ -8,25 +8,27 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 Setup: builds the hand-written kernels from kgdet_tpu_torch/csrc/ with nvcc
 (sm_90a) and times the build.
 Phase 1: each kernel (K1 deform_fused, K2 deform_sample_split, K3
-deform_sample_bwd, K4 stem_pool, K5 frozen_bottleneck) against its plain
-PyTorch version at the main path's shapes (batch 2), in f32 (rtol 1e-5, atol
-1e-4; for K3, whose f32 atomics sum in an order that changes from run to
-run, atol 1e-4 of the largest sum) and in bf16 (the kernel's max error
-against an f32 plain run is at most 2x the bf16 plain run's), with median
-times by CUDA events, each kernel's bound (the least time the card could
-take, from the bytes and operations of this run's inputs) and, for K2 and
-K3, the time of F.grid_sample and of its backward as a yardstick that the
-port never calls.
-Phase 2: serves 4 requests of 2 uint8 images at full width
+deform_sample_bwd, K4 stem_pool, K5 frozen_bottleneck, K6 deform_sample_cols,
+K8 fused_bottleneck) against its plain PyTorch version at the main paths'
+shapes (batch 2: the cascade's 25x42 map with 9/25/49 taps, the five levels
+of the serial family with 9 taps, the 200x336 layer1 input), in f32 (rtol
+1e-5, atol 1e-4; for K3, whose f32 atomics sum in an order that changes from
+run to run, atol 1e-4 of the largest sum) and in bf16 (the kernel's max
+error against an f32 plain run is at most 2x the bf16 plain run's), with
+median times by CUDA events, each kernel's bound (the least time the card
+could take, from the bytes and operations of this run's inputs) and, for K2,
+K3 and K6, the time of F.grid_sample and of its backward as a yardstick that
+the port never calls; K8 is also held against K5 on the same inputs.
+Phase 2: serves 2 requests of 2 uint8 images at full width
 (configs/kgdet_moment_r50_fpn_1x_deepfashion2.py, bf16, 800x1344, seeded
 random weights) through make_predict_fn, checks the launch counts and the
-outputs, and compares the stage-3 head outputs with the same model on its
+outputs, and compares the last-stage head outputs with the same model on its
 plain kernels, in bf16 and in f32.
 Phase 3: where the time goes: torch.profiler over served batches run stage
 by stage (normalize, backbone, neck, head, decode), giving device time per
 stage and per kernel and the device's idle share of the window.
 Phase 4: training: builds the same model through init_trainer, takes one
-warm-up and three timed steps of make_train_step on seeded synthetic batches
+warm-up and two timed steps of make_train_step on seeded synthetic batches
 (16 boxes an image), checks the launch counts per step (K2 2, K3 2, K1 0,
 K4 1, K5 3), finite loss and gradient norm, a frozen parameter bit-equal and
 a free one moved; then holds the autograd Function over K2 and K3 against
@@ -37,9 +39,24 @@ the loss and the gradients of kp_rep_block_2/3 and layer4 between the model
 on its kernels and on their plain versions.
 Phase 5: the train step by stage (forward backbone / neck / head, loss and
 targets, backward, optimizer) under torch.profiler.
+Phase 6: the serial family served: phases 2 and 3 on
+configs/reppoints_moment_serial_r50_fpn_1x_deepfashion2.py (5-level FPN,
+launches K1 10 / K4 1 / K5 3 per forward, every level's refine-stage
+outputs compared), and one served batch of the parallel config, whose pts
+branch runs K1 at F = 512.
+Phase 7: the serial family trained: init_trainer on the serial config, one
+warm-up and two timed steps (launches per step K6 10, K3 10, K1 0, K2 0,
+K4 1, K5 3), the same checks as phase 4, the autograd Function over K6 and
+K3 against the one over their plain versions on the tensors the step hands
+the stride-8 and the stride-32 level, the model's gradients with K6+K3
+against their plain versions on the same prefix, and the step by stage.
+Phase 8 (run on phase 6's model, before phase 7): the ResNet-50 backbone
+with the per-block frozen layer1 (prefix_pipeline=False): launches K8 3 /
+K5 0 / K4 0, its C2 output against the K4+K5 chain and against the all-plain
+route, and its time beside the chain's.
 
 Prints the card's name and power limit, one line per check, a JSON line of
-the five kernels (launches on both main paths, error, times, bound), and as
+the seven kernels (launches on each main path, error, times, bound), and as
 its last line {"ok": true, "device": {...}}. Exits
 nonzero, with no result line, when a check fails or no CUDA device is
 present. Imports nothing of JAX and nothing of the JAX package.
@@ -56,6 +73,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, 'configs',
                       'kgdet_moment_r50_fpn_1x_deepfashion2.py')
+SERIAL_CONFIG = os.path.join(
+    ROOT, 'configs', 'reppoints_moment_serial_r50_fpn_1x_deepfashion2.py')
+PARALLEL_CONFIG = os.path.join(
+    ROOT, 'configs', 'reppoints_moment_parallel_r50_fpn_1x_deepfashion2.py')
+# the five levels of the serial family on the canvas: strides 8 to 128
+SERIAL_LEVELS = ((100, 168), (50, 84), (25, 42), (13, 21), (7, 11))
 B = 2
 CANVAS = (800, 1344)
 SEED = 0
@@ -89,7 +112,8 @@ MODEL_FLIP_SHARE = 1e-2
 # dense bf16 tensor-core rate, f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {'bf16': 989e12, 'f32': 67e12}
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
+SERVED = 2
 
 
 def fail(msg):
@@ -209,18 +233,23 @@ def merge(entries, calls=1):
     total = {k: calls * sum(e[k] for e in entries)
              for k in ('ms', 'plain_ms', 'bound_ms')}
     worst = max(entries, key=lambda e: e['bound_ms'])
+    library = None if any(e['library_ms'] is None for e in entries) \
+        else calls * sum(e['library_ms'] for e in entries)
     return entry(max(e['max_abs_err'] for e in entries), total['ms'],
-                 total['plain_ms'], total['bound_ms'], worst['bound_by'])
+                 total['plain_ms'], total['bound_ms'], worst['bound_by'],
+                 library_ms=library)
 
 
 def phase_kernels(torch, gen):
     import torch.nn.functional as F
 
     from kgdet_tpu_torch.ops import deform_kernels as dk
+    from kgdet_tpu_torch.ops import resblock as rb
     from kgdet_tpu_torch.ops import stem_kernels as sk
     from kgdet_tpu_torch.ops.deform import bilinear_gather
 
     dev = 'cuda'
+    bf16 = torch.bfloat16
 
     def randn(*shape, std=1.0):
         return (torch.randn(shape, generator=gen) * std).to(dev)
@@ -232,6 +261,52 @@ def phase_kernels(torch, gen):
     def out_bytes(fn, args):
         return nbytes(*tensors(fn(*args)))
 
+    def cast(args):                 # K1's (feat, pos, weight) in bf16
+        f, p, wt = args
+        return [f.to(bf16), p, wt.to(bf16)]
+
+    def k1_ops(P, t, C, F):
+        # the contraction, plus 7 operations a sampled value for the lerp
+        return 2 * B * P * t * C * F + 7 * B * P * t * C
+
+    def library_sampling(feat, pos, g):
+        """F.grid_sample and its backward on the taps of K2 / K3 / K6, a
+        yardstick only: checked in f32 to be the same function as the plain
+        gather, then timed in bf16 (f32 where the library lacks bf16).
+        feat (B,H,W,C), pos (B,P,K,2), cotangent g (B,P,K,C). Returns
+        (forward ms, backward ms, f32 max err, dtype timed)."""
+        H, W = feat.shape[1:3]
+
+        def as_grid(dtype):         # (y, x) pixels -> normalized (x, y)
+            return torch.stack([2 * pos[..., 1] / (W - 1) - 1,
+                                2 * pos[..., 0] / (H - 1) - 1],
+                               dim=-1).to(dtype)
+
+        def grid_sample(x, grid):
+            return F.grid_sample(x, grid, mode='bilinear',
+                                 padding_mode='zeros', align_corners=True)
+        nchw = feat.permute(0, 3, 1, 2).contiguous()
+        lib32 = grid_sample(nchw, as_grid(torch.float32)).permute(0, 2, 3, 1)
+        err = max_err(lib32, bilinear_gather(feat, pos))
+        if err > 1e-3:
+            fail(f'grid_sample is not the same function: max err {err:.3e}')
+        g_nchw = g.permute(0, 3, 1, 2).contiguous()
+
+        def timed(dtype):
+            x = nchw.to(dtype).requires_grad_(True)
+            grid = as_grid(dtype).requires_grad_(True)
+            with torch.no_grad():
+                fwd = median_ms(lambda: grid_sample(x, grid))
+            out = grid_sample(x, grid)
+            ct = g_nchw.to(dtype)
+            return fwd, median_ms(lambda: torch.autograd.grad(
+                out, (x, grid), ct, retain_graph=True))
+        try:
+            return (*timed(bf16), err, bf16)
+        except RuntimeError as exc:  # the library lacks a bf16 grid_sample
+            print(f'grid_sample in bf16: {str(exc)[:80]}; timed in f32')
+            return (*timed(torch.float32), err, torch.float32)
+
     results = {}
     # K1 at the three column widths: map 25x42x256, P = 1050, F = 256
     H, W, C = 25, 42, 256
@@ -241,18 +316,12 @@ def phase_kernels(torch, gen):
         feat = randn(B, H, W, C)
         pos = rand_pos(H, W, P, t)
         w = randn(t, C, C, std=(t * C) ** -0.5)
-
-        def cast(args):
-            f, p, wt = args
-            return [f.to(torch.bfloat16), p, wt.to(torch.bfloat16)]
         e32, ms, pms, a16 = check_pair(
             f'K1 deform_fused t={t}', dk.deform_conv_fused,
             dk.deform_conv_fused_ref, [feat, pos, w], cast)
-        # the contraction, plus 7 operations a sampled value for the lerp
-        ops = 2 * B * P * t * C * C + 7 * B * P * t * C
         k1.append(entry(e32, ms, pms, *bound(
-            nbytes(*a16) + out_bytes(dk.deform_conv_fused, a16), ops,
-            'bf16')))
+            nbytes(*a16) + out_bytes(dk.deform_conv_fused, a16),
+            k1_ops(P, t, C, C), 'bf16')))
     # 4 calls per column and forward: 2 deformable stages x 2 branches
     results['deform_fused'] = merge(k1, calls=4)
 
@@ -266,41 +335,9 @@ def phase_kernels(torch, gen):
         dk.deform_sample_split_ref, [cls_feat, pts_feat, pos, taps],
         lambda a: [a[0].to(torch.bfloat16), a[1].to(torch.bfloat16), a[2],
                    a[3]])
-    # yardstick only: one library call that computes the same function
     cat = torch.cat([cls_feat, pts_feat], dim=-1)
-
-    def as_grid(dtype):             # (y, x) pixels -> normalized (x, y)
-        return torch.stack([2 * pos[..., 1] / (W - 1) - 1,
-                            2 * pos[..., 0] / (H - 1) - 1], dim=-1).to(dtype)
-
-    def grid_sample(x, grid):
-        return F.grid_sample(x, grid, mode='bilinear', padding_mode='zeros',
-                             align_corners=True)
-    cat_nchw = cat.permute(0, 3, 1, 2).contiguous()
-    lib32 = grid_sample(cat_nchw, as_grid(torch.float32)).permute(0, 2, 3, 1)
-    lib_err = max_err(lib32, bilinear_gather(cat, pos))
-    if lib_err > 1e-3:
-        fail(f'grid_sample is not the same function: max err {lib_err:.3e}')
     g = randn(B, P, K, 2 * C)
-    g_nchw = g.permute(0, 3, 1, 2).contiguous()
-
-    def time_library(dtype):
-        """(forward ms, backward ms) of grid_sample in ``dtype``."""
-        x = cat_nchw.to(dtype).requires_grad_(True)
-        grid = as_grid(dtype).requires_grad_(True)
-        with torch.no_grad():
-            fwd = median_ms(lambda: grid_sample(x, grid))
-        out = grid_sample(x, grid)
-        ct = g_nchw.to(dtype)
-        return fwd, median_ms(lambda: torch.autograd.grad(
-            out, (x, grid), ct, retain_graph=True))
-    try:
-        lib_dtype = torch.bfloat16
-        lib_ms, lib_bwd_ms = time_library(lib_dtype)
-    except RuntimeError as exc:     # the library lacks a bf16 grid_sample
-        print(f'grid_sample in bf16: {str(exc)[:80]}; timed in f32')
-        lib_dtype = torch.float32
-        lib_ms, lib_bwd_ms = time_library(lib_dtype)
+    lib_ms, lib_bwd_ms, lib_err, lib_dtype = library_sampling(cat, pos, g)
     n_samples = B * P * K * 2 * C
     results['deform_sample_split'] = entry(e32, ms, pms, *bound(
         nbytes(*a16[:3]) + out_bytes(dk.deform_sample_split, a16),
@@ -320,7 +357,58 @@ def phase_kernels(torch, gen):
         26 * n_samples, 'f32'), library_ms=lib_bwd_ms)
     print(f'K3 yardstick backward of F.grid_sample ({lib_dtype}): '
           f'{lib_bwd_ms:.4f} ms', flush=True)
-    del lib32, cat_nchw, g_nchw
+
+    # the serial family's five levels, 9 taps a pixel: K1 (serving: the cls
+    # and the pts branch of a level), K6 (training forward) and K3 (its
+    # backward) on the same maps and positions
+    K = 9
+    k1s, k6, k3s = [], [], []
+    for H, W in SERIAL_LEVELS:
+        P = H * W
+        feat, pos = randn(B, H, W, C), rand_pos(H, W, P, K)
+        w = randn(K, C, C, std=(K * C) ** -0.5)
+        g = randn(B, P, K, C)
+        e32, ms, pms, a16 = check_pair(
+            f'K1 deform_fused serial level {H}x{W}', dk.deform_conv_fused,
+            dk.deform_conv_fused_ref, [feat, pos, w], cast)
+        k1s.append(entry(e32, ms, pms, *bound(
+            nbytes(*a16) + out_bytes(dk.deform_conv_fused, a16),
+            k1_ops(P, K, C, C), 'bf16')))
+        lib_fwd, lib_bwd, lib_err, lib_dtype = library_sampling(feat, pos, g)
+        n = B * P * K * C
+        e32, ms, pms, a16 = check_pair(
+            f'K6 deform_sample_cols level {H}x{W}', dk.deform_sample_cols,
+            dk.deform_sample_cols_ref, [feat, pos],
+            lambda a: [a[0].to(bf16), a[1]])
+        k6.append(entry(e32, ms, pms, *bound(
+            nbytes(*a16) + out_bytes(dk.deform_sample_cols, a16), 7 * n,
+            'f32'), library_ms=lib_fwd))
+        e32, ms, pms, a16 = check_pair(
+            f'K3 deform_sample_bwd serial level {H}x{W}',
+            dk.deform_sample_bwd, dk.deform_sample_bwd_ref, [feat, pos, g],
+            lambda a: [a[0].to(bf16), a[1], a[2].to(bf16)], scaled=True)
+        k3s.append(entry(e32, ms, pms, *bound(
+            nbytes(*a16) + out_bytes(dk.deform_sample_bwd, a16), 26 * n,
+            'f32'), library_ms=lib_bwd))
+        print(f'K6 / K3 yardstick F.grid_sample and its backward '
+              f'({lib_dtype}, NCHW) level {H}x{W}: {lib_fwd:.4f} / '
+              f'{lib_bwd:.4f} ms, f32 max err vs plain {lib_err:.3e}',
+              flush=True)
+    # a level's two branches: 2 launches a level and forward or step
+    results['deform_fused']['serial'] = merge(k1s, calls=2)
+    results['deform_sample_cols'] = merge(k6, calls=2)
+    results['deform_sample_bwd']['serial'] = merge(k3s, calls=2)
+    # the parallel head's pts branch: kpt | rep weights side by side, F = 512
+    H, W = SERIAL_LEVELS[0]
+    feat, pos = randn(B, H, W, C), rand_pos(H, W, H * W, K)
+    w = randn(K, C, 2 * C, std=(K * C) ** -0.5)
+    e32, ms, pms, a16 = check_pair(
+        f'K1 deform_fused F=512 level {H}x{W}', dk.deform_conv_fused,
+        dk.deform_conv_fused_ref, [feat, pos, w], cast)
+    results['deform_fused']['f512_level0'] = entry(e32, ms, pms, *bound(
+        nbytes(*a16) + out_bytes(dk.deform_conv_fused, a16),
+        k1_ops(H * W, K, C, 2 * C), 'bf16'))
+    del feat, pos, w, g, a16
 
     # K4 on both canvas orientations (timed and bounded on the first)
     sw = randn(7, 7, 3, 64, std=(2.0 / 147) ** 0.5)
@@ -338,7 +426,7 @@ def phase_kernels(torch, gen):
 
     # K5 for the three layer1 blocks at the stem output shape
     H4, W4 = CANVAS[0] // 4, CANVAS[1] // 4
-    k5 = []
+    k5, k8 = [], []
     for i, cin in enumerate((64, 256, 256)):
         x = torch.relu(randn(B, H4, W4, cin))
         blk = [randn(cin, 64, std=cin ** -0.5), randn(64, std=0.1),
@@ -356,11 +444,32 @@ def phase_kernels(torch, gen):
             nbytes(*[a for a in a16 if a is not None])
             + out_bytes(sk.frozen_bottleneck, a16),
             2 * B * H4 * W4 * macs, 'bf16')))
+        # K8, the per-block route's kernel, on the same inputs
+        e32, ms, pms, a16 = check_pair(
+            f'K8 fused_bottleneck block {i} (Cin {cin})',
+            rb.fused_bottleneck, rb.bottleneck_reference, [x] + blk,
+            lambda a: [a[0].to(bf16)] + a[1:])
+        k8.append(entry(e32, ms, pms, *bound(
+            nbytes(*[a for a in a16 if a is not None])
+            + out_bytes(rb.fused_bottleneck, a16),
+            2 * B * H4 * W4 * macs, 'bf16')))
+        for dt, args in (('f32', [x] + blk), ('bf16', a16)):
+            if not torch.allclose(rb.fused_bottleneck(*args).float(),
+                                  sk.frozen_bottleneck(*args).float(),
+                                  **F32_TOL):
+                fail(f'K8 and K5 disagree on block {i} in {dt}')
     results['frozen_bottleneck'] = merge(k5)
+    results['fused_bottleneck'] = merge(k8)
+    print('K8 agrees with K5 on the three layer1 blocks within the f32 '
+          'tolerance, in f32 and in bf16', flush=True)
     for name, r in results.items():
         print(f'bound {name}: {r["bound_ms"]:.4f} ms by {r["bound_by"]} '
               f'(kernel {r["ms"]:.4f} ms, per forward or step of batch {B})',
               flush=True)
+        if 'serial' in r:
+            q = r['serial']
+            print(f'bound {name}, serial family: {q["bound_ms"]:.4f} ms by '
+                  f'{q["bound_by"]} (kernel {q["ms"]:.4f} ms)', flush=True)
     return results
 
 
@@ -380,12 +489,21 @@ def make_requests(n, seed):
 def wrappers():
     """The kernel wrappers of the port, by kernel name."""
     from kgdet_tpu_torch.ops.deform_kernels import (
-        deform_conv_fused, deform_sample_bwd, deform_sample_split)
+        deform_conv_fused, deform_sample_bwd, deform_sample_cols,
+        deform_sample_split)
+    from kgdet_tpu_torch.ops.resblock import fused_bottleneck
     from kgdet_tpu_torch.ops.stem_kernels import frozen_bottleneck, stem_pool
     return {'deform_fused': deform_conv_fused,
             'deform_sample_split': deform_sample_split,
             'deform_sample_bwd': deform_sample_bwd, 'stem_pool': stem_pool,
-            'frozen_bottleneck': frozen_bottleneck}
+            'frozen_bottleneck': frozen_bottleneck,
+            'deform_sample_cols': deform_sample_cols,
+            'fused_bottleneck': fused_bottleneck}
+
+
+def launch_counts(**per_kernel):
+    """Expected launches by kernel name, 0 for every kernel not named."""
+    return {name: per_kernel.get(name, 0) for name in wrappers()}
 
 
 def reset_launches():
@@ -405,26 +523,32 @@ def serve(torch, predict, reqs):
     return dets, time.perf_counter() - t0
 
 
-def stage3(outs):
-    return {k: outs[0][k][-1] for k in ('cls', 'kpt', 'bbox')}
+def last_stage(outs):
+    """The last stage's cls, kpt and bbox maps of every level."""
+    return {f'{k} level {lvl}': o[k][-1] for lvl, o in enumerate(outs)
+            for k in ('cls', 'kpt', 'bbox')}
 
 
-def phase_serving(torch, gpu):
+def phase_serving(torch, gpu, config, per_fwd, n_reqs=SERVED, compare=True):
+    """Serve ``n_reqs`` requests through make_predict_fn on the config's
+    model at full width; check the launch counts per forward and the
+    detections; with ``compare``, hold the last-stage head outputs of the
+    model on its kernels against the model on their plain versions."""
     from kgdet_tpu_torch.api import build_model, load_config, make_predict_fn
     from kgdet_tpu_torch.ops.image import device_normalize
 
-    cfg = load_config(CONFIG)
+    cfg = load_config(config)
     cfg = cfg.replace(test=dataclasses.replace(cfg.test, score_thr=0.0))
-    print(f'serving: {os.path.relpath(CONFIG, ROOT)}, {cfg.compute_dtype}, '
-          f'canvas {CANVAS[0]}x{CANVAS[1]}, batch {B}, random weights '
-          f'(seed {SEED}); test.score_thr set to 0.0 so NMS has work under '
-          'random weights', flush=True)
-    model = build_model(cfg).init_weights(SEED).cuda().eval()
+    print(f'serving: {os.path.relpath(config, ROOT)} ({cfg.head.type}, '
+          f'strides {cfg.head.point_strides}), {cfg.compute_dtype}, canvas '
+          f'{CANVAS[0]}x{CANVAS[1]}, batch {B}, random weights (seed {SEED}); '
+          f'test.score_thr set to 0.0 so NMS has work under random weights',
+          flush=True)
+    model = build_model(cfg).init_weights(SEED).eval()
+    if next(model.parameters()).device.type != 'cuda':
+        fail('build_model did not place the model on the card')
     predict = make_predict_fn(model, cfg, CANVAS)
-    reqs = make_requests(4, SEED)
-    per_fwd = {'deform_fused': 12, 'deform_sample_split': 0,
-               'deform_sample_bwd': 0, 'stem_pool': 1,
-               'frozen_bottleneck': 3}
+    reqs = make_requests(n_reqs, SEED)
 
     predict(reqs[0])                      # warm-up: cuDNN plans, allocator
     reset_launches()
@@ -447,6 +571,11 @@ def phase_serving(torch, gpu):
     if n_valid == 0:
         fail('no detection survived NMS at score_thr 0')
     ips = B * len(reqs) / secs
+    if not compare:
+        print(f'serving: {len(reqs)} requests x {B} images, {n_valid} valid '
+              f'detections, launches {launches}; {ips:.2f} img/s ({gpu})',
+              flush=True)
+        return model, cfg, reqs[0], launches
 
     model.use_plain_kernels(True)
     predict(reqs[0])
@@ -457,7 +586,7 @@ def phase_serving(torch, gpu):
           f'detections, launches {launches}; {ips:.2f} img/s with kernels, '
           f'{pips:.2f} img/s with plain versions ({gpu})', flush=True)
 
-    # stage-3 head outputs: kernels vs plain, bf16 and f32
+    # last-stage head outputs: kernels vs plain, bf16 and f32
     image = device_normalize(torch.as_tensor(reqs[0]['image']).cuda(),
                              torch.as_tensor(reqs[0]['img_hw']).cuda())
     with torch.inference_mode():
@@ -466,23 +595,23 @@ def phase_serving(torch, gpu):
             model.dtype = dtype
             for plain in (False, True):
                 model.use_plain_kernels(plain)
-                runs[dtype, plain] = stage3(model(image))
+                runs[dtype, plain] = last_stage(model(image))
         model.dtype = torch.bfloat16
         model.use_plain_kernels(False)
     ref = runs[torch.float32, True]
-    for k in ('cls', 'kpt', 'bbox'):
+    for k in ref:
         scale = max(1.0, ref[k].float().abs().max().item())
         e32 = max_err(runs[torch.float32, False][k], ref[k])
         ek = max_err(runs[torch.bfloat16, False][k], ref[k])
         ep = max_err(runs[torch.bfloat16, True][k], ref[k])
-        print(f'stage-3 {k}: f32 kernels vs plain {e32:.3e} (bound '
+        print(f'last stage {k}: f32 kernels vs plain {e32:.3e} (bound '
               f'{MODEL_F32_REL * scale:.3e}); bf16 vs f32 plain: kernels '
               f'{ek:.3e}, plain {ep:.3e} (bound {BF16_RATIO} x plain)',
               flush=True)
         if not e32 <= MODEL_F32_REL * scale:
-            fail(f'stage-3 {k}: f32 kernel model differs by {e32:.3e}')
+            fail(f'last stage {k}: f32 kernel model differs by {e32:.3e}')
         if not ek <= BF16_RATIO * ep:
-            fail(f'stage-3 {k}: bf16 kernel model err {ek:.3e} > '
+            fail(f'last stage {k}: bf16 kernel model err {ek:.3e} > '
                  f'{BF16_RATIO} x plain {ep:.3e}')
     return model, cfg, reqs[0], launches
 
@@ -522,7 +651,7 @@ def print_top_kernels(kern, steps, top):
 STAGES = ('normalize', 'backbone', 'neck', 'head', 'decode')
 
 
-def phase_profile(torch, model, cfg, req, steps=4):
+def phase_profile(torch, model, cfg, req, gpu, steps=2):
     """Where the time goes over `steps` served batches, stages labelled
     here around the calls into each layer: per stage its device span
     (first to last kernel, gaps included) and its busy time (the kernels
@@ -567,7 +696,7 @@ def phase_profile(torch, model, cfg, req, steps=4):
     kind = 'plain versions' if model.backbone.plain_prefix else 'kernels'
     print(f'profile ({kind}): {steps} batches of {B} under torch.profiler: '
           f'{wall:.3f} ms per batch, device busy {busy:.3f} ms, idle share '
-          f'{1 - busy / wall:.3f}', flush=True)
+          f'{1 - busy / wall:.3f} ({gpu})', flush=True)
     print('  stage device span / busy ms per batch: ' + ', '.join(
         f'{s} {span_ms[s]:.3f}/{busy_ms[s]:.3f}' for s in STAGES), flush=True)
     print_top_kernels(kern, steps, 8)
@@ -664,12 +793,16 @@ GRAD_GROUPS = ('bbox_head.kp_rep_block_2.', 'bbox_head.kp_rep_block_3.',
                'backbone.layer4.')
 
 
-def phase_training(torch, gpu):
+def take_train_steps(torch, gpu, config, per_step, n_logs, free_name):
+    """init_trainer on the config, one warm-up and TRAIN_STEPS timed steps of
+    make_train_step on seeded synthetic batches: checks the launch counts
+    per step, finite logs (``n_logs`` of them), a frozen parameter bit-equal
+    and ``free_name`` moved. Returns (model, cfg, optimizer, batches,
+    launches)."""
     from kgdet_tpu_torch.api import init_trainer, load_config
-    from kgdet_tpu_torch.parallel.train import frozen_param_mask, \
-        make_loss_fn
+    from kgdet_tpu_torch.parallel.train import frozen_param_mask
 
-    cfg = load_config(CONFIG)
+    cfg = load_config(config)
     model, optimizer, train_step = init_trainer(cfg, CANVAS,
                                                 steps_per_epoch=1000)
     params = dict(model.named_parameters())
@@ -678,8 +811,7 @@ def phase_training(torch, gpu):
     batches = make_train_batches(1 + TRAIN_STEPS, SEED + 1,
                                  cfg.head.num_keypts)
     frozen = frozen_param_mask(model, cfg.backbone.frozen_stages)
-    frozen_name, free_name = 'backbone.layer1.0.conv1.weight', \
-        'bbox_head.kp_rep_block_3.cls_out.weight'
+    frozen_name = 'backbone.layer1.0.conv1.weight'
     if not frozen[frozen_name] or frozen[free_name]:
         fail('frozen_param_mask does not split layer1 from the head')
     start = {n: params[n].detach().clone() for n in (frozen_name, free_name)}
@@ -693,102 +825,87 @@ def phase_training(torch, gpu):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     got = read_launches()
-    per_step = {'deform_fused': 0, 'deform_sample_split': 2,
-                'deform_sample_bwd': 2, 'stem_pool': 1,
-                'frozen_bottleneck': 3}
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     if got != want:
         fail(f'launch counts {got} != {want} for {TRAIN_STEPS} train steps')
     peak = torch.cuda.max_memory_allocated()
     for i, lg in enumerate(logs):
         vals = {k: v.item() for k, v in lg.items()}
-        if len(vals) != 12 or not all(v == v and abs(v) != float('inf')
-                                      for v in vals.values()):
+        if len(vals) != n_logs or not all(v == v and abs(v) != float('inf')
+                                          for v in vals.values()):
             fail(f'train step {i}: logs {vals}')
         print(f'train step {i}: loss {vals["loss"]:.4f} grad_norm '
-              f'{vals["grad_norm"]:.4f} num_pos {vals["num_pos"]:.0f}',
-              flush=True)
+              f'{vals["grad_norm"]:.4f} ' + ' '.join(
+                  f'{k} {v:.0f}' for k, v in vals.items()
+                  if k.startswith('num_pos')), flush=True)
     if not torch.equal(params[frozen_name].detach(), start[frozen_name]):
         fail(f'frozen parameter {frozen_name} changed')
     if torch.equal(params[free_name].detach(), start[free_name]):
         fail(f'free parameter {free_name} did not move')
     ms = secs / TRAIN_STEPS * 1e3
-    print(f'training: {TRAIN_STEPS} steps x {B} images, {cfg.compute_dtype}, '
-          f'canvas {CANVAS[0]}x{CANVAS[1]}, launches {got}; {ms:.2f} ms per '
-          f'step, {B * TRAIN_STEPS / secs:.2f} img/s, peak memory '
+    print(f'training: {os.path.relpath(config, ROOT)}, {TRAIN_STEPS} steps x '
+          f'{B} images, {cfg.compute_dtype}, canvas {CANVAS[0]}x{CANVAS[1]}, '
+          f'launches {got}; {ms:.2f} ms per step, '
+          f'{B * TRAIN_STEPS / secs:.2f} img/s, peak memory '
           f'{peak / 2 ** 30:.3f} GiB ({gpu})', flush=True)
+    return model, cfg, optimizer, batches, got
 
-    # loss and gradients on one batch: kernels vs plain versions
-    loss_fn = make_loss_fn(model, cfg, CANVAS)
 
-    def loss_and_grads(dtype, plain, plain_prefix=None, batch=batches[0]):
-        model.dtype = dtype
-        model.use_plain_kernels(plain)
-        if plain_prefix is not None:
-            model.backbone.plain_prefix = plain_prefix
-        optimizer.zero_grad()
-        total, _ = loss_fn(batch)
-        total.backward()
-        return total.item(), {n: p.grad.float().clone()
-                              for n, p in params.items()
-                              if n.startswith(GRAD_GROUPS)}
+def loss_and_grads(model, optimizer, loss_fn, groups, dtype, plain, batch,
+                   plain_prefix=None):
+    """(loss, {name: f32 gradient} of the parameters under ``groups``) of
+    one batch, the model computing in ``dtype`` on its kernels or (``plain``)
+    their plain versions; ``plain_prefix`` overrides that for the frozen
+    prefix alone."""
+    model.dtype = dtype
+    model.use_plain_kernels(plain)
+    if plain_prefix is not None:
+        model.backbone.plain_prefix = plain_prefix
+    optimizer.zero_grad()
+    total, _ = loss_fn(batch)
+    total.backward()
+    return total.item(), {n: p.grad.float().clone()
+                          for n, p in model.named_parameters()
+                          if n.startswith(groups) and p.grad is not None}
 
-    def worst_of(run, against):
-        return max((max_err(run[1][n], against[1][n])
-                    / against[1][n].abs().max().item(), n)
-                   for n in against[1])
 
-    def worst_and_share(run, against):
-        """Over the parameters: the largest difference relative to the
-        gradient's scale, and the share of all their elements that differ
-        by more than MODEL_F32_REL of their parameter's scale."""
-        worst, beyond, total = (0.0, ''), 0, 0
-        for n, want in against[1].items():
-            diff = (run[1][n] - want).abs() / want.abs().max()
-            worst = max(worst, (diff.max().item(), n))
-            beyond += (diff > MODEL_F32_REL).sum().item()
-            total += diff.numel()
-        return worst, beyond / total
+def worst_and_share(run, against):
+    """Over the parameters: the largest difference relative to the
+    gradient's scale, and the share of all their elements that differ by
+    more than MODEL_F32_REL of their parameter's scale."""
+    worst, beyond, total = (0.0, ''), 0, 0
+    for n, want in against[1].items():
+        diff = (run[1][n] - want).abs() / want.abs().max()
+        worst = max(worst, (diff.max().item(), n))
+        beyond += (diff > MODEL_F32_REL).sum().item()
+        total += diff.numel()
+    return worst, beyond / total
 
-    f32 = torch.float32
-    ref_loss, ref = plain32 = loss_and_grads(f32, True)
-    kern32 = loss_and_grads(f32, False)
-    phase_function(torch, model, loss_fn, batches[0])
-    # K2 and K3 in the model: the plain head on the same (kernel) prefix
-    head32 = loss_and_grads(f32, True, plain_prefix=False)
+
+def check_same_prefix_grads(what, kern32, head32):
+    """f32, the model on its sampling kernels against the model on their
+    plain versions, the frozen prefix the same on both sides: the loss
+    within MODEL_F32_REL, every gradient element within MODEL_GRAD_REL and
+    all but MODEL_FLIP_SHARE of them within MODEL_F32_REL of its scale."""
     w_head, flips = worst_and_share(kern32, head32)
-    print(f'gradients f32, K2+K3 vs their plain versions on the same '
+    print(f'gradients f32, {what} vs their plain versions on the same '
           f'prefix: loss {kern32[0]:.6f} vs {head32[0]:.6f}; worst of '
-          f'{len(ref)} parameters {w_head[0]:.3e} of its scale ({w_head[1]}; '
-          f'bound {MODEL_GRAD_REL}); share of their elements beyond '
-          f'{MODEL_F32_REL}: {flips:.3e} (bound {MODEL_FLIP_SHARE})',
+          f'{len(head32[1])} parameters {w_head[0]:.3e} of its scale '
+          f'({w_head[1]}; bound {MODEL_GRAD_REL}); share of their elements '
+          f'beyond {MODEL_F32_REL}: {flips:.3e} (bound {MODEL_FLIP_SHARE})',
           flush=True)
     if not abs(kern32[0] - head32[0]) <= MODEL_F32_REL * abs(head32[0]) \
             or not w_head[0] <= MODEL_GRAD_REL \
             or not flips <= MODEL_FLIP_SHARE:
-        fail('f32: the model on K2 and K3 differs from the model on their '
+        fail(f'f32: the model on {what} differs from the model on their '
              'plain versions')
-    # all kernels vs all plain: K4 and K5 round their f32 sums in another
-    # order (1e-6), and this model's gradients amplify that: shown by the
-    # plain model's own change under one bit of one input pixel
-    w_all = worst_of(kern32, plain32)
-    nudged = dict(batches[0], image=batches[0]['image'].copy())
-    nudged['image'][0, 50, 50, 0] ^= 1
-    w_sens = worst_of(loss_and_grads(f32, True, batch=nudged), plain32)
-    print(f'gradients f32, all kernels vs all plain: loss {kern32[0]:.6f} vs '
-          f'{ref_loss:.6f}; worst {w_all[0]:.3e} of its scale ({w_all[1]}; '
-          f'bound {MODEL_GRAD_REL}); for scale, the plain model with one '
-          f'input pixel changed by 1/255: worst {w_sens[0]:.3e} '
-          f'({w_sens[1]})', flush=True)
-    if not abs(kern32[0] - ref_loss) <= MODEL_F32_REL * abs(ref_loss) \
-            or not w_all[0] <= MODEL_GRAD_REL:
-        fail('f32 kernel model: loss or a gradient differs from the plain '
-             'model')
-    runs = {(torch.bfloat16, plain): loss_and_grads(torch.bfloat16, plain)
-            for plain in (True, False)}
-    optimizer.zero_grad()
-    (k16_loss, k16), (p16_loss, p16) = runs[torch.bfloat16, False], \
-        runs[torch.bfloat16, True]
+
+
+def check_bf16_grads(ref_loss, ref, kern16, plain16, groups):
+    """bf16 against the f32 plain model: the kernel model's loss error and,
+    per parameter group, relative L2 gradient error at most BF16_RATIO x the
+    plain model's."""
+    (k16_loss, k16), (p16_loss, p16) = kern16, plain16
     # one bf16 rounding of the loss is the least either can be held to
     loss_floor = 2.0 ** -8 * abs(ref_loss)
     ek, ep = abs(k16_loss - ref_loss), abs(p16_loss - ref_loss)
@@ -796,7 +913,7 @@ def phase_training(torch, gpu):
           f'{ep:.3e}', flush=True)
     if not ek <= max(BF16_RATIO * ep, loss_floor):
         fail(f'bf16 kernel model: loss err {ek:.3e} > {BF16_RATIO} x {ep:.3e}')
-    for group in GRAD_GROUPS:
+    for group in groups:
         names = [n for n in ref if n.startswith(group)]
 
         def rel_err(run):
@@ -810,16 +927,214 @@ def phase_training(torch, gpu):
         if not ek <= BF16_RATIO * ep:
             fail(f'bf16 kernel model: gradients of {group}* err {ek:.3e} > '
                  f'{BF16_RATIO} x plain {ep:.3e}')
+
+
+def phase_training(torch, gpu):
+    from kgdet_tpu_torch.parallel.train import make_loss_fn
+
+    model, cfg, optimizer, batches, got = take_train_steps(
+        torch, gpu, CONFIG, launch_counts(
+            deform_sample_split=2, deform_sample_bwd=2, stem_pool=1,
+            frozen_bottleneck=3),
+        n_logs=12, free_name='bbox_head.kp_rep_block_3.cls_out.weight')
+
+    # loss and gradients on one batch: kernels vs plain versions
+    loss_fn = make_loss_fn(model, cfg, CANVAS)
+
+    def run(dtype, plain, plain_prefix=None, batch=batches[0]):
+        return loss_and_grads(model, optimizer, loss_fn, GRAD_GROUPS, dtype,
+                              plain, batch, plain_prefix)
+
+    def worst_of(run, against):
+        return max((max_err(run[1][n], against[1][n])
+                    / against[1][n].abs().max().item(), n)
+                   for n in against[1])
+
+    f32 = torch.float32
+    ref_loss, ref = plain32 = run(f32, True)
+    kern32 = run(f32, False)
+    phase_function(torch, model, loss_fn, batches[0])
+    # K2 and K3 in the model: the plain head on the same (kernel) prefix
+    check_same_prefix_grads('K2+K3', kern32, run(f32, True,
+                                                 plain_prefix=False))
+    # all kernels vs all plain: K4 and K5 round their f32 sums in another
+    # order (1e-6), and this model's gradients amplify that: shown by the
+    # plain model's own change under one bit of one input pixel
+    w_all = worst_of(kern32, plain32)
+    nudged = dict(batches[0], image=batches[0]['image'].copy())
+    nudged['image'][0, 50, 50, 0] ^= 1
+    w_sens = worst_of(run(f32, True, batch=nudged), plain32)
+    print(f'gradients f32, all kernels vs all plain: loss {kern32[0]:.6f} vs '
+          f'{ref_loss:.6f}; worst {w_all[0]:.3e} of its scale ({w_all[1]}; '
+          f'bound {MODEL_GRAD_REL}); for scale, the plain model with one '
+          f'input pixel changed by 1/255: worst {w_sens[0]:.3e} '
+          f'({w_sens[1]})', flush=True)
+    if not abs(kern32[0] - ref_loss) <= MODEL_F32_REL * abs(ref_loss) \
+            or not w_all[0] <= MODEL_GRAD_REL:
+        fail('f32 kernel model: loss or a gradient differs from the plain '
+             'model')
+    plain16 = run(torch.bfloat16, True)
+    check_bf16_grads(ref_loss, ref, run(torch.bfloat16, False), plain16,
+                     GRAD_GROUPS)
+    optimizer.zero_grad()
     model.dtype = torch.bfloat16
     model.use_plain_kernels(False)
     return model, cfg, optimizer, batches[0], got
+
+
+SERIAL_GRAD_GROUPS = ('bbox_head.', 'neck.', 'backbone.layer4.')
+
+
+def phase_serial_function(torch, model, loss_fn, batch):
+    """The autograd Function of deform_conv_fused over K6 and K3 against the
+    one over their plain versions, in f32, on the tensors that the train
+    step's forward hands the stride-8 and the stride-32 level (both
+    branches: map, tap positions, weight) and a seeded cotangent. No ReLU
+    lies between the inputs and what is compared, so the output and every
+    gradient are held to MODEL_F32_REL of their scale."""
+    import kgdet_tpu_torch.models.serial_head as serial_head
+    from kgdet_tpu_torch.ops.deform_kernels import deform_conv_fused
+
+    calls = []
+
+    def record(feat, pos, weight, plain=False):
+        calls.append((feat.detach(), pos.detach(), weight.detach()))
+        return deform_conv_fused(feat, pos, weight, plain=plain)
+
+    model.dtype = torch.float32
+    model.use_plain_kernels(False)
+    serial_head.deform_conv_fused = record
+    try:
+        with torch.no_grad():
+            loss_fn(batch)
+    finally:
+        serial_head.deform_conv_fused = deform_conv_fused
+    strides = model.bbox_head.point_strides
+    if len(calls) != 2 * len(strides):
+        fail(f'the forward made {len(calls)} deformable convs over '
+             f'{len(strides)} levels')
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 3)
+    names = ('output', 'grad map', 'grad positions', 'grad weight')
+    for lvl in (strides.index(8), strides.index(32)):
+        for branch, (feat, pos, weight) in zip(('cls', 'pts'),
+                                               calls[2 * lvl:2 * lvl + 2]):
+            ct = torch.randn((*pos.shape[:2], weight.shape[-1]),
+                             device='cuda', generator=gen)
+
+            def run(plain):
+                leaves = [t.clone().requires_grad_()
+                          for t in (feat, pos, weight)]
+                out = deform_conv_fused(*leaves, plain=plain)
+                return [out, *torch.autograd.grad(out, leaves, ct)]
+            got, want = run(False), run(True)
+            errs = [max_err(g, w) / w.abs().max().item()
+                    for g, w in zip(got, want)]
+            worst = max(zip(errs, names))
+            print(f'Function over K6+K3 vs plain on the train step\'s '
+                  f'tensors, f32, stride {strides[lvl]} {branch} branch (map '
+                  f'{feat.shape[1]}x{feat.shape[2]}, F {weight.shape[-1]}): '
+                  f'worst {worst[0]:.3e} of its scale ({worst[1]}; bound '
+                  f'{MODEL_F32_REL}; grad map by f32 atomics)', flush=True)
+            if not all(e <= MODEL_F32_REL for e in errs):
+                fail('f32: the Function over K6 and K3 differs from the one '
+                     f'over their plain versions at stride {strides[lvl]}: '
+                     + ', '.join(f'{n} {e:.3e}' for e, n in zip(errs, names)))
+
+
+def phase_serial_training(torch, gpu):
+    from kgdet_tpu_torch.parallel.train import make_loss_fn
+
+    n_levels = len(SERIAL_LEVELS)
+    model, cfg, optimizer, batches, got = take_train_steps(
+        torch, gpu, SERIAL_CONFIG, launch_counts(
+            deform_sample_cols=2 * n_levels, deform_sample_bwd=2 * n_levels,
+            stem_pool=1, frozen_bottleneck=3),
+        n_logs=5 * n_levels + 4,
+        free_name='bbox_head.keypts_refine_out.weight')
+    loss_fn = make_loss_fn(model, cfg, CANVAS)
+
+    def run(dtype, plain):
+        # the prefix stays on K4 and K5 on both sides: the candidate boxes,
+        # and so the refine targets, are then the same
+        return loss_and_grads(model, optimizer, loss_fn, SERIAL_GRAD_GROUPS,
+                              dtype, plain, batches[0], plain_prefix=False)
+
+    f32 = torch.float32
+    phase_serial_function(torch, model, loss_fn, batches[0])
+    ref_loss, ref = head32 = run(f32, True)
+    check_same_prefix_grads('K6+K3', run(f32, False), head32)
+    plain16 = run(torch.bfloat16, True)
+    check_bf16_grads(ref_loss, ref, run(torch.bfloat16, False), plain16,
+                     SERIAL_GRAD_GROUPS)
+    optimizer.zero_grad()
+    model.dtype = torch.bfloat16
+    model.use_plain_kernels(False)
+    return model, cfg, optimizer, batches[0], got
+
+
+def phase_per_block_backbone(torch, model, req, gpu):
+    """The backbone with the frozen layer1 run block by block (K8) in place
+    of the K4+K5 chain: launch counts, the C2 output against the chain's and
+    against the all-plain route's in f32 and bf16, and the frozen prefix's
+    time on both routes."""
+    from kgdet_tpu_torch.ops.image import device_normalize
+
+    backbone = model.backbone
+    image = device_normalize(torch.as_tensor(req['image']).cuda(),
+                             torch.as_tensor(req['img_hw']).cuda())
+
+    def c2(dtype, per_block, plain):
+        backbone.prefix_pipeline = not per_block
+        backbone.plain_prefix = plain
+        with torch.inference_mode():
+            return backbone(image.to(dtype))[0]
+
+    try:
+        reset_launches()
+        k16 = c2(torch.bfloat16, True, False)
+        got = read_launches()
+        want = launch_counts(fused_bottleneck=3)
+        if got != want:
+            fail(f'per-block backbone: launch counts {got} != {want}')
+        ref = c2(torch.float32, True, True)
+        scale = ref.abs().max().item()
+        e_chain = max_err(c2(torch.float32, True, False),
+                          c2(torch.float32, False, False))
+        e_plain = max_err(c2(torch.float32, True, False), ref)
+        ek, ep = max_err(k16, ref), max_err(c2(torch.bfloat16, True, True),
+                                            ref)
+        ec = max_err(c2(torch.bfloat16, False, False), ref)
+        x16 = image.to(torch.bfloat16)
+        times = {}
+        for per_block in (False, True, True, False):
+            backbone.prefix_pipeline = not per_block
+            backbone.plain_prefix = False
+            times.setdefault(per_block, []).append(
+                median_ms(lambda: backbone.frozen_prefix(x16), reps=10))
+    finally:
+        backbone.prefix_pipeline = True
+        backbone.plain_prefix = False
+    print(f'per-block backbone (K8 x3, stem and maxpool by PyTorch), C2 of '
+          f'{tuple(k16.shape)}: f32 vs the K4+K5 chain {e_chain:.3e}, vs the '
+          f'all-plain route {e_plain:.3e} (bound {MODEL_F32_REL * scale:.3e});'
+          f' bf16 vs f32 plain: K8 route {ek:.3e}, plain route {ep:.3e}, '
+          f'chain {ec:.3e} (bound {BF16_RATIO} x plain); frozen prefix bf16 '
+          f'median ms: per block {min(times[True]):.4f}, chain '
+          f'{min(times[False]):.4f} ({gpu})', flush=True)
+    if not max(e_chain, e_plain) <= MODEL_F32_REL * scale:
+        fail('f32: the per-block backbone differs from the chain or the '
+             'plain route')
+    if not ek <= BF16_RATIO * ep:
+        fail(f'bf16: per-block backbone err {ek:.3e} > {BF16_RATIO} x plain '
+             f'{ep:.3e}')
+    return got
 
 
 TRAIN_STAGES = ('normalize', 'fwd_backbone', 'fwd_neck', 'fwd_head',
                 'loss_targets', 'backward', 'optimizer')
 
 
-def phase_train_profile(torch, model, cfg, optimizer, batch, steps=3):
+def phase_train_profile(torch, model, cfg, optimizer, batch, gpu, steps=2):
     """The train step by stage. Each stage ends in a synchronize inside its
     labelled range, so every kernel falls into the host range of its stage
     (the backward's kernels are launched from the autograd thread): per
@@ -882,7 +1197,7 @@ def phase_train_profile(torch, model, cfg, optimizer, batch, steps=3):
         fail('the profiler saw no device time in the train step')
     print(f'train profile: {steps} steps of {B}: {wall:.3f} ms per step '
           f'unprofiled, device busy {busy:.3f} ms, idle share '
-          f'{1 - busy / wall:.3f}', flush=True)
+          f'{1 - busy / wall:.3f} ({gpu})', flush=True)
     print('  stage host span (synchronized) / device busy ms per step: '
           + ', '.join(f'{s} {span_ms[s]:.3f}/{busy_ms[s]:.3f}'
                       for s in TRAIN_STAGES + ('other',)), flush=True)
@@ -923,15 +1238,39 @@ def main():
 
     gen = torch.Generator().manual_seed(SEED)
     kernels = phase_kernels(torch, gen)
-    model, cfg, req, served = phase_serving(torch, gpu)
-    phase_profile(torch, model, cfg, req)
+    launches = {}                   # main path -> {kernel: launches}
+    prefix = dict(stem_pool=1, frozen_bottleneck=3)
+
+    # the KGDet cascade, served and trained
+    model, cfg, req, launches['serving'] = phase_serving(
+        torch, gpu, CONFIG, launch_counts(deform_fused=12, **prefix))
+    phase_profile(torch, model, cfg, req, gpu)
     model.use_plain_kernels(True)
-    phase_profile(torch, model, cfg, req)
-    model.use_plain_kernels(False)
+    phase_profile(torch, model, cfg, req, gpu)
     del model
     torch.cuda.empty_cache()
-    model, cfg, optimizer, batch, trained = phase_training(torch, gpu)
-    phase_train_profile(torch, model, cfg, optimizer, batch)
+    model, cfg, optimizer, batch, launches['training'] = \
+        phase_training(torch, gpu)
+    phase_train_profile(torch, model, cfg, optimizer, batch, gpu)
+    del model, optimizer
+    torch.cuda.empty_cache()
+
+    # the serial / parallel RepPoints family over the 5-level FPN
+    serial_fwd = launch_counts(deform_fused=2 * len(SERIAL_LEVELS), **prefix)
+    model, cfg, req, launches['serial_serving'] = phase_serving(
+        torch, gpu, SERIAL_CONFIG, serial_fwd)
+    phase_profile(torch, model, cfg, req, gpu)
+    launches['per_block_backbone'] = phase_per_block_backbone(
+        torch, model, req, gpu)
+    del model
+    torch.cuda.empty_cache()
+    model, _, _, launches['parallel_serving'] = phase_serving(
+        torch, gpu, PARALLEL_CONFIG, serial_fwd, n_reqs=1, compare=False)
+    del model
+    torch.cuda.empty_cache()
+    model, cfg, optimizer, batch, launches['serial_training'] = \
+        phase_serial_training(torch, gpu)
+    phase_train_profile(torch, model, cfg, optimizer, batch, gpu)
 
     src = 'kgdet_tpu_torch/csrc/'
     ref = 'kgdet_tpu/ops/'
@@ -945,16 +1284,21 @@ def main():
         'stem_pool': (src + 'stem_layer1.cu', ref + 'pallas_stem.py:122'),
         'frozen_bottleneck': (src + 'stem_layer1.cu',
                               ref + 'pallas_stem.py:215'),
+        'deform_sample_cols': (src + 'deform_sample.cu',
+                               ref + 'pallas_deform.py:177'),
+        'fused_bottleneck': (src + 'resblock.cu',
+                             ref + 'pallas_resblock.py:103'),
     }
     rows = []
     for name, (source, replaces) in meta.items():
-        if served[name] + trained[name] == 0:
-            fail(f'{name} was launched on neither main path')
+        by_path = {path: counts[name] for path, counts in launches.items()}
+        if sum(by_path.values()) == 0:
+            fail(f'{name} was launched on no main path')
         rows.append({'name': name, 'route': 'cuda', 'source': source,
                      'replaces': replaces,
-                     'launches': served[name] + trained[name],
-                     'launches_serving': served[name],
-                     'launches_training': trained[name], **kernels[name]})
+                     'launches': sum(by_path.values()),
+                     **{f'launches_{path}': n for path, n in by_path.items()},
+                     **kernels[name]})
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Target assignment and target building, as fixed-shape batched tensor ops.
 
-Port of kgdet_tpu/core/targets.py for the KGDet recipe (``PointTargets``,
-``assign_points_single``, ``point_targets``), with the batch dimension
-written out where the JAX package uses ``vmap``. The whole computation is a
+Port of kgdet_tpu/core/targets.py (``PointTargets``,
+``assign_points_single``, ``point_targets`` and, for the refine stage of
+the serial / parallel heads, ``max_iou_targets``), with the batch dimension
+written out where the JAX package uses ``vmap``. The point assignment is a
 (B, G, P) distance-matrix program:
 
 - each GT is mapped to its pyramid level by log2 scale;
@@ -129,4 +130,25 @@ def point_targets(points, point_valid, gt_bboxes, gt_labels, gt_kpts,
                                   scale, pos_num)
     return _targets_from_assignment(assigned, pos, torch.zeros_like(pos),
                                     point_valid, gt_bboxes, gt_labels,
+                                    gt_kpts)
+
+
+@torch.no_grad()
+def max_iou_targets(candidates, cand_valid, gt_bboxes, gt_labels, gt_kpts,
+                    gt_mask, pos_iou_thr=0.5, neg_iou_thr=0.4,
+                    min_pos_iou=0.0, gt_bboxes_ignore=None,
+                    gt_ignore_mask=None, ignore_iof_thr=-1.0):
+    """Batched refine-stage targets by MaxIoU assignment over candidate
+    boxes: candidates (B, P, 4) decoded init boxes, cand_valid (B, P), the
+    other arguments as ``point_targets``; optional crowd regions
+    gt_bboxes_ignore (B, Gi, 4) with gt_ignore_mask (B, Gi), whose
+    candidates (IoF above ignore_iof_thr) get label weight 0."""
+    from kgdet_tpu_torch.core.iou_assign import assign_max_iou
+    a = assign_max_iou(candidates, cand_valid, gt_bboxes, gt_mask,
+                       pos_iou_thr, neg_iou_thr, min_pos_iou,
+                       gt_bboxes_ignore=gt_bboxes_ignore,
+                       gt_ignore_mask=gt_ignore_mask,
+                       ignore_iof_thr=ignore_iof_thr)
+    return _targets_from_assignment(a.assigned_gt, a.pos_mask, a.ignore_mask,
+                                    cand_valid, gt_bboxes, gt_labels,
                                     gt_kpts)

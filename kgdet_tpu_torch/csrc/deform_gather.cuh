@@ -7,9 +7,9 @@
 // corner; V * sizeof(T) == 16 gives the 16-byte loads the card moves
 // fastest, V == 1 takes any channel count and alignment.
 //
-// Used by K2 (deform_split.cu, the two-branch split gather) and K3
-// (deform_bwd.cu, which needs the corners themselves). A one-map column
-// gather (the TPU package's _sample_kernel) can call sample_pack as it is.
+// Used by K2 (deform_split.cu, the two-branch split gather), K6
+// (deform_sample.cu, the one-map column gather) and K3 (deform_bwd.cu,
+// which needs the corners themselves).
 #pragma once
 
 #include "common.cuh"

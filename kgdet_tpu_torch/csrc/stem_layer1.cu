@@ -14,7 +14,8 @@
 // What bounds them on the H100: layer1 moves its 256-channel activations
 // through device memory once per block here (vs four times for the plain
 // conv sequence), so what remains is arithmetic: ~70 kMAC per pixel per
-// block, done as register-tiled f32 FMA products over shared-memory tiles.
+// block, done as register-tiled f32 FMA products over shared-memory tiles
+// (bottleneck_tiles.cuh, shared with K8 in resblock.cu).
 // The stem conv is small (147 MACs per output channel) and reads each
 // input pixel from a shared-memory tile that includes its halo. Both stay
 // on the FMA pipes; tensor-core (mma/wgmma) tiles are later work.
@@ -22,14 +23,12 @@
 // Numerics follow the TPU kernels: inputs and weights in the working dtype
 // T, products accumulated in f32, bias added in f32, and every stored
 // intermediate (stem map, conv1 and conv2 activations) rounded to T.
-#include "common.cuh"
+#include "bottleneck_tiles.cuh"
 
 #include <math.h>
 
 namespace kgdet {
 namespace {
-
-constexpr int kThreads = 256;
 
 // ------------------------------------------------------------------ K4
 constexpr int kStemC = 64;                 // stem output channels
@@ -118,65 +117,8 @@ stem_pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 // ------------------------------------------------------------------ K5
 constexpr int kWidth = 64;           // bottleneck mid channels
-constexpr int kBT = 8;               // output tile is kBT x kBT pixels
-constexpr int kHalo = kBT + 2;       // conv1 tile incl. the 3x3 halo
-constexpr int kHaloPix = kHalo * kHalo;
-constexpr int kKC = 32;              // reduction chunk
-constexpr int kLd = 64 + 4;          // padded row of a [k][m] staging tile
 constexpr int kBlockSmemFloats =
     kWidth * kHaloPix + kWidth * 64 + 2 * kKC * kLd;
-
-// acc[i][j] += sum_k A[k*lda + ty*4+i] * B[k*ldb + tx*4+j], k < kKC
-__device__ __forceinline__ void mma_chunk(const float* A, int lda,
-                                          const float* Bm, int ldb, int ty,
-                                          int tx, float acc[4][4]) {
-#pragma unroll 8
-  for (int k = 0; k < kKC; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(&A[k * lda + ty * 4]);
-    const float4 w = *reinterpret_cast<const float4*>(&Bm[k * ldb + tx * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * wv[j];
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-}
-
-// xs[k*kLd + m] = x[pixel of row m][c0 + k], zero outside the image or C;
-// row m < 64 maps to a pixel through pix_y/pix_x (-1 = no pixel)
-template <typename T, typename PixFn>
-__device__ __forceinline__ void stage_x(const T* xb, int H, int W, int Cin,
-                                        int c0, float* xs, PixFn pix) {
-  const int k = threadIdx.x % kKC;
-  for (int m = threadIdx.x / kKC; m < 64; m += kThreads / kKC) {
-    int gy, gx;
-    pix(m, gy, gx);
-    const int c = c0 + k;
-    xs[k * kLd + m] =
-        (gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin)
-            ? to_f32(xb[((size_t)gy * W + gx) * Cin + c])
-            : 0.f;
-  }
-}
-
-// ws[k*kLd + n] = w[(k0 + k) * ld + n0 + n] for n < 64, zero past rows
-template <typename T>
-__device__ __forceinline__ void stage_w(const T* w, int rows, int ld, int k0,
-                                        int n0, float* ws) {
-  const int n = threadIdx.x % 64;
-  for (int k = threadIdx.x / 64; k < kKC; k += kThreads / 64) {
-    ws[k * kLd + n] =
-        (k0 + k < rows) ? to_f32(w[(size_t)(k0 + k) * ld + n0 + n]) : 0.f;
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -216,7 +158,7 @@ bottleneck_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     zero_acc(acc);
     for (int c0 = 0; c0 < Cin; c0 += kKC) {
       stage_x(xb, H, W, Cin, c0, sa, pix);
-      stage_w(w1, Cin, kWidth, c0, 0, sb);
+      stage_w(w1, Cin, kWidth, kWidth, c0, 0, sb);
       __syncthreads();
       mma_chunk(sa, kLd, sb, kLd, ty, tx, acc);
       __syncthreads();
@@ -253,7 +195,8 @@ bottleneck_kernel(const T* __restrict__ x, const T* __restrict__ w1,
           sa[k * kLd + m] = a1[(c0 + k) * kHaloPix + hp];
         }
       }
-      stage_w(w2 + (size_t)tap * kWidth * kWidth, kWidth, kWidth, c0, 0, sb);
+      stage_w(w2 + (size_t)tap * kWidth * kWidth, kWidth, kWidth, kWidth,
+              c0, 0, sb);
       __syncthreads();
       mma_chunk(sa, kLd, sb, kLd, ty, tx, acc);
       __syncthreads();
@@ -277,7 +220,7 @@ bottleneck_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   for (int n0 = 0; n0 < Cout; n0 += 64) {
     zero_acc(acc);
     for (int c0 = 0; c0 < kWidth; c0 += kKC) {
-      stage_w(w3, kWidth, Cout, c0, n0, sb);
+      stage_w(w3, kWidth, Cout, Cout, c0, n0, sb);
       __syncthreads();
       mma_chunk(a2 + c0 * 64, 64, sb, kLd, ty, tx, acc);
       __syncthreads();
@@ -287,7 +230,7 @@ bottleneck_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     if (has_ds) {
       for (int c0 = 0; c0 < Cin; c0 += kKC) {
         stage_x(xb, H, W, Cin, c0, sa, center);
-        stage_w(wd, Cin, Cout, c0, n0, sb);
+        stage_w(wd, Cin, Cout, Cout, c0, n0, sb);
         __syncthreads();
         mma_chunk(sa, kLd, sb, kLd, ty, tx, dacc);
         __syncthreads();

@@ -1,6 +1,7 @@
 """Detector composition: backbone -> neck -> head.
 
-Port of kgdet_tpu/models/detector.py for the single-stage KGDet family.
+Port of kgdet_tpu/models/detector.py for the single-stage point-based
+families (models/families.py).
 Submodule names are the reference's (backbone, neck, bbox_head), so the
 state_dict keys are the reference checkpoint's.
 """
@@ -14,6 +15,7 @@ from kgdet_tpu_torch.models.families import get_head_family
 from kgdet_tpu_torch.models.fpn import FPN
 from kgdet_tpu_torch.models.kgdet_head import KpRepBlock
 from kgdet_tpu_torch.models.resnet import ResNet
+from kgdet_tpu_torch.models.serial_head import SerialKpHead
 
 
 def compute_dtype(cfg: KGDetConfig):
@@ -41,17 +43,17 @@ class KGDetDetector(nn.Module):
         return self
 
     def use_plain_kernels(self, plain: bool = True):
-        """Swap the kernels of the path (K1-K5) for their plain
-        PyTorch versions, or back: the reference a kernel run is checked
-        against."""
+        """Swap the kernels of the path (the frozen prefix's and the
+        deformable stages') for their plain PyTorch versions, or back: the
+        reference a kernel run is checked against."""
         self.backbone.plain_prefix = plain
         for m in self.modules():
-            if isinstance(m, KpRepBlock):
+            if isinstance(m, (KpRepBlock, SerialKpHead)):
                 m.plain = plain
         return self
 
     def forward(self, images):
         """images: (B, H, W, 3) normalized NHWC. Returns the per-level head
-        dicts (see KGDetHead)."""
+        dicts (see KGDetHead, SerialKpHead)."""
         feats = self.backbone(images.to(self.dtype))
         return self.bbox_head(self.neck(feats))

@@ -1,13 +1,17 @@
 """Head-family records: build + decode per single-stage head family.
 
-Port of kgdet_tpu/models/families.py: the ``KGDetHead`` record (build, loss,
-decode). Every other family raises ``NotImplementedError`` naming the
-ROADMAP queue that ports it.
+Port of kgdet_tpu/models/families.py: the records of the point-based
+families (build, loss, decode): ``KGDetHead`` and its single-column ablation
+``KGDetHead1Rep``, and the init/refine heads ``SerialKpHead``,
+``ParallelKpHead`` and ``RepPointsHead``. Every other family raises
+``NotImplementedError`` naming the ROADMAP queue that ports it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Dict
+
+import torch
 
 from kgdet_tpu_torch.ops.points import grid_points
 
@@ -32,6 +36,11 @@ def level_grids(cfg, canvas_hw, device=None):
 def _build_kgdet(cfg):
     from kgdet_tpu_torch.models.kgdet_head import KGDetHead
     return KGDetHead.from_config(cfg)
+
+
+def _build_kgdet_1rep(cfg):
+    from kgdet_tpu_torch.models.kgdet_head import KGDetHead
+    return KGDetHead.from_config(cfg, column_taps=(cfg.head.num_reppts,))
 
 
 def _point_init_targets(grids, valids, batch, cfg):
@@ -60,9 +69,53 @@ def _make_point_decode(cfg, canvas):
     return decode
 
 
+def _build_serial(parallel=False, with_keypoints=True):
+    def build(cfg):
+        from kgdet_tpu_torch.models.serial_head import SerialKpHead
+        return SerialKpHead.from_config(cfg, parallel=parallel,
+                                        with_keypoints=with_keypoints)
+    return build
+
+
+def _serial_loss(outs, grids, valids, batch, cfg, canvas_hw):
+    """Init stage on the point targets; refine stage on MaxIoU targets over
+    the candidate boxes that the detached init stage decodes to."""
+    from kgdet_tpu_torch.core.loss import serial_loss
+    from kgdet_tpu_torch.core.targets import max_iou_targets
+    ra = cfg.refine_assigner
+    if ra is None:
+        raise ValueError(f'{cfg.head.type} requires cfg.refine_assigner')
+    init_targets = _point_init_targets(grids, valids, batch, cfg)
+    refine_targets = []
+    for o, g, v in zip(outs, grids, valids):
+        stride = g[0, 2]
+        centers = torch.cat([g[:, :2], g[:, :2]], dim=-1)
+        bbox_off = o['bbox'][0].detach().float()
+        cand = bbox_off.reshape(bbox_off.shape[0], -1, 4) * stride \
+            + centers[None]
+        refine_targets.append(max_iou_targets(
+            cand, v, batch['gt_bboxes'], batch['gt_labels'],
+            batch['gt_kpts'], batch['gt_mask'],
+            pos_iou_thr=ra.pos_iou_thr, neg_iou_thr=ra.neg_iou_thr,
+            min_pos_iou=ra.min_pos_iou,
+            gt_bboxes_ignore=batch.get('gt_bboxes_ignore'),
+            gt_ignore_mask=batch.get('gt_ignore_mask'),
+            ignore_iof_thr=ra.ignore_iof_thr))
+    return serial_loss(outs, grids, init_targets, refine_targets, cfg.head)
+
+
+def _point_family(build, loss):
+    return HeadFamily(build=build, loss=loss, make_decode=_make_point_decode)
+
+
 HEAD_FAMILIES: Dict[str, HeadFamily] = {
-    'KGDetHead': HeadFamily(build=_build_kgdet, loss=_kgdet_loss,
-                            make_decode=_make_point_decode),
+    'KGDetHead': _point_family(_build_kgdet, _kgdet_loss),
+    'KGDetHead1Rep': _point_family(_build_kgdet_1rep, _kgdet_loss),
+    'SerialKpHead': _point_family(_build_serial(), _serial_loss),
+    'ParallelKpHead': _point_family(_build_serial(parallel=True),
+                                    _serial_loss),
+    'RepPointsHead': _point_family(
+        _build_serial(parallel=True, with_keypoints=False), _serial_loss),
 }
 
 

@@ -5,7 +5,8 @@ pyramid level:
   S1 (plain convs): cls logits, the 294-keypoint offset field, and the
      83-point RepPoints field derived from the keypoints by a 1x1 conv.
   S2/S3 (deformable): the previous stage's RepPoints are the tap positions
-     of three deformable columns (9/25/49 taps) per branch, run by
+     of three deformable columns (9/25/49 taps; one column of
+     ``num_reppts`` taps in the Kp1Rep ablation) per branch, run by
      ``deform_columns_dual``: kernel K1, 6 launches per stage, when no
      gradient is wanted; under differentiation one split gather (K2) in
      the forward and one sampling backward (K3) per stage. Keypoint and
@@ -35,7 +36,7 @@ from kgdet_tpu_torch.ops.points import points2bbox
 COLUMN_TAPS = (9, 25, 49)
 
 
-def _linear(x, conv):
+def dense_1x1(x, conv):
     """A 1x1 conv applied as a dense layer over the last axis of x."""
     dt = x.dtype
     w = conv.weight.reshape(conv.weight.shape[0], -1).to(dt)
@@ -57,26 +58,36 @@ class DeformConvWeight(nn.Module):
             .to(dtype).contiguous()
 
 
+def dfm_name(branch: str, taps, ci: int) -> str:
+    """The reference's DCN weight names: multi-column heads suffix the
+    kernel size (cls_dfmconv_3/5/7), the single-column Kp1Rep head does
+    not."""
+    if len(taps) == 1:
+        return f'{branch}_dfmconv'
+    return f'{branch}_dfmconv_{int(round(taps[ci] ** 0.5))}'
+
+
 class KpRepBlock(nn.Module):
     """One cascade stage: (cls logits, keypoint offsets, reppoint offsets),
     each (B, H, W, ·)."""
 
     def __init__(self, deform: bool, in_channels: int, cls_out_channels: int,
                  feat_channels: int = 256, num_keypts: int = 294,
-                 gradient_mul: float = 0.1):
+                 gradient_mul: float = 0.1,
+                 column_taps: Sequence[int] = COLUMN_TAPS):
         super().__init__()
         self.deform = deform
         self.gradient_mul = gradient_mul
-        self.column_taps = COLUMN_TAPS
+        self.column_taps = tuple(column_taps)
         self.plain = False
         n_rep = sum(self.column_taps)
         fch = feat_channels
         if deform:
             for branch in ('cls', 'keypts'):
-                for t in self.column_taps:
-                    k = int(round(t ** 0.5))
-                    setattr(self, f'{branch}_dfmconv_{k}',
-                            DeformConvWeight(in_channels, fch, k))
+                for ci, t in enumerate(self.column_taps):
+                    setattr(self, dfm_name(branch, self.column_taps, ci),
+                            DeformConvWeight(in_channels, fch,
+                                             int(round(t ** 0.5))))
             fch = feat_channels * len(self.column_taps)
         else:
             self.cls_conv = nn.Conv2d(in_channels, feat_channels, 3,
@@ -88,12 +99,12 @@ class KpRepBlock(nn.Module):
         self.reppts_out = nn.Conv2d(2 * num_keypts, 2 * n_rep, 1)
 
     def dfm_weights(self, branch, dtype):
-        return [getattr(self, f'{branch}_dfmconv_{int(round(t ** 0.5))}')
-                .tap_major(dtype) for t in self.column_taps]
+        return [getattr(self, dfm_name(branch, self.column_taps, ci))
+                .tap_major(dtype) for ci in range(len(self.column_taps))]
 
     def forward(self, cls_feat, pts_feat, reppts_offset=None):
         """Stage 1: NCHW features. Stages 2/3: NHWC (B, H, W, C) features
-        and the previous RepPoints field (B, H, W, 2*83)."""
+        and the previous RepPoints field (B, H, W, 2*sum(column_taps))."""
         if not self.deform:
             dt = cls_feat.dtype
 
@@ -102,10 +113,10 @@ class KpRepBlock(nn.Module):
                              padding=1)
                 return torch.relu(y).permute(0, 2, 3, 1)
 
-            cls_out = _linear(conv3(cls_feat, self.cls_conv), self.cls_out)
-            keypts_out = _linear(conv3(pts_feat, self.keypts_conv),
-                                 self.keypts_out)
-            return cls_out, keypts_out, _linear(keypts_out, self.reppts_out)
+            cls_out = dense_1x1(conv3(cls_feat, self.cls_conv), self.cls_out)
+            keypts_out = dense_1x1(conv3(pts_feat, self.keypts_conv),
+                                   self.keypts_out)
+            return cls_out, keypts_out, dense_1x1(keypts_out, self.reppts_out)
 
         B, H, W, C = cls_feat.shape
         dt = cls_feat.dtype
@@ -116,9 +127,9 @@ class KpRepBlock(nn.Module):
             cls_feat, pts_feat, pos, self.dfm_weights('cls', dt),
             self.dfm_weights('keypts', dt), self.column_taps,
             plain=self.plain)
-        cls_out = _linear(torch.relu(cls_cat), self.cls_out)
-        keypts_out = _linear(torch.relu(kpt_cat), self.keypts_out)
-        reppts_out = _linear(keypts_out, self.reppts_out)
+        cls_out = dense_1x1(torch.relu(cls_cat), self.cls_out)
+        keypts_out = dense_1x1(torch.relu(kpt_cat), self.keypts_out)
+        reppts_out = dense_1x1(keypts_out, self.reppts_out)
 
         def nhwc(t):
             return t.reshape(B, H, W, t.shape[-1])
@@ -135,7 +146,8 @@ class KGDetHead(nn.Module):
                  transform_method: str = 'moment', moment_mul: float = 0.01,
                  flip_forward: bool = False,
                  flip_indices: Optional[Sequence[int]] = None,
-                 norm: Optional[str] = 'gn', gn_groups: int = 32):
+                 norm: Optional[str] = 'gn', gn_groups: int = 32,
+                 column_taps: Sequence[int] = COLUMN_TAPS):
         super().__init__()
         self.point_strides = tuple(point_strides)
         self.transform_method = transform_method
@@ -151,12 +163,13 @@ class KGDetHead(nn.Module):
             setattr(self, f'kp_rep_block_{i + 1}', KpRepBlock(
                 deform=i > 0, in_channels=feat_channels,
                 cls_out_channels=num_classes, feat_channels=feat_channels,
-                num_keypts=num_keypts, gradient_mul=gradient_mul))
+                num_keypts=num_keypts, gradient_mul=gradient_mul,
+                column_taps=column_taps))
         self.moment_transfer = nn.Parameter(torch.zeros(2)) \
             if transform_method == 'moment' else None
 
     @classmethod
-    def from_config(cls, cfg):
+    def from_config(cls, cfg, column_taps=COLUMN_TAPS):
         h = cfg.head
         flip_indices = None
         if h.flip_forward and h.num_keypts == 294:
@@ -171,7 +184,7 @@ class KGDetHead(nn.Module):
                    transform_method=h.transform_method,
                    moment_mul=h.moment_mul, flip_forward=h.flip_forward,
                    flip_indices=flip_indices, norm=h.norm,
-                   gn_groups=h.gn_groups)
+                   gn_groups=h.gn_groups, column_taps=column_taps)
 
     def init_weights(self, gen):
         for m in self.modules():

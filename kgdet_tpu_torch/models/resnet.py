@@ -7,9 +7,12 @@ with ``load_state_dict``.
 
 With ``frozen_stages >= 1`` the stem, maxpool and layer1 run as the frozen
 prefix ``ops/stem_kernels.py::stem_layer1`` (kernels K4 and K5) under
-``torch.no_grad()``, with FrozenBatchNorm folded into the convs. The stem is
-the plain 7x7/2 conv, not the TPU's space-to-depth rewrite. layer2-4 are
-plain ``F.conv2d`` blocks.
+``torch.no_grad()``, with FrozenBatchNorm folded into the convs. With
+``prefix_pipeline=False`` (the JAX module's route when its whole-prefix
+pipeline does not apply) the stem and maxpool are PyTorch calls and each
+layer1 block is one ``ops/resblock.py::fused_bottleneck`` launch (kernel
+K8). The stem is the plain 7x7/2 conv, not the TPU's space-to-depth
+rewrite. layer2-4 are plain ``F.conv2d`` blocks.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from kgdet_tpu_torch.models.layers import FrozenBatchNorm, init_he_normal_
-from kgdet_tpu_torch.ops.resblock import fold_bn
+from kgdet_tpu_torch.ops.resblock import bottleneck_reference, fold_bn, \
+    fused_bottleneck
 from kgdet_tpu_torch.ops.stem_kernels import stem_layer1, stem_layer1_ref
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -76,7 +80,8 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     def __init__(self, depth: int = 50, num_stages: int = 4,
-                 out_indices=(0, 1, 2, 3), frozen_stages: int = -1):
+                 out_indices=(0, 1, 2, 3), frozen_stages: int = -1,
+                 prefix_pipeline: bool = True):
         super().__init__()
         if depth not in STAGE_BLOCKS:
             raise NotImplementedError(
@@ -86,6 +91,7 @@ class ResNet(nn.Module):
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
         self.num_stages = num_stages
+        self.prefix_pipeline = prefix_pipeline
         self.plain_prefix = False
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
@@ -122,9 +128,22 @@ class ResNet(nn.Module):
                 init_he_normal_(m.weight, gen)
 
     def frozen_prefix(self, x):
-        """Stem conv + BN + ReLU + maxpool + layer1 as the kernel chain
-        K4 -> K5 x len(layer1). x (B,H,W,3) -> (B,H/4,W/4,256) NHWC."""
+        """Stem conv + BN + ReLU + maxpool + layer1, frozen. x (B,H,W,3) ->
+        (B,H/4,W/4,256) NHWC. The kernel chain K4 -> K5 x len(layer1), or
+        per block (``prefix_pipeline=False``): the stem and maxpool in
+        PyTorch, then one K8 launch per layer1 block."""
         with torch.no_grad():
+            if not self.prefix_pipeline:
+                y = torch.relu(self.bn1(_conv(x.permute(0, 3, 1, 2),
+                                              self.conv1, 2, 3)))
+                y = F.max_pool2d(y, 3, 2, 1).permute(0, 2, 3, 1)
+                block = bottleneck_reference if self.plain_prefix \
+                    else fused_bottleneck
+                for blk in self.layer1:
+                    f = blk.folded()
+                    y = block(y, f['w1'], f['b1'], f['w2'], f['b2'], f['w3'],
+                              f['b3'], f.get('wd'), f.get('bd'))
+                return y
             sw, sb = fold_bn(self.conv1.weight.permute(2, 3, 1, 0),
                              self.bn1.weight, self.bn1.bias,
                              self.bn1.running_mean, self.bn1.running_var,

@@ -26,7 +26,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / 'csrc'
 BUILD = PKG / 'build'
-SOURCES = ('deform_fused', 'deform_split', 'deform_bwd', 'stem_layer1')
+SOURCES = ('deform_fused', 'deform_split', 'deform_bwd', 'deform_sample',
+           'stem_layer1', 'resblock')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,9 +45,16 @@ SIGNATURES = {
     'deform_bwd': {
         'kgdet_deform_bwd': [_P] * 6 + [_I] * 7 + [_P],
     },
+    'deform_sample': {
+        'kgdet_deform_sample': [_P] * 4 + [_I] * 7 + [_P],
+    },
     'stem_layer1': {
         'kgdet_stem_pool': [_P] * 4 + [_I] * 4 + [_P],
         'kgdet_frozen_bottleneck': [_P] * 10 + [_I] * 6 + [_P],
+    },
+    'resblock': {
+        'kgdet_fused_bottleneck': [_P] * 10 + [_I] * 7 + [_P],
+        'kgdet_fused_bottleneck_smem': [_I],
     },
 }
 
@@ -65,7 +73,7 @@ def find_nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.iterdir()):
+    for f in sorted(CSRC.iterdir()):    # sources and the headers they share
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]

@@ -6,6 +6,8 @@ into clamped row starts and 2x2 corner weights, and it is where the boundary
 semantics live. Both the plain ``bilinear_gather`` and the CUDA kernel
 wrappers (ops/deform_kernels.py) take their indices from it;
 ``prep_indices_bwd`` does the same for the sampling backward.
+``deform_sample`` / ``deform_conv`` are the relative-offset entries (output
+pixel centers at ``stride`` times the output index, optional modulation).
 
 Out-of-bounds semantics match the reference CUDA DCN kernel: each bilinear
 corner contributes only when it lies inside the feature map. Corner starts
@@ -139,6 +141,59 @@ def absolute_positions(rel_offsets_yx, H: int, W: int):
     centers = torch.stack([cy.repeat_interleave(W), cx.repeat(H)], dim=-1)
     return rel_offsets_yx.to(pos_dtype).reshape(B, H * W, K, 2) \
         + centers[None, :, None, :]
+
+
+def deform_sample(feat, rel_offsets_yx, stride: int = 1,
+                  plain: bool = False):
+    """Sample every output pixel's K taps at center + offset.
+
+    feat (B, H, W, C); rel_offsets_yx (B, Ho, Wo, K, 2) tap offsets (y, x)
+    relative to each output pixel's input-space center (stride * output
+    index), in feature-grid units, Ho/Wo = ceil(H/stride), ceil(W/stride).
+    Returns the (B, Ho*Wo, K, C) columns, row-major over (Ho, Wo).
+
+    On CUDA tensors the column gather (K6) with the sampling backward (K3)
+    as its gradient (ops/deform_kernels.py::deform_sample_hybrid); on the
+    CPU, or with ``plain``, ``bilinear_gather`` under autograd."""
+    B, Ho, Wo, K, _ = rel_offsets_yx.shape
+    pos_dtype = torch.promote_types(rel_offsets_yx.dtype, torch.float32)
+    dev = rel_offsets_yx.device
+    cy = torch.arange(Ho, dtype=pos_dtype, device=dev) * stride
+    cx = torch.arange(Wo, dtype=pos_dtype, device=dev) * stride
+    centers = torch.stack([cy.repeat_interleave(Wo), cx.repeat(Ho)], dim=-1)
+    pos = rel_offsets_yx.to(pos_dtype).reshape(B, Ho * Wo, K, 2) \
+        + centers[None, :, None, :]
+    if plain or feat.device.type == 'cpu':
+        return bilinear_gather(feat, pos)
+    from kgdet_tpu_torch.ops.deform_kernels import deform_sample_hybrid
+    return deform_sample_hybrid(feat, pos)
+
+
+def deform_conv_from_samples(samples, weight, bias=None):
+    """Contract gathered columns with a DCN weight: samples (B, P, K, C),
+    weight (K, C, Cout), bias (Cout,) or None -> (B, P, Cout) in the
+    samples' dtype, accumulated (and the bias added) in f32."""
+    B, P, K, C = samples.shape
+    cols = samples.reshape(B * P, K * C)
+    w = weight.to(samples.dtype).reshape(K * C, -1)
+    if bias is None:
+        out = cols @ w
+    else:       # the sum stays in f32 until the bias is in
+        out = cols.float() @ w.float() + bias
+    return out.to(samples.dtype).view(B, P, -1)
+
+
+def deform_conv(feat, rel_offsets_yx, weight, bias=None, modulation=None,
+                stride: int = 1, plain: bool = False):
+    """Full deformable conv: sample + contract -> (B, Ho, Wo, Cout).
+    modulation: optional (B, Ho, Wo, K) per-tap gates (the v2, "modulated",
+    form); None is v1."""
+    B, Ho, Wo, K, _ = rel_offsets_yx.shape
+    cols = deform_sample(feat, rel_offsets_yx, stride=stride, plain=plain)
+    if modulation is not None:
+        cols = cols * modulation.reshape(B, Ho * Wo, K, 1).to(cols.dtype)
+    out = deform_conv_from_samples(cols, weight, bias)
+    return out.reshape(B, Ho, Wo, weight.shape[-1])
 
 
 def grad_multiply(x, mul):

@@ -1,14 +1,20 @@
-"""The deformable sampling kernels and the cascade block's dual path.
+"""The deformable sampling kernels, the one-map deformable conv and the
+cascade block's dual path.
 
 K1 ``deform_conv_fused`` (csrc/deform_fused.cu): fused gather + contraction,
 the inference path. Port of kgdet_tpu/ops/pallas_deform.py::_fused_impl
-(kernel ``_fused_kernel``).
+(kernel ``_fused_kernel``); under differentiation the same entry runs the
+autograd Function over K6 and K3, as the JAX package's custom_vjp does.
 K2 ``deform_sample_split`` (csrc/deform_split.cu): all taps sampled once
 over the cls|pts concat into per-column, per-branch tensors, the training
 forward. Port of ``deform_sample_split_pallas`` (kernel ``_split_kernel``).
 K3 ``deform_sample_bwd`` (csrc/deform_bwd.cu): the backward of bilinear
 sampling. Port of ``_deform_bwd_vw`` (kernel ``_bwd_kernel_vw``) and, the
 same function, the older ``_bwd_kernel`` / ``_bwd_kernel_v2``.
+K6 ``deform_sample_cols`` (csrc/deform_sample.cu): the bilinear columns of
+one map, the training forward of a one-map deformable conv. Port of
+``deform_sample_pallas`` (kernel ``_sample_kernel``); ``deform_sample_hybrid``
+pairs it with K3 as its backward.
 ``deform_columns_dual`` is the block-level entry of the KGDet head: K1 per
 (column, branch) when no gradient is wanted, else the autograd Function
 over K2 and K3. The TPU tiling machinery (VMEM tiers, row pairing, the vw
@@ -36,12 +42,20 @@ def deform_conv_fused_ref(feat, pos_yx, weight):
     return torch.einsum('bpkc,kcf->bpf', cols, weight.to(feat.dtype))
 
 
-def deform_conv_fused(feat, pos_yx, weight):
+def deform_conv_fused(feat, pos_yx, weight, plain: bool = False):
     """out[b,p,:] = sum_k sum_c bilinear(feat[b], pos[b,p,k])[c] *
     weight[k,c,:]. feat (B,H,W,C) f32|bf16, pos_yx (B,P,K,2) absolute
-    (y, x), weight (K,C,F). Returns (B,P,F) in feat's dtype; on CUDA the
-    sampled columns never reach device memory."""
-    if feat.device.type == 'cpu':
+    (y, x), weight (K,C,F). Returns (B,P,F) in feat's dtype.
+
+    When no gradient is wanted, kernel K1: on CUDA the sampled columns never
+    reach device memory. Under differentiation, the autograd Function over
+    the column gather (K6) and the sampling backward (K3), which keeps the
+    columns for the weight gradient. ``plain`` runs the kernels' plain
+    versions instead, whatever the device."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (feat, pos_yx, weight)):
+        return _FusedConvGrad.apply(feat, pos_yx, weight, plain)
+    if plain or feat.device.type == 'cpu':
         return deform_conv_fused_ref(feat, pos_yx, weight)
     feat = pad_min2(feat).contiguous()
     B, H, W, C = feat.shape
@@ -213,6 +227,99 @@ def deform_sample_bwd(feat, pos_yx, g):
 
 
 deform_sample_bwd.launches = 0
+
+
+# --------------------------------------------------- K6: one-map column gather
+deform_sample_cols_ref = bilinear_gather
+
+
+def deform_sample_cols(feat, pos_yx):
+    """The bilinear columns of one map: feat (B,H,W,C) f32|bf16, pos_yx
+    (B,P,K,2) absolute (y, x) -> (B,P,K,C) in feat's dtype; out-of-bounds
+    corners weigh 0."""
+    if feat.device.type == 'cpu':
+        return deform_sample_cols_ref(feat, pos_yx)
+    feat = pad_min2(feat).contiguous()
+    B, H, W, C = feat.shape
+    P, K = pos_yx.shape[1], pos_yx.shape[2]
+    if pos_yx.shape != (B, P, K, 2):
+        raise ValueError(f'shape mismatch: feat {tuple(feat.shape)}, pos '
+                         f'{tuple(pos_yx.shape)}')
+    starts, w4 = prep_indices(pos_yx.float(), H, W)
+    out = torch.empty((B, P, K, C), dtype=feat.dtype, device=feat.device)
+    _build.require_cuda(feat, starts, w4, out)
+    lib = _build.load('deform_sample')
+    rc = lib.kgdet_deform_sample(
+        feat.data_ptr(), starts.data_ptr(), w4.data_ptr(), out.data_ptr(),
+        B, H * W, C, P, K, _build.vec_ok(C, feat, out),
+        _build.dtype_code(feat), _build.stream_ptr(feat.device))
+    _build.check(rc, 'deform_sample')
+    deform_sample_cols.launches += 1
+    return out
+
+
+deform_sample_cols.launches = 0
+
+
+class _SampleGrad(torch.autograd.Function):
+    """Column gather with a kernel on both sides (``deform_sample_hybrid``
+    of the JAX package): K6 forward, K3 backward. ``plain`` selects their
+    plain versions."""
+
+    @staticmethod
+    def forward(ctx, feat, pos_yx, plain):
+        ctx.plain = plain
+        ctx.save_for_backward(feat, pos_yx)
+        sample = deform_sample_cols_ref if plain else deform_sample_cols
+        return sample(feat, pos_yx)
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, pos_yx = ctx.saved_tensors
+        bwd = deform_sample_bwd_ref if ctx.plain else deform_sample_bwd
+        grad_feat, grad_pos = bwd(feat, pos_yx, g.to(feat.dtype).contiguous())
+        return grad_feat, grad_pos, None
+
+
+def deform_sample_hybrid(feat, pos_yx, plain: bool = False):
+    """Differentiable ``deform_sample_cols``: the gradients of the map and
+    of the positions come from the sampling backward (K3)."""
+    return _SampleGrad.apply(feat, pos_yx, plain)
+
+
+class _FusedConvGrad(torch.autograd.Function):
+    """The differentiated path of ``deform_conv_fused`` (the custom_vjp
+    rules ``_fused_fwd`` / ``_fused_bwd`` of the JAX package).
+
+    Forward: the columns once (K6), one contraction accumulated in f32 and
+    rounded to the map's dtype; the columns are saved. Backward: the column
+    cotangent g @ w^T rounded to the map's dtype, ONE sampling backward
+    (K3), and the weight gradient cols^T @ g from the saved columns, cast to
+    the weight's dtype. The contractions are library matmuls, as the JAX
+    package leaves them to XLA. ``plain`` selects the plain versions of K6
+    and K3 (the comparison model)."""
+
+    @staticmethod
+    def forward(ctx, feat, pos_yx, weight, plain):
+        sample = deform_sample_cols_ref if plain else deform_sample_cols
+        cols = sample(feat, pos_yx)
+        B, P, K, C = cols.shape
+        w = weight.to(feat.dtype).reshape(K * C, -1)
+        ctx.plain, ctx.weight_dtype = plain, weight.dtype
+        ctx.save_for_backward(feat, pos_yx, w, cols)
+        return (cols.reshape(B * P, K * C) @ w).view(B, P, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, pos_yx, w, cols = ctx.saved_tensors
+        B, P, K, C = cols.shape
+        gc = g.reshape(B * P, -1).to(feat.dtype)
+        g_w = (cols.reshape(B * P, K * C).t() @ gc).view(K, C, -1) \
+            .to(ctx.weight_dtype)
+        g_cols = (gc @ w.t()).view(B, P, K, C)
+        bwd = deform_sample_bwd_ref if ctx.plain else deform_sample_bwd
+        grad_feat, grad_pos = bwd(feat, pos_yx, g_cols)
+        return grad_feat, grad_pos, g_w, None
 
 
 # ---------------------------------------------- the cascade block's dual path

@@ -1,6 +1,6 @@
 """Training step, optimizer and LR schedule, on one device.
 
-Port of kgdet_tpu/parallel/train.py for the single-stage family:
+Port of kgdet_tpu/parallel/train.py for the single-stage families:
 ``make_lr_schedule``, ``frozen_param_mask``, ``paramwise_multipliers``,
 ``make_optimizer``, ``build_level_geometry``, ``batch_valid_flags``,
 ``compute_loss`` and ``make_train_step``. Parameters are addressed by their
@@ -161,14 +161,18 @@ def compute_loss(outs, grids, valids, batch, cfg: KGDetConfig,
 
 BATCH_KEYS = ('image', 'valid_hw', 'gt_bboxes', 'gt_labels', 'gt_kpts',
               'gt_mask')
+# crowd regions, read by the refine assigner of the serial family when the
+# batch has them
+OPTIONAL_BATCH_KEYS = ('gt_bboxes_ignore', 'gt_ignore_mask')
 
 
 def make_loss_fn(model, cfg: KGDetConfig, canvas_hw):
     """loss_fn(batch) -> (total, logs) on the model's device, with autograd
     recording. batch: image (B, H, W, 3) uint8 BGR or normalized float,
     valid_hw (B, 2), gt_bboxes (B, G, 4), gt_labels (B, G), gt_kpts
-    (B, G, K, 3), gt_mask (B, G); tensors or numpy arrays. BatchNorm stays
-    frozen, as in the JAX train step."""
+    (B, G, K, 3), gt_mask (B, G) and, optionally, gt_bboxes_ignore
+    (B, Gi, 4) with gt_ignore_mask (B, Gi); tensors or numpy arrays.
+    BatchNorm stays frozen, as in the JAX train step."""
     if cfg.detector_type != 'single_stage':
         raise NotImplementedError(
             f'detector_type {cfg.detector_type!r} is not ported yet; the '
@@ -177,7 +181,8 @@ def make_loss_fn(model, cfg: KGDetConfig, canvas_hw):
 
     def loss_fn(batch):
         dev = next(model.parameters()).device
-        feed = {k: torch.as_tensor(batch[k]).to(dev) for k in BATCH_KEYS}
+        feed = {k: torch.as_tensor(batch[k]).to(dev) for k in BATCH_KEYS
+                + tuple(k for k in OPTIONAL_BATCH_KEYS if k in batch)}
         if dev not in grids:
             grids[dev] = build_level_geometry(cfg, canvas_hw, device=dev)
         image = device_normalize(feed['image'], feed['valid_hw'])
@@ -191,7 +196,9 @@ def make_loss_fn(model, cfg: KGDetConfig, canvas_hw):
 
 def make_train_step(model, cfg: KGDetConfig, canvas_hw, optimizer):
     """train_step(batch) -> logs: forward, loss, backward, one optimizer
-    update in place. ``logs`` holds the nine loss terms, ``num_pos``,
+    update in place. ``logs`` holds the family's loss terms and positive
+    counts (nine terms and ``num_pos`` for the KGDet cascade; five terms a
+    level, ``num_pos_init`` and ``num_pos_refine`` for the serial family),
     ``loss`` and ``grad_norm`` (the global norm before clipping) as detached
     0-d tensors on the model's device."""
     loss_fn = make_loss_fn(model, cfg, canvas_hw)

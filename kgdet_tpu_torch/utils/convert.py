@@ -1,8 +1,9 @@
 """Weights into the port: flax variables -> a state_dict under the
 reference's torch names, and the loader of a reference .pth.
 
-The inverse of kgdet_tpu/utils/torch_convert.py for the serving-path
-modules: its layout maps are inverted, not re-derived.
+The inverse of kgdet_tpu/utils/torch_convert.py for the ported modules
+(backbone, neck, the KGDet cascade heads and the serial / parallel / plain
+RepPoints heads): its layout maps are inverted, not re-derived.
   _conv_kernel  (Cout,Cin,kh,kw) -> (kh,kw,Cin,Cout)   inverse: (3,2,0,1)
   _dense_kernel (Cout,Cin,1,1)   -> (Cin,Cout)     inverse: .T[..., None, None]
   _dcn_kernel   (Cout,Cin,k,k)   -> tap-major (k*k,Cin,Cout)
@@ -85,9 +86,19 @@ def _head_name(path):
             return (base + ('.weight' if leaf == 'kernel' else '.bias'),
                     _inv_conv if leaf == 'kernel' else None)
         return base + '.' + _NORM_LEAF[leaf], None
+    # serial / parallel / plain RepPoints heads
+    if re.match(r'(cls|keypts|reppts)_refine_dfmconv$', path[0]):
+        return f'bbox_head.{path[0]}.weight', _inv_dcn
+    if re.match(r'(keypts|reppts)_init_conv$|'
+                r'(cls|keypts|reppts)_(init|refine)_out$', path[0]):
+        base = f'bbox_head.{path[0]}'
+        if path[1] == 'bias':
+            return base + '.bias', None
+        return base + '.weight', (_inv_conv if path[0].endswith('_conv')
+                                  else _inv_dense)
     if re.match(r'kp_rep_block_\d$', path[0]):
         base = f'bbox_head.{path[0]}.{path[1]}'
-        if re.match(r'(cls|keypts)_dfmconv_\d$', path[1]):
+        if re.match(r'(cls|keypts)_dfmconv(_\d)?$', path[1]):
             return base + '.weight', _inv_dcn
         leaf = path[2]
         if leaf == 'bias':

@@ -4,7 +4,9 @@ Needs a CUDA card and nvcc; every test skips, in its fixture, without one.
 The main-path shapes are checked by chip_smoke.py; these cases cover ragged
 tiles: pixel counts, channel counts and image sizes that are not multiples
 of the kernels' tile sizes, maps under 2x2, taps that are all out of bounds
-or all on one pixel, and the wrappers' shape checks. f32 tolerance rtol 1e-5,
+or all on one pixel, the wrappers' shape checks, the relative-offset entries
+at stride 2, the autograd Functions over K6 and K3, and the ResNet per-block
+route (K8) against the chain (K4+K5). f32 tolerance rtol 1e-5,
 atol 1e-4 (chip_smoke.py's); K3's gradient map is summed with f32 atomics in
 an order that changes from run to run, which that tolerance covers. Imports
 no JAX, so it also runs where jax is absent:
@@ -14,7 +16,9 @@ no JAX, so it also runs where jax is absent:
 import pytest
 import torch
 
+from kgdet_tpu_torch.ops import deform
 from kgdet_tpu_torch.ops import deform_kernels as dk
+from kgdet_tpu_torch.ops import resblock as rb
 from kgdet_tpu_torch.ops import stem_kernels as sk
 
 pytestmark = pytest.mark.gpu
@@ -165,6 +169,178 @@ def test_k3_edge_shapes(gen, H, W, C, P, taps, kind):
     assert (kp - rp).abs().max() <= \
         max(2 * (pp - rp).abs().max().item(),
             1e-4 * max(1.0, rp.abs().max().item()))
+
+
+@pytest.mark.parametrize('H,W,C,P,taps,kind', SAMPLING_CASES)
+def test_k6_edge_shapes(gen, H, W, C, P, taps, kind):
+    K = sum(taps)
+    feat = _randn(gen, 2, H, W, C)
+    pos = _positions(gen, 2, P, K, H, W, kind)
+    before = dk.deform_sample_cols.launches
+    got = dk.deform_sample_cols(feat, pos)
+    assert dk.deform_sample_cols.launches == before + 1
+    want = dk.deform_sample_cols_ref(feat, pos)
+    assert got.shape == (2, P, K, C) and got.is_contiguous()
+    torch.testing.assert_close(got, want, **TOL)
+    if kind == 'outside':
+        assert not got.any()
+    f16 = feat.bfloat16()
+    got16 = dk.deform_sample_cols(f16, pos)
+    ref = dk.deform_sample_cols_ref(f16.float(), pos)
+    plain16 = dk.deform_sample_cols_ref(f16, pos)
+    assert got16.dtype == torch.bfloat16
+    assert (got16.float() - ref).abs().max() <= \
+        2 * (plain16.float() - ref).abs().max()
+
+
+@pytest.mark.parametrize('stride', [1, 2])
+def test_deform_sample_and_conv_on_the_card(gen, stride):
+    """ops/deform.py::deform_sample / deform_conv on CUDA tensors (K6
+    forward, K3 backward) against their plain route: values and the
+    gradients of the map, the offsets and the weight; output pixel centres
+    at ``stride`` times the output index."""
+    H, W, C, K, F = 7, 9, 24, 5, 8
+    Ho, Wo = -(-H // stride), -(-W // stride)
+    leaves = [_randn(gen, 2, H, W, C), _randn(gen, 2, Ho, Wo, K, 2, std=2.0),
+              _randn(gen, K, C, F, std=(K * C) ** -0.5)]
+    mod = torch.rand((2, Ho, Wo, K), generator=gen).cuda()
+    ct = _randn(gen, 2, Ho, Wo, F)
+
+    def run(plain):
+        xs = [x.clone().requires_grad_(True) for x in leaves]
+        out = deform.deform_conv(xs[0], xs[1], xs[2], modulation=mod,
+                                 stride=stride, plain=plain)
+        return [out, *torch.autograd.grad(out, xs, ct)]
+
+    k6, k3 = dk.deform_sample_cols.launches, dk.deform_sample_bwd.launches
+    got = run(False)
+    assert dk.deform_sample_cols.launches == k6 + 1
+    assert dk.deform_sample_bwd.launches == k3 + 1
+    for g, w in zip(got, run(True)):
+        torch.testing.assert_close(
+            g, w, rtol=1e-5, atol=1e-4 * max(1.0, w.abs().max().item()))
+
+
+def test_fused_conv_function_on_the_card(gen):
+    """deform_conv_fused under differentiation (the Function over K6 and
+    K3) against the same Function over their plain versions, and against K1
+    without a gradient."""
+    C, F, H, W, K = 32, 16, 6, 5, 9
+    P = H * W
+    leaves = [_randn(gen, 2, H, W, C),
+              _positions(gen, 2, P, K, H, W, 'mixed'),
+              _randn(gen, K, C, F, std=(K * C) ** -0.5)]
+    ct = _randn(gen, 2, P, F)
+
+    def run(plain):
+        xs = [x.clone().requires_grad_(True) for x in leaves]
+        out = dk.deform_conv_fused(*xs, plain=plain)
+        return [out, *torch.autograd.grad(out, xs, ct)]
+
+    k1, k6, k3 = (dk.deform_conv_fused.launches,
+                  dk.deform_sample_cols.launches,
+                  dk.deform_sample_bwd.launches)
+    got = run(False)
+    assert (dk.deform_conv_fused.launches, dk.deform_sample_cols.launches,
+            dk.deform_sample_bwd.launches) == (k1, k6 + 1, k3 + 1)
+    for g, w in zip(got, run(True)):
+        torch.testing.assert_close(
+            g, w, rtol=1e-5, atol=1e-4 * max(1.0, w.abs().max().item()))
+    fused = dk.deform_conv_fused(*leaves)
+    assert dk.deform_conv_fused.launches == k1 + 1
+    torch.testing.assert_close(fused, got[0], **TOL)
+
+
+def _block(gen, cin, width, cout, ds):
+    ws = [_randn(gen, cin, width, std=cin ** -0.5), _randn(gen, width, std=.1),
+          _randn(gen, 3, 3, width, width, std=(9 * width) ** -0.5),
+          _randn(gen, width, std=.1),
+          _randn(gen, width, cout, std=width ** -0.5),
+          _randn(gen, cout, std=.1)]
+    return ws + ([_randn(gen, cin, cout, std=cin ** -0.5),
+                  _randn(gen, cout, std=.1)] if ds else [None, None])
+
+
+@pytest.mark.parametrize('H,W,cin,width,cout,ds', [
+    (16, 16, 8, 8, 16, True),       # the TPU kernel's own test shapes
+    (16, 16, 16, 8, 16, False),
+    (13, 21, 64, 64, 256, True),    # H, W off the 8x8 tile
+    (13, 21, 256, 64, 256, False),
+    (5, 3, 24, 40, 72, True),       # every channel count off its tile
+    (9, 9, 128, 128, 128, False),   # width over one 64-channel tile
+])
+def test_k8_edge_shapes(gen, H, W, cin, width, cout, ds):
+    x = torch.relu(_randn(gen, 2, H, W, cin))
+    ws = _block(gen, cin, width, cout, ds)
+    before = rb.fused_bottleneck.launches
+    got = rb.fused_bottleneck(x, *ws)
+    assert rb.fused_bottleneck.launches == before + 1
+    want = rb.bottleneck_reference(x, *ws)
+    torch.testing.assert_close(got, want.contiguous(), **TOL)
+    x16 = x.bfloat16()
+    got16 = rb.fused_bottleneck(x16, *ws)
+    ref = rb.bottleneck_reference(x16.float(),
+                                  *[None if w is None else
+                                    w.bfloat16().float() if w.dim() > 1 else w
+                                    for w in ws])
+    plain16 = rb.bottleneck_reference(x16, *ws)
+    assert got16.dtype == torch.bfloat16
+    assert (got16.float() - ref).abs().max() <= \
+        2 * (plain16.float() - ref).abs().max()
+
+
+def test_k8_single_tile_with_a_distinctive_border(gen):
+    """One 8x8 tile whose halo lies wholly outside the image, first and last
+    rows at +5 and -5: conv2 must see zeros there, not relu(b1)."""
+    x = _randn(gen, 1, 8, 8, 8)
+    x[:, 0], x[:, -1] = 5.0, -5.0
+    ws = _block(gen, 8, 8, 16, True)
+    ws[1] = ws[1].abs() + 1.0               # relu(b1) far from zero
+    torch.testing.assert_close(rb.fused_bottleneck(x, *ws),
+                               rb.bottleneck_reference(x, *ws).contiguous(),
+                               **TOL)
+
+
+def test_k8_agrees_with_k5_at_width_64(gen):
+    x = torch.relu(_randn(gen, 2, 24, 40, 64))
+    ws = _block(gen, 64, 64, 256, True)
+    torch.testing.assert_close(rb.fused_bottleneck(x, *ws),
+                               sk.frozen_bottleneck(x, *ws), **TOL)
+
+
+def test_k8_refuses_what_it_does_not_take(gen):
+    y = _randn(gen, 1, 8, 8, 64)
+    with pytest.raises(ValueError, match='shared memory'):   # 344 KB of tiles
+        rb.fused_bottleneck(y, *_block(gen, 64, 512, 64, False))
+    with pytest.raises(ValueError):           # cin != cout, no downsample
+        rb.fused_bottleneck(y, *_block(gen, 64, 64, 256, False))
+    with pytest.raises(ValueError):           # width off the multiple of 8
+        rb.fused_bottleneck(y, *_block(gen, 64, 12, 64, False))
+    with pytest.raises(TypeError):            # f16 is not a kernel dtype
+        rb.fused_bottleneck(y.half(), *_block(gen, 64, 64, 64, False))
+
+
+def test_resnet_per_block_route_matches_the_chain(gen):
+    """The backbone with prefix_pipeline=False (K8 per layer1 block) against
+    the K4+K5 chain and the all-plain route, every stage output, f32."""
+    from kgdet_tpu_torch.models.resnet import ResNet
+    net = ResNet(depth=50, frozen_stages=1).cuda()
+    net.init_weights(torch.Generator().manual_seed(1))
+    x = _randn(gen, 1, 72, 104, 3)
+    with torch.no_grad():
+        chain = net(x)
+        net.prefix_pipeline = False
+        k8, k5 = rb.fused_bottleneck.launches, sk.frozen_bottleneck.launches
+        per_block = net(x)
+        assert rb.fused_bottleneck.launches == k8 + 3
+        assert sk.frozen_bottleneck.launches == k5
+        net.plain_prefix = True
+        plain = net(x)
+        assert rb.fused_bottleneck.launches == k8 + 3
+    for got, a, b in zip(per_block, chain, plain):
+        scale = b.abs().max().item()
+        torch.testing.assert_close(got, a, rtol=1e-4, atol=1e-4 * scale)
+        torch.testing.assert_close(got, b, rtol=1e-4, atol=1e-4 * scale)
 
 
 def test_columns_dual_function_on_the_card(gen):

@@ -7,11 +7,14 @@ deform_sample_bwd_ref vs _deform_bwd_pallas under each of its three
 generations (v1, v2, vw) and vs autograd through bilinear_gather; the
 autograd Function of deform_columns_dual vs jax.grad through the JAX
 package's CPU path; K4 stem_pool_ref vs pallas_stem.stem_pool_transposed;
-K5 frozen_bottleneck_ref vs pallas_stem.bottleneck_transposed. f32,
-tolerance 1e-4 (the deform kernels, the scale of
-tests/test_pallas_deform.py's checks) and 1e-5 (K4/K5, as
-tests/test_stem_pipeline.py). The CUDA kernels themselves are held
-against these plain versions on the GPU by chip_smoke.py.
+K5 frozen_bottleneck_ref vs pallas_stem.bottleneck_transposed; K6
+deform_sample_cols_ref vs deform_sample_pallas; K8 bottleneck_reference vs
+pallas_resblock.fused_bottleneck; the autograd Functions over K6 and K3 vs
+jax.vjp of deform_conv_fused and deform_sample_hybrid. f32, tolerance 1e-4
+(the deform kernels, the scale of tests/test_pallas_deform.py's checks; 1e-5
+for K6, as its own) and 1e-5 (K4/K5/K8, as tests/test_stem_pipeline.py and
+tests/test_resblock.py). The CUDA kernels themselves are held against these
+plain versions on the GPU by chip_smoke.py.
 """
 import numpy as np
 import jax
@@ -25,9 +28,15 @@ from kgdet_tpu.ops.pallas_stem import (
     bottleneck_transposed, from_interior, stem_pool_transposed, to_interior,
     transpose_folded)
 from kgdet_tpu_torch.ops.deform import bilinear_gather
+from kgdet_tpu.ops.pallas_resblock import fused_bottleneck as \
+    jfused_bottleneck
 from kgdet_tpu_torch.ops.deform_kernels import deform_columns_dual, \
-    deform_conv_fused_ref, deform_sample_bwd_ref, deform_sample_split_ref
-from tests.test_torch_ops import BOUNDARY_POS
+    deform_conv_fused, deform_conv_fused_ref, deform_sample_bwd_ref, \
+    deform_sample_cols, deform_sample_cols_ref, deform_sample_hybrid, \
+    deform_sample_split_ref
+from kgdet_tpu_torch.ops.resblock import bottleneck_reference, \
+    fused_bottleneck
+from tests.test_torch_ops import BOUNDARY_POS, _off_grid
 from kgdet_tpu_torch.ops.stem_kernels import frozen_bottleneck_ref, \
     stem_layer1_ref, stem_pool_ref
 
@@ -305,3 +314,114 @@ def test_stem_layer1_plain_matches_pipeline():
     got = stem_layer1_ref(_t(x), _t(sw), _t(sb), blocks_t)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+K6_CASES = {
+    # the three shapes of tests/test_pallas_deform.py
+    'reference': (2, 6, 7, 5, 11, (-2, 9)),
+    'all_outside': (1, 5, 5, 2, 3, None),
+    'pixel_tile_edge': (1, 4, 4, 3, pd.TP + 3, (0, 3)),
+    # a one-row map: the port pads it to two rows inside, the TPU kernel is
+    # given the padded map, as kgdet_tpu's deform_sample does
+    'one_row': (1, 1, 6, 3, 7, (-1.5, 6.5)),
+}
+
+
+@pytest.mark.parametrize('case', sorted(K6_CASES))
+def test_k6_plain_matches_sample_pallas(interpret_mode, case):
+    """The one-map column gather against the TPU kernel; atol 1e-5 as
+    tests/test_pallas_deform.py (both sum four f32 products)."""
+    B, H, W, K, P, span = K6_CASES[case]
+    C = 128
+    rng = np.random.RandomState(40 + len(case))
+    feat = rng.randn(B, H, W, C).astype(np.float32)
+    if span is None:
+        pos = np.full((B, P, K, 2), -10.0, np.float32)
+    else:
+        pos = rng.uniform(*span, (B, P, K, 2)).astype(np.float32)
+    padded = np.pad(feat, ((0, 0), (0, max(2 - H, 0)), (0, max(2 - W, 0)),
+                           (0, 0)))
+    want = pd.deform_sample_pallas(jnp.asarray(padded), jnp.asarray(pos))
+    before = deform_sample_cols.launches
+    got = deform_sample_cols(_t(feat), _t(pos))      # CPU: the plain version
+    assert deform_sample_cols.launches == before
+    np.testing.assert_array_equal(
+        got.numpy(), deform_sample_cols_ref(_t(feat), _t(pos)).numpy())
+    assert got.shape == (B, P, K, C)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    if span is None:
+        assert not got.any()
+
+
+@pytest.mark.parametrize('case', ['downsample', 'identity', 'border'])
+def test_k8_plain_matches_fused_bottleneck_pallas(case):
+    """The three cases of tests/test_resblock.py: with a downsample, with
+    the identity, and a single row step whose halo rows are both outside
+    the image under a distinctive border (conv2 must see zeros there, not
+    relu(b1)). f32, rtol 1e-5 / atol 1e-5 as there."""
+    cin, width, cout = (16, 8, 16) if case == 'identity' else (8, 8, 16)
+    H = W = 8 if case == 'border' else 16
+    rng = np.random.RandomState(50)
+    x = rng.randn(1 if case == 'border' else 2, H, W, cin).astype(np.float32)
+    if case == 'border':
+        x[:, 0], x[:, -1] = 5.0, -5.0
+    ws = _block_weights(cin, width, cout, case != 'identity', seed=51)
+    want = jfused_bottleneck(jnp.asarray(x), *[
+        None if a is None else jnp.asarray(a) for a in ws], interpret=True)
+    tws = [None if a is None else _t(a) for a in ws]
+    before = fused_bottleneck.launches
+    got = fused_bottleneck(_t(x), *tws)              # CPU: the plain version
+    assert fused_bottleneck.launches == before
+    np.testing.assert_array_equal(
+        got.numpy(), bottleneck_reference(_t(x), *tws).numpy())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_fused_conv_function_matches_pallas_custom_vjp(interpret_mode):
+    """The same Function against jax.vjp of pallas_deform.deform_conv_fused
+    itself (K6's and K3's TPU kernels in interpret mode, C = 128): output
+    and the three gradients, 1e-4 of each gradient's scale."""
+    rng = np.random.RandomState(25)
+    B, H, W, C, K, F = 1, 4, 5, 128, 4, 128
+    P = H * W
+    feat = rng.randn(B, H, W, C).astype(np.float32)
+    pos = _off_grid(rng, -1, 5.5, (B, P, K, 2))
+    w = (rng.randn(K, C, F) * .1).astype(np.float32)
+    ct = rng.randn(B, P, F).astype(np.float32)
+    want, vjp = jax.vjp(pd.deform_conv_fused, jnp.asarray(feat),
+                        jnp.asarray(pos), jnp.asarray(w))
+    want_g = vjp(jnp.asarray(ct))
+    leaves = [_t(a).requires_grad_() for a in (feat, pos, w)]
+    got = deform_conv_fused(*leaves)
+    got_g = torch.autograd.grad(got, leaves, _t(ct))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+    for g, wg in zip(got_g, want_g):
+        wg = np.asarray(wg)
+        np.testing.assert_allclose(g.numpy(), wg,
+                                   atol=1e-4 * np.abs(wg).max())
+
+
+def test_sample_function_matches_jax_vjp(interpret_mode):
+    """deform_sample_hybrid (K6 forward, K3 backward; plain versions on the
+    CPU) against jax.vjp of pallas_deform.deform_sample_hybrid in interpret
+    mode: columns and both gradients, 1e-4 of each gradient's scale."""
+    rng = np.random.RandomState(26)
+    B, H, W, C, K, P = 1, 5, 6, 128, 2, 7
+    feat = rng.randn(B, H, W, C).astype(np.float32)
+    pos = _off_grid(rng, -1, 6.5, (B, P, K, 2))
+    ct = rng.randn(B, P, K, C).astype(np.float32)
+    want, vjp = jax.vjp(pd.deform_sample_hybrid, jnp.asarray(feat),
+                        jnp.asarray(pos))
+    want_g = vjp(jnp.asarray(ct))
+    leaves = [_t(a).requires_grad_() for a in (feat, pos)]
+    got = deform_sample_hybrid(*leaves)
+    assert 'SampleGrad' in type(got.grad_fn).__name__
+    got_g = torch.autograd.grad(got, leaves, _t(ct))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+    for g, wg in zip(got_g, want_g):
+        wg = np.asarray(wg)
+        np.testing.assert_allclose(g.numpy(), wg,
+                                   atol=1e-4 * np.abs(wg).max())

@@ -157,8 +157,9 @@ def test_other_families_raise():
 
 def test_port_runs_without_jax_flax_cv2():
     """The port imports, loads every config file, serves a batch and takes
-    a train step with jax, flax, cv2 and kgdet_tpu unavailable, as on the
-    GPU machine."""
+    a train step (the KGDet cascade, then each of the serial, parallel,
+    plain RepPoints and single-column families) with jax, flax, cv2 and
+    kgdet_tpu unavailable, as on the GPU machine."""
     code = '\n'.join([
         'import glob, sys',
         "for m in ('jax', 'flax', 'cv2', 'kgdet_tpu'):",
@@ -190,14 +191,31 @@ def test_port_runs_without_jax_flax_cv2():
         "model, opt, step = init_trainer(cfg, (64, 96), 10, device='cpu')",
         "w = model.bbox_head.kp_rep_block_3.cls_out.weight",
         "before = w.detach().clone()",
-        "logs = step({'image': batch['image'], 'valid_hw': batch['img_hw'], "
+        "train_batch = {'image': batch['image'], "
+        "'valid_hw': batch['img_hw'], "
         "'gt_bboxes': np.array([[[8, 8, 60, 50]]], np.float32), "
         "'gt_labels': np.ones((1, 1), np.int32), "
         "'gt_kpts': np.concatenate([rng.uniform(8, 50, (1, 1, 12, 2)), "
         "np.ones((1, 1, 12, 1))], -1).astype(np.float32), "
-        "'gt_mask': np.ones((1, 1), bool)})",
+        "'gt_mask': np.ones((1, 1), bool)}",
+        "logs = step(train_batch)",
         "assert torch.isfinite(logs['loss']) and logs['grad_norm'] > 0",
         "assert not torch.equal(before, w)",
+        'import dataclasses',
+        'from kgdet_tpu_torch.config import AssignConfig',
+        "for head_type in ('SerialKpHead', 'ParallelKpHead', "
+        "'RepPointsHead', 'KGDetHead1Rep'):",
+        '    fcfg = cfg.replace(head=dataclasses.replace(cfg.head, '
+        'type=head_type, num_reppts=9, loss_bbox_weights=(0.5, 1.0, 1.0), '
+        'loss_kpt_weights=(2.0, 4.0, 4.0)), '
+        'refine_assigner=AssignConfig(type="MaxIoUAssigner"))',
+        "    fmodel, _, fstep = init_trainer(fcfg, (64, 96), 10, "
+        "device='cpu')",
+        "    flogs = fstep(dict(train_batch))",
+        "    assert torch.isfinite(flogs['loss']) and flogs['grad_norm'] > 0"
+        ", head_type",
+        "    fdets = make_predict_fn(fmodel.eval(), fcfg, (64, 96))(batch)",
+        "    assert fdets['det_bboxes'].shape == (1, 20, 5), head_type",
         "print('ok', sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'flax', 'cv2', 'kgdet_tpu') "
         "and sys.modules[k] is not None))",
@@ -255,6 +273,42 @@ def test_resnet_unfrozen_stem_equals_folded_prefix(models):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
                                    atol=1e-5 * w.abs().max().item())
+
+
+def test_resnet_per_block_route_matches_jax_and_the_chain(models):
+    """prefix_pipeline=False: the stem and maxpool as PyTorch calls, then
+    each frozen layer1 block through fused_bottleneck (K8; its plain
+    version on the CPU). Every stage output equals the JAX backbone's
+    (whose frozen layer1 runs FusedBottleneck per block off the TPU) and
+    the port's K4+K5 chain route; 1e-4 of each stage's scale. No gradient
+    reaches the frozen prefix."""
+    from kgdet_tpu.models.resnet import ResNet as JResNet
+    from kgdet_tpu_torch.models.resnet import ResNet
+    from kgdet_tpu_torch.ops.resblock import fused_bottleneck
+    cfg, _, variables, port = models
+    x = np.random.RandomState(6).randn(1, 64, 96, 3).astype(np.float32)
+    want = JResNet.from_config(cfg.backbone, name=None).apply(
+        {'params': variables['params']['backbone'],
+         'batch_stats': variables['batch_stats']['backbone']},
+        jnp.asarray(x))
+    net = ResNet(depth=50, frozen_stages=1, prefix_pipeline=False)
+    net.load_state_dict(port.backbone.state_dict())
+    before = fused_bottleneck.launches
+    got = net(torch.from_numpy(x))
+    assert fused_bottleneck.launches == before      # CPU: the plain version
+    with torch.no_grad():
+        chain = port.backbone(torch.from_numpy(x))
+    assert len(got) == len(want) == len(chain) == 4
+    assert not got[0].requires_grad and got[1].requires_grad
+    for g, w, c in zip(got, want, chain):
+        atol = 1e-4 * np.abs(np.asarray(w)).max()
+        np.testing.assert_allclose(g.detach().permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(w), rtol=1e-4, atol=atol)
+        np.testing.assert_allclose(g.detach().numpy(), c.numpy(), rtol=1e-4,
+                                   atol=atol)
+    got[3].sum().backward()
+    assert net.layer1[0].conv1.weight.grad is None
+    assert net.layer2[0].conv1.weight.grad is not None
 
 
 @pytest.mark.parametrize('extra_convs', [True, False])

@@ -5,6 +5,7 @@ the port's; f32 throughout, tolerance 1e-4 (tests/test_reference_parity.py)
 unless stated.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -14,11 +15,13 @@ from kgdet_tpu.ops import image as jimage
 from kgdet_tpu.ops import nms as jnms
 from kgdet_tpu.ops import points as jpoints
 from kgdet_tpu.config import HeadConfig
+from kgdet_tpu.core import iou_assign as jiou
 from kgdet_tpu.core import loss as jloss
 from kgdet_tpu.core import targets as jtargets
 from kgdet_tpu.ops import losses as jlosses
 from kgdet_tpu.ops.pallas_deform import _prep_indices as j_prep_indices
 from kgdet_tpu.ops.pallas_deform import _prep_indices_bwd_vw
+from kgdet_tpu_torch.core import iou_assign as tiou
 from kgdet_tpu_torch.core import loss as tloss
 from kgdet_tpu_torch.core import targets as ttargets
 from kgdet_tpu_torch.ops import deform, image, losses, nms, points
@@ -357,3 +360,285 @@ def test_wrappers_run_plain_versions_on_cpu():
             sk.frozen_bottleneck.launches) == before
     assert dk.deform_sample_split.launches == 0
     assert dk.deform_sample_bwd.launches == 0
+
+
+# ------------------------------------------- relative-offset entries, K6 + K3
+def _off_grid(rng, lo, hi, shape):
+    """Uniform positions kept at least 0.05 off the integer grid, where
+    bilinear sampling is differentiable."""
+    v = rng.uniform(lo, hi, shape)
+    return (np.floor(v) + 0.05 + 0.9 * (v - np.floor(v))).astype(np.float32)
+
+
+@pytest.mark.parametrize('stride,H,W', [(1, 5, 6), (2, 5, 6), (2, 1, 7)])
+def test_deform_sample_matches_jax(stride, H, W):
+    """Output pixel centres at stride times the output index; a one-row map
+    is zero-padded by both. 1e-4 (TOL)."""
+    rng = np.random.RandomState(20 + stride + H)
+    Ho, Wo = -(-H // stride), -(-W // stride)
+    feat = rng.randn(2, H, W, 8).astype(np.float32)
+    rel = rng.uniform(-3, 3, (2, Ho, Wo, 4, 2)).astype(np.float32)
+    want = jdeform.deform_sample(jnp.asarray(feat), jnp.asarray(rel),
+                                 stride=stride)
+    got = deform.deform_sample(_t(feat), _t(rel), stride=stride)
+    assert got.shape == (2, Ho * Wo, 4, 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize('modulated', [False, True])
+def test_deform_conv_matches_jax(modulated):
+    """Sample + contract with a bias, v1 and modulated (v2), at stride 2:
+    values and the gradients of the map, the offsets and the weight
+    against jax.vjp. 1e-4 of each tensor's scale."""
+    rng = np.random.RandomState(23)
+    H, W, C, K, F, stride = 6, 7, 8, 9, 5, 2
+    Ho, Wo = 3, 4
+    feat = rng.randn(2, H, W, C).astype(np.float32)
+    rel = _off_grid(rng, -2, 2, (2, Ho, Wo, K, 2))
+    w = (rng.randn(K, C, F) * .2).astype(np.float32)
+    bias = rng.randn(F).astype(np.float32)
+    mod = rng.rand(2, Ho, Wo, K).astype(np.float32) if modulated else None
+    ct = rng.randn(2, Ho, Wo, F).astype(np.float32)
+
+    def jfn(f, r, w_):
+        return jdeform.deform_conv(
+            f, r, w_, jnp.asarray(bias),
+            None if mod is None else jnp.asarray(mod), stride=stride)
+    want, vjp = jax.vjp(jfn, jnp.asarray(feat), jnp.asarray(rel),
+                        jnp.asarray(w))
+    want_g = vjp(jnp.asarray(ct))
+    leaves = [_t(a).requires_grad_() for a in (feat, rel, w)]
+    got = deform.deform_conv(*leaves, _t(bias),
+                             None if mod is None else _t(mod), stride=stride)
+    got_g = torch.autograd.grad(got, leaves, _t(ct))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    for g, wg in zip(got_g, want_g):
+        wg = np.asarray(wg)
+        np.testing.assert_allclose(g.numpy(), wg,
+                                   atol=1e-4 * np.abs(wg).max())
+
+
+def _fused_case(seed):
+    rng = np.random.RandomState(seed)
+    B, H, W, C, K, F = 2, 5, 6, 8, 9, 7
+    P = H * W
+    feat = rng.randn(B, H, W, C).astype(np.float32)
+    pos = _off_grid(rng, -1.5, 7, (B, P, K, 2))
+    w = (rng.randn(K, C, F) * .3).astype(np.float32)
+    return feat, pos, w, rng.randn(B, P, F).astype(np.float32), \
+        rng.randn(B, P, K, C).astype(np.float32)
+
+
+def test_fused_conv_function_matches_jax_vjp():
+    """deform_conv_fused under differentiation (the Function over K6 and
+    K3, plain versions on the CPU) against jax.vjp through the JAX
+    package's CPU route (bilinear_gather + deform_conv_from_samples), at a
+    channel count its TPU kernels do not take. Output and all three
+    gradients, 1e-4 of each gradient's scale."""
+    feat, pos, w, ct, _ = _fused_case(24)
+
+    def jfn(f, p, w_):
+        cols = jdeform.bilinear_gather(f, p)
+        return jdeform.deform_conv_from_samples(cols, w_)
+    want, vjp = jax.vjp(jfn, jnp.asarray(feat), jnp.asarray(pos),
+                        jnp.asarray(w))
+    want_g = vjp(jnp.asarray(ct))
+    leaves = [_t(a).requires_grad_() for a in (feat, pos, w)]
+    got = dk.deform_conv_fused(*leaves)
+    assert 'FusedConvGrad' in type(got.grad_fn).__name__
+    got_g = torch.autograd.grad(got, leaves, _t(ct))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    for g, wg in zip(got_g, want_g):
+        wg = np.asarray(wg)
+        np.testing.assert_allclose(g.numpy(), wg,
+                                   atol=1e-4 * np.abs(wg).max())
+    # no gradient wanted: the fused inference entry, same values
+    with torch.no_grad():
+        fused = dk.deform_conv_fused(*leaves)
+    assert fused.grad_fn is None
+    np.testing.assert_allclose(fused.numpy(), got.detach().numpy(),
+                               atol=1e-5)
+    plain = dk.deform_conv_fused(*leaves, plain=True)
+    np.testing.assert_array_equal(plain.detach().numpy(),
+                                  got.detach().numpy())
+
+
+def test_fused_conv_function_gradcheck():
+    """torch.autograd.gradcheck of the Function in f64, positions off the
+    integer grid."""
+    rng = np.random.RandomState(27)
+    feat = rng.randn(1, 3, 4, 3)
+    pos = _off_grid(rng, -0.9, 3.9, (1, 5, 2, 2)).astype(np.float64)
+    w = rng.randn(2, 3, 4) * .3
+    inputs = [_t(a).requires_grad_() for a in (feat, pos, w)]
+    assert torch.autograd.gradcheck(dk.deform_conv_fused, inputs, eps=1e-6,
+                                    atol=1e-6)
+
+
+# ------------------------------------------------------------- MaxIoU assign
+def test_iou_and_iof_match_jax():
+    rng = np.random.RandomState(28)
+    xy = rng.uniform(0, 40, (2, 7, 2))
+    a = np.concatenate([xy, xy + rng.uniform(0, 30, (2, 7, 2))], -1) \
+        .astype(np.float32)
+    xy = rng.uniform(0, 40, (2, 11, 2))
+    b = np.concatenate([xy, xy + rng.uniform(0, 30, (2, 11, 2))], -1) \
+        .astype(np.float32)
+    a[0, 0] = (5, 5, 5, 9)                          # zero area
+    b[0, 0] = a[0, 1]                               # IoU 1
+    got = tiou.iou_xyxy(_t(a), _t(b))
+    got_f = tiou.iof_xyxy(_t(a), _t(b))
+    assert got.shape == (2, 7, 11)
+    for i in range(2):                              # batched == per image
+        np.testing.assert_allclose(
+            got[i].numpy(), np.asarray(jiou.iou_xyxy(jnp.asarray(a[i]),
+                                                     jnp.asarray(b[i]))),
+            atol=1e-6)
+        np.testing.assert_allclose(
+            got_f[i].numpy(), np.asarray(jiou.iof_xyxy(jnp.asarray(a[i]),
+                                                       jnp.asarray(b[i]))),
+            atol=1e-6)
+    one = tiou.iou_xyxy(_t(np.asarray([[0., 0., 10., 10.]], np.float32)),
+                        _t(np.asarray([[0., 0., 10., 10.],
+                                       [5., 5., 15., 15.],
+                                       [20., 20., 30., 30.]], np.float32)))
+    np.testing.assert_allclose(one[0].numpy(), [1.0, 25. / 175., 0.0],
+                               atol=1e-6)
+
+
+# the four semantic cases of tests/test_variants.py: thresholds, a GT that
+# claims its best candidate below pos_thr, a padded GT, and (IoU matrix
+# above) the matrix itself
+ASSIGN_CASES = {
+    'thresholds': dict(
+        gts=[[0., 0., 10., 10.], [20., 0., 30., 10.]], gt_mask=[True, True],
+        cands=[[0., 0., 10., 10.], [0., 0., 5., 10.], [0., 0., 4.5, 10.],
+               [0., 0., 3., 10.], [21., 0., 30., 10.],
+               [100., 100., 110., 110.]],
+        pos=[True, True, False, False, True, False],
+        ign=[False, False, True, False, False, False],
+        assigned={0: 0, 1: 0, 4: 1}),
+    'gt_claims_best': dict(
+        gts=[[0., 0., 10., 10.]], gt_mask=[True],
+        cands=[[0., 0., 4., 10.], [50., 50., 60., 60.]],
+        pos=[True, False], ign=[False, False], assigned={0: 0}),
+    'padded_gt': dict(
+        gts=[[0., 0., 10., 10.], [0., 0., 10., 10.]], gt_mask=[True, False],
+        cands=[[0., 0., 10., 10.]], pos=[True], ign=[False],
+        assigned={0: 0}),
+    'later_gt_overrides': dict(
+        gts=[[0., 0., 10., 10.], [0., 0., 10., 10.]], gt_mask=[True, True],
+        cands=[[0., 0., 10., 10.], [30., 30., 40., 40.]],
+        pos=[True, False], ign=[False, False], assigned={0: 1}),
+}
+
+
+@pytest.mark.parametrize('case', sorted(ASSIGN_CASES))
+def test_assign_max_iou_semantics_match_jax(case):
+    c = ASSIGN_CASES[case]
+    gts, cands = np.asarray(c['gts'], np.float32), \
+        np.asarray(c['cands'], np.float32)
+    mask = np.asarray(c['gt_mask'])
+    valid = np.ones(len(cands), bool)
+    want = jiou.assign_max_iou(jnp.asarray(cands), jnp.asarray(valid),
+                               jnp.asarray(gts), jnp.asarray(mask),
+                               pos_iou_thr=0.5, neg_iou_thr=0.4,
+                               min_pos_iou=0.0)
+    got = tiou.assign_max_iou(_t(cands), _t(valid), _t(gts), _t(mask),
+                              pos_iou_thr=0.5, neg_iou_thr=0.4,
+                              min_pos_iou=0.0)
+    assert got.pos_mask.tolist() == c['pos']
+    assert got.ignore_mask.tolist() == c['ign']
+    for i, g in c['assigned'].items():
+        assert int(got.assigned_gt[i]) == g
+    np.testing.assert_array_equal(got.pos_mask.numpy(),
+                                  np.asarray(want.pos_mask))
+    np.testing.assert_array_equal(got.ignore_mask.numpy(),
+                                  np.asarray(want.ignore_mask))
+    np.testing.assert_array_equal(got.assigned_gt.numpy(),
+                                  np.asarray(want.assigned_gt))
+    np.testing.assert_allclose(got.max_iou.numpy(),
+                               np.asarray(want.max_iou), atol=1e-6)
+
+
+@pytest.mark.parametrize('with_ignore', [False, True])
+def test_max_iou_targets_match_jax(with_ignore):
+    """All seven fields over candidate boxes jittered around the GTs (so all
+    three of positive, ignored and negative occur), with a padded GT, an
+    invalid margin and, optionally, crowd regions (one padded) that take
+    candidates out of both sets. Exact for the integer fields, 1e-6 for the
+    rest (copies of the inputs or 0/1 masks)."""
+    grids, valid, boxes, labels, kpts, mask = _target_case(29)
+    rng = np.random.RandomState(30)
+    B, P = valid.shape
+    pick = rng.randint(0, boxes.shape[1], (B, P))
+    cand = boxes[np.arange(B)[:, None], pick] \
+        + rng.uniform(-14, 14, (B, P, 4)).astype(np.float32)
+    kw = dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0)
+    jkw, tkw = dict(kw), dict(kw)
+    if with_ignore:
+        ign = np.asarray([[[10, 10, 60, 50], [0, 0, 0, 0]],
+                          [[30, 20, 90, 64], [0, 0, 0, 0]]], np.float32)
+        ign_mask = np.asarray([[True, False], [True, False]])
+        jkw.update(gt_bboxes_ignore=jnp.asarray(ign),
+                   gt_ignore_mask=jnp.asarray(ign_mask), ignore_iof_thr=0.5)
+        tkw.update(gt_bboxes_ignore=_t(ign), gt_ignore_mask=_t(ign_mask),
+                   ignore_iof_thr=0.5)
+    want = jtargets.max_iou_targets(
+        jnp.asarray(cand), jnp.asarray(valid), jnp.asarray(boxes),
+        jnp.asarray(labels), jnp.asarray(kpts), jnp.asarray(mask), **jkw)
+    got = ttargets.max_iou_targets(_t(cand), _t(valid), _t(boxes),
+                                   _t(labels), _t(kpts), _t(mask), **tkw)
+    n_pos = int(np.asarray(want.labels != 0).sum())
+    n_ign = int((np.asarray(want.label_weights) == 0).sum()
+                - (~valid).sum())
+    assert n_pos > 4 and n_ign > 4
+    for name in ttargets.PointTargets._fields:
+        g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        assert g.shape == w.shape, name
+        if name in ('labels', 'num_pos'):
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, atol=1e-6, err_msg=name)
+
+
+def test_serial_loss_terms_match_jax():
+    """Each of the five terms of two levels, both positive counts and the
+    total, f32, 1e-5 relative."""
+    rng = np.random.RandomState(31)
+    K = 5
+    grids, valid, boxes, labels, kpts, mask = _target_case(31, K)
+    levels = [(grids[:96], valid[:, :96], (8, 12)),
+              (grids[96:], valid[:, 96:], (4, 6))]
+    head = HeadConfig(num_keypts=K, loss_cls_weights=(1.0,),
+                      loss_bbox_weights=(0.5, 1.0),
+                      loss_kpt_weights=(2.0, 4.0), smooth_l1_beta=0.11)
+    jouts, touts, jti, tti, jtr, ttr = [], [], [], [], [], []
+    for g, v, (h, w) in levels:
+        outs = {'cls': rng.randn(1, 2, h, w, 13).astype(np.float32) * 2,
+                'kpt': rng.randn(2, 2, h, w, 2 * K).astype(np.float32) * 2,
+                'bbox': rng.randn(2, 2, h, w, 4).astype(np.float32) * 2}
+        jouts.append({k: jnp.asarray(a) for k, a in outs.items()})
+        touts.append({k: _t(a) for k, a in outs.items()})
+        args = (boxes, labels, kpts, mask)
+        jti.append(jtargets.point_targets(
+            jnp.asarray(g), jnp.asarray(v), *map(jnp.asarray, args),
+            scale=4, pos_num=2))
+        tti.append(ttargets.point_targets(_t(g), _t(v), *map(_t, args),
+                                          scale=4, pos_num=2))
+        cand = np.tile(boxes[:, :1], (1, len(g), 1)) \
+            + rng.uniform(-12, 12, (2, len(g), 4)).astype(np.float32)
+        jtr.append(jtargets.max_iou_targets(
+            jnp.asarray(cand), jnp.asarray(v), *map(jnp.asarray, args)))
+        ttr.append(ttargets.max_iou_targets(_t(cand), _t(v),
+                                            *map(_t, args)))
+    want_total, want = jloss.serial_loss(
+        jouts, [jnp.asarray(g) for g, _, _ in levels], jti, jtr, head)
+    got_total, got = tloss.serial_loss(
+        touts, [_t(g) for g, _, _ in levels], tti, ttr, head)
+    assert sorted(got) == sorted(want) and len(got) == 12
+    for k in want:
+        np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=1e-5,
+                                   err_msg=k)
+        assert float(want[k]) > 0, k
+    np.testing.assert_allclose(got_total.item(), float(want_total), rtol=1e-5)
