@@ -15,7 +15,10 @@ of the serial family with 9 taps, the 200x336 layer1 input), in f32 (rtol
 1e-5, atol 1e-4; for K3, whose f32 atomics sum in an order that changes from
 run to run, atol 1e-4 of the largest sum) and in bf16 (the kernel's max
 error against an f32 plain run is at most 2x the bf16 plain run's), with
-median times by CUDA events, each kernel's bound (the least time the card
+the median time of the wrapper call by CUDA events, the kernel's own device
+time and the number of device activities a call by torch.profiler (K2 and
+K6, which take positions and do their index math inside, must put exactly
+one kernel on the device), each kernel's bound (the least time the card
 could take, from the bytes and operations of this run's inputs) and, for K2,
 K3 and K6, the time of F.grid_sample and of its backward as a yardstick that
 the port never calls; K8 is also held against K5 on the same inputs.
@@ -56,7 +59,8 @@ K5 0 / K4 0, its C2 output against the K4+K5 chain and against the all-plain
 route, and its time beside the chain's.
 
 Prints the card's name and power limit, one line per check, a JSON line of
-the seven kernels (launches on each main path, error, times, bound), and as
+the seven kernels (launches on each main path, error, wrapper and device
+times, bound), and as
 its last line {"ok": true, "device": {...}}. Exits
 nonzero, with no result line, when a check fails or no CUDA device is
 present. Imports nothing of JAX and nothing of the JAX package.
@@ -145,6 +149,36 @@ def median_ms(fn, reps=20, warmup=3):
     return times[len(times) // 2]
 
 
+def device_profile(fn, reps=10):
+    """What one call of ``fn`` puts on the device, under torch.profiler over
+    ``reps`` calls: (device ms a call of the port's own kernels, the
+    ``kgdet::`` ones; device activities a call: every kernel, copy and
+    memset, the library's included). Short recordings in quick succession
+    now and then come back with device records missing; a recording counts
+    when it holds the port's kernels in a multiple of ``reps``, else it is
+    taken again."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        own = [e.time_range.end - e.time_range.start for e in dev
+               if 'kgdet::' in e.name]
+        if own and len(own) % reps == 0:
+            return sum(own) / 1e3 / reps, len(dev) / reps
+        print(f'device_profile: {len(own)} records of the port\'s kernels '
+              f'in {reps} calls, recording {attempt + 1} taken again',
+              flush=True)
+    fail('the profiler lost device records in five recordings')
+
+
 def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
@@ -179,7 +213,11 @@ def check_pair(name, kernel, plain, args_f32, cast_bf16, scaled=False):
     run at most BF16_RATIO x the bf16 plain run's (an output that both
     compute in f32 from the same bf16 values differs only by summation
     order, and is held to the f32 tolerance instead).
-    Returns (f32 max err, bf16 kernel ms, bf16 plain ms, bf16 args)."""
+    Returns (measurements, bf16 args): the f32 max err, the bf16 medians by
+    CUDA events of the wrapper call (``ms``) and of the plain version, the
+    kernel's own device time a call (``device_ms``) and the device
+    activities a call (``device_kernels``), the wrapper's torch prep
+    included, both by torch.profiler."""
     import torch
     got, want = tensors(kernel(*args_f32)), tensors(plain(*args_f32))
     torch.cuda.synchronize()
@@ -215,29 +253,33 @@ def check_pair(name, kernel, plain, args_f32, cast_bf16, scaled=False):
         ek, ep = max(ek, eki), max(ep, epi)
     ms = median_ms(lambda: kernel(*args16))
     pms = median_ms(lambda: plain(*args16))
+    dms, n_dev = device_profile(lambda: kernel(*args16))
     print(f'{name}: f32 max_abs_err {e32:.3e} | bf16 max_abs_err vs f32 '
           f'plain: kernel {ek:.3e}, plain {ep:.3e} | bf16 median ms: '
-          f'kernel {ms:.4f}, plain {pms:.4f}', flush=True)
-    return e32, ms, pms, args16
+          f'kernel {ms:.4f} (on the device {dms:.4f}, {n_dev:g} device '
+          f'activities a call), plain {pms:.4f}', flush=True)
+    return {'max_abs_err': e32, 'ms': ms, 'plain_ms': pms, 'device_ms': dms,
+            'device_kernels': n_dev}, args16
 
 
-def entry(err, ms, plain_ms, bound_ms, bound_by, library_ms=None):
-    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound_ms, 'bound_by': bound_by,
+def entry(measured, bound_ms, bound_by, library_ms=None):
+    return {**measured, 'bound_ms': bound_ms, 'bound_by': bound_by,
             'library_ms': library_ms}
 
 
 def merge(entries, calls=1):
     """One row for several shapes of one kernel, ``calls`` launches of each
-    on the main path: times and bounds add up, the error is the largest."""
-    total = {k: calls * sum(e[k] for e in entries)
-             for k in ('ms', 'plain_ms', 'bound_ms')}
+    on the main path: times and bounds add up, the error and the device
+    activities a call are the largest."""
+    measured = {k: calls * sum(e[k] for e in entries)
+                for k in ('ms', 'plain_ms', 'device_ms')}
+    for k in ('max_abs_err', 'device_kernels'):
+        measured[k] = max(e[k] for e in entries)
     worst = max(entries, key=lambda e: e['bound_ms'])
     library = None if any(e['library_ms'] is None for e in entries) \
         else calls * sum(e['library_ms'] for e in entries)
-    return entry(max(e['max_abs_err'] for e in entries), total['ms'],
-                 total['plain_ms'], total['bound_ms'], worst['bound_by'],
-                 library_ms=library)
+    return entry(measured, calls * sum(e['bound_ms'] for e in entries),
+                 worst['bound_by'], library_ms=library)
 
 
 def phase_kernels(torch, gen):
@@ -307,6 +349,12 @@ def phase_kernels(torch, gen):
             print(f'grid_sample in bf16: {str(exc)[:80]}; timed in f32')
             return (*timed(torch.float32), err, torch.float32)
 
+    def one_launch(name, measured):
+        # positions in, index math in the kernel: a call is one launch
+        if measured['device_kernels'] != 1:
+            fail(f'{name}: a call put {measured["device_kernels"]:g} '
+                 f'activities on the device, not one kernel')
+
     results = {}
     # K1 at the three column widths: map 25x42x256, P = 1050, F = 256
     H, W, C = 25, 42, 256
@@ -316,10 +364,10 @@ def phase_kernels(torch, gen):
         feat = randn(B, H, W, C)
         pos = rand_pos(H, W, P, t)
         w = randn(t, C, C, std=(t * C) ** -0.5)
-        e32, ms, pms, a16 = check_pair(
+        m, a16 = check_pair(
             f'K1 deform_fused t={t}', dk.deform_conv_fused,
             dk.deform_conv_fused_ref, [feat, pos, w], cast)
-        k1.append(entry(e32, ms, pms, *bound(
+        k1.append(entry(m, *bound(
             nbytes(*a16) + out_bytes(dk.deform_conv_fused, a16),
             k1_ops(P, t, C, C), 'bf16')))
     # 4 calls per column and forward: 2 deformable stages x 2 branches
@@ -330,29 +378,30 @@ def phase_kernels(torch, gen):
     K = sum(taps)
     cls_feat, pts_feat = randn(B, H, W, C), randn(B, H, W, C)
     pos = rand_pos(H, W, P, K)
-    e32, ms, pms, a16 = check_pair(
+    m, a16 = check_pair(
         'K2 deform_sample_split', dk.deform_sample_split,
         dk.deform_sample_split_ref, [cls_feat, pts_feat, pos, taps],
         lambda a: [a[0].to(torch.bfloat16), a[1].to(torch.bfloat16), a[2],
                    a[3]])
+    one_launch('K2 deform_sample_split', m)
     cat = torch.cat([cls_feat, pts_feat], dim=-1)
     g = randn(B, P, K, 2 * C)
     lib_ms, lib_bwd_ms, lib_err, lib_dtype = library_sampling(cat, pos, g)
     n_samples = B * P * K * 2 * C
-    results['deform_sample_split'] = entry(e32, ms, pms, *bound(
+    results['deform_sample_split'] = entry(m, *bound(
         nbytes(*a16[:3]) + out_bytes(dk.deform_sample_split, a16),
         7 * n_samples, 'f32'), library_ms=lib_ms)
     print(f'K2 yardstick F.grid_sample ({lib_dtype}, NCHW, never called by '
           f'the port): {lib_ms:.4f} ms, f32 max err vs plain {lib_err:.3e}',
           flush=True)
 
-    e32, ms, pms, a16 = check_pair(
+    m, a16 = check_pair(
         'K3 deform_sample_bwd (grad_feat by f32 atomics: sum order varies)',
         dk.deform_sample_bwd, dk.deform_sample_bwd_ref, [cat, pos, g],
         lambda a: [a[0].to(torch.bfloat16), a[1], a[2].to(torch.bfloat16)],
         scaled=True)
     # a sampled value: 8 operations of scatter, 18 of the two dot products
-    results['deform_sample_bwd'] = entry(e32, ms, pms, *bound(
+    results['deform_sample_bwd'] = entry(m, *bound(
         nbytes(*a16) + out_bytes(dk.deform_sample_bwd, a16),
         26 * n_samples, 'f32'), library_ms=lib_bwd_ms)
     print(f'K3 yardstick backward of F.grid_sample ({lib_dtype}): '
@@ -368,26 +417,27 @@ def phase_kernels(torch, gen):
         feat, pos = randn(B, H, W, C), rand_pos(H, W, P, K)
         w = randn(K, C, C, std=(K * C) ** -0.5)
         g = randn(B, P, K, C)
-        e32, ms, pms, a16 = check_pair(
+        m, a16 = check_pair(
             f'K1 deform_fused serial level {H}x{W}', dk.deform_conv_fused,
             dk.deform_conv_fused_ref, [feat, pos, w], cast)
-        k1s.append(entry(e32, ms, pms, *bound(
+        k1s.append(entry(m, *bound(
             nbytes(*a16) + out_bytes(dk.deform_conv_fused, a16),
             k1_ops(P, K, C, C), 'bf16')))
         lib_fwd, lib_bwd, lib_err, lib_dtype = library_sampling(feat, pos, g)
         n = B * P * K * C
-        e32, ms, pms, a16 = check_pair(
+        m, a16 = check_pair(
             f'K6 deform_sample_cols level {H}x{W}', dk.deform_sample_cols,
             dk.deform_sample_cols_ref, [feat, pos],
             lambda a: [a[0].to(bf16), a[1]])
-        k6.append(entry(e32, ms, pms, *bound(
+        one_launch(f'K6 deform_sample_cols level {H}x{W}', m)
+        k6.append(entry(m, *bound(
             nbytes(*a16) + out_bytes(dk.deform_sample_cols, a16), 7 * n,
             'f32'), library_ms=lib_fwd))
-        e32, ms, pms, a16 = check_pair(
+        m, a16 = check_pair(
             f'K3 deform_sample_bwd serial level {H}x{W}',
             dk.deform_sample_bwd, dk.deform_sample_bwd_ref, [feat, pos, g],
             lambda a: [a[0].to(bf16), a[1], a[2].to(bf16)], scaled=True)
-        k3s.append(entry(e32, ms, pms, *bound(
+        k3s.append(entry(m, *bound(
             nbytes(*a16) + out_bytes(dk.deform_sample_bwd, a16), 26 * n,
             'f32'), library_ms=lib_bwd))
         print(f'K6 / K3 yardstick F.grid_sample and its backward '
@@ -402,10 +452,10 @@ def phase_kernels(torch, gen):
     H, W = SERIAL_LEVELS[0]
     feat, pos = randn(B, H, W, C), rand_pos(H, W, H * W, K)
     w = randn(K, C, 2 * C, std=(K * C) ** -0.5)
-    e32, ms, pms, a16 = check_pair(
+    m, a16 = check_pair(
         f'K1 deform_fused F=512 level {H}x{W}', dk.deform_conv_fused,
         dk.deform_conv_fused_ref, [feat, pos, w], cast)
-    results['deform_fused']['f512_level0'] = entry(e32, ms, pms, *bound(
+    results['deform_fused']['f512_level0'] = entry(m, *bound(
         nbytes(*a16) + out_bytes(dk.deform_conv_fused, a16),
         k1_ops(H * W, K, C, 2 * C), 'bf16'))
     del feat, pos, w, g, a16
@@ -416,11 +466,11 @@ def phase_kernels(torch, gen):
     k4 = []
     for hw in (CANVAS, CANVAS[::-1]):
         x = randn(B, *hw, 3)
-        e32, ms, pms, a16 = check_pair(
+        m, a16 = check_pair(
             f'K4 stem_pool {hw[0]}x{hw[1]}', sk.stem_pool, sk.stem_pool_ref,
             [x, sw, sb], lambda a: [a[0].to(torch.bfloat16), a[1], a[2]])
         ops = 2 * B * (hw[0] // 2) * (hw[1] // 2) * 64 * 147
-        k4.append(entry(e32, ms, pms, *bound(
+        k4.append(entry(m, *bound(
             nbytes(*a16) + out_bytes(sk.stem_pool, a16), ops, 'bf16')))
     results['stem_pool'] = k4[0]
 
@@ -434,22 +484,22 @@ def phase_kernels(torch, gen):
                randn(64, 256, std=64 ** -0.5), randn(256, std=0.1)]
         blk += ([randn(cin, 256, std=cin ** -0.5), randn(256, std=0.1)]
                 if i == 0 else [None, None])
-        e32, ms, pms, a16 = check_pair(
+        m, a16 = check_pair(
             f'K5 frozen_bottleneck block {i} (Cin {cin})',
             sk.frozen_bottleneck, sk.frozen_bottleneck_ref, [x] + blk,
             lambda a: [a[0].to(torch.bfloat16)] + a[1:])
         macs = cin * 64 + 9 * 64 * 64 + 64 * 256 + (cin * 256 if i == 0
                                                     else 0)
-        k5.append(entry(e32, ms, pms, *bound(
+        k5.append(entry(m, *bound(
             nbytes(*[a for a in a16 if a is not None])
             + out_bytes(sk.frozen_bottleneck, a16),
             2 * B * H4 * W4 * macs, 'bf16')))
         # K8, the per-block route's kernel, on the same inputs
-        e32, ms, pms, a16 = check_pair(
+        m, a16 = check_pair(
             f'K8 fused_bottleneck block {i} (Cin {cin})',
             rb.fused_bottleneck, rb.bottleneck_reference, [x] + blk,
             lambda a: [a[0].to(bf16)] + a[1:])
-        k8.append(entry(e32, ms, pms, *bound(
+        k8.append(entry(m, *bound(
             nbytes(*[a for a in a16 if a is not None])
             + out_bytes(rb.fused_bottleneck, a16),
             2 * B * H4 * W4 * macs, 'bf16')))
@@ -464,12 +514,14 @@ def phase_kernels(torch, gen):
           'tolerance, in f32 and in bf16', flush=True)
     for name, r in results.items():
         print(f'bound {name}: {r["bound_ms"]:.4f} ms by {r["bound_by"]} '
-              f'(kernel {r["ms"]:.4f} ms, per forward or step of batch {B})',
+              f'(wrapper calls {r["ms"]:.4f} ms, kernel on the device '
+              f'{r["device_ms"]:.4f} ms, per forward or step of batch {B})',
               flush=True)
         if 'serial' in r:
             q = r['serial']
             print(f'bound {name}, serial family: {q["bound_ms"]:.4f} ms by '
-                  f'{q["bound_by"]} (kernel {q["ms"]:.4f} ms)', flush=True)
+                  f'{q["bound_by"]} (wrapper calls {q["ms"]:.4f} ms, kernel '
+                  f'on the device {q["device_ms"]:.4f} ms)', flush=True)
     return results
 
 
@@ -1203,7 +1255,7 @@ def phase_train_profile(torch, model, cfg, optimizer, batch, gpu, steps=2):
                       for s in TRAIN_STAGES + ('other',)), flush=True)
     print_top_kernels(kern, steps, 10)
     print('  the port\'s kernels, device ms per step: ' + ', '.join(
-        f'{name.split("::")[-1].split("<")[0]} {ms:.3f} x{n // steps}'
+        f'{name.split("<")[0].split("::")[-1]} {ms:.3f} x{n // steps}'
         for name, (ms, n) in sorted(kern.items()) if 'kgdet::' in name),
         flush=True)
 

@@ -34,19 +34,33 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+MAX_COLUMNS = 8
+
+
+class ColumnTable(ctypes.Structure):
+    """csrc/deform_gather.cuh::ColumnTable, passed by value: where the
+    column gather writes. The K taps of a pixel are cut into ``n`` columns
+    of ``taps[i]`` taps starting at tap ``first[i]``; column i of map m is a
+    contiguous (B, P, taps[i], C) tensor at element offset ``off[m][i]`` of
+    the output buffer."""
+    _fields_ = [('n', _I), ('first', _I * MAX_COLUMNS),
+                ('taps', _I * MAX_COLUMNS),
+                ('off', (ctypes.c_longlong * MAX_COLUMNS) * 2)]
+
+
 # argtypes of every C entry point: pointers and the stream as c_void_p
 SIGNATURES = {
     'deform_fused': {
         'kgdet_deform_fused': [_P] * 5 + [_I] * 7 + [_P],
     },
     'deform_split': {
-        'kgdet_deform_split': [_P] * 5 + [_I] * 7 + [_P],
+        'kgdet_deform_split': [_P] * 4 + [ColumnTable] + [_I] * 8 + [_P],
     },
     'deform_bwd': {
         'kgdet_deform_bwd': [_P] * 6 + [_I] * 7 + [_P],
     },
     'deform_sample': {
-        'kgdet_deform_sample': [_P] * 4 + [_I] * 7 + [_P],
+        'kgdet_deform_sample': [_P] * 3 + [_I] * 8 + [_P],
     },
     'stem_layer1': {
         'kgdet_stem_pool': [_P] * 4 + [_I] * 4 + [_P],

@@ -6,7 +6,7 @@ the inference path. Port of kgdet_tpu/ops/pallas_deform.py::_fused_impl
 (kernel ``_fused_kernel``); under differentiation the same entry runs the
 autograd Function over K6 and K3, as the JAX package's custom_vjp does.
 K2 ``deform_sample_split`` (csrc/deform_split.cu): all taps sampled once
-over the cls|pts concat into per-column, per-branch tensors, the training
+on both branch maps into per-column, per-branch tensors, the training
 forward. Port of ``deform_sample_split_pallas`` (kernel ``_split_kernel``).
 K3 ``deform_sample_bwd`` (csrc/deform_bwd.cu): the backward of bilinear
 sampling. Port of ``_deform_bwd_vw`` (kernel ``_bwd_kernel_vw``) and, the
@@ -22,11 +22,15 @@ walk, the raw six-dimensional column layout) has no meaning here; the
 kernels compute the same functions.
 
 On a CPU tensor each wrapper runs its plain version (``*_ref``); on a CUDA
-tensor it launches its kernel or raises.
+tensor it launches its kernel or raises. K2 and K6 take the absolute
+positions themselves and do the index math of ``ops/deform.py::prep_indices``
+inside the kernel (csrc/tap_coeffs.h, held against ``prep_indices`` bit for
+bit by tests/test_torch_kernels.py): a call is argument checks, one
+``torch.empty`` and one launch, with no map concat and no table in device
+memory. K1 and K3 still run ``prep_indices`` / ``prep_indices_bwd`` in
+torch and hand their kernels the row starts and coefficients.
 """
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -82,7 +86,15 @@ def deform_conv_fused(feat, pos_yx, weight, plain: bool = False):
 deform_conv_fused.launches = 0
 
 
-# ------------------------------------------------------------ K2: split gather
+# ------------------------------------------------- K2 and K6: column gathers
+def _f32_positions(pos_yx):
+    """The gather kernels read contiguous f32 positions; position math runs
+    in f32 whatever the input dtype, as in ``prep_indices``."""
+    if pos_yx.dtype != torch.float32:
+        pos_yx = pos_yx.float()
+    return pos_yx.contiguous()
+
+
 def _split_views(buf, B, P, C, taps):
     """The 2 * len(taps) column tensors inside one flat buffer of
     B*P*sum(taps)*2C elements: [(cls (B,P,t,C), pts (B,P,t,C)), ...],
@@ -96,17 +108,19 @@ def _split_views(buf, B, P, C, taps):
     return cols
 
 
-@functools.lru_cache(maxsize=32)
-def _split_meta(taps, B, P, C, device):
-    """(K, 3) int64 on the device, per tap k: the element offsets of its
-    slot in the cls and in the pts column tensor of ``_split_views``'s
-    buffer (advanced by k_local * C) and its column's tap count."""
-    rows, lo = [], 0
-    for t in taps:
+def _split_table(taps, B, P, C):
+    """``_split_views``'s layout as the kernel takes it, by value: per column
+    its first tap, its tap count and the element offsets of its cls and pts
+    tensors in the buffer."""
+    table = _build.ColumnTable(n=len(taps))
+    first = lo = 0
+    for i, t in enumerate(taps):
         n = B * P * t * C
-        rows += [(lo + kl * C, lo + n + kl * C, t) for kl in range(t)]
+        table.first[i], table.taps[i] = first, t
+        table.off[0][i], table.off[1][i] = lo, lo + n
+        first += t
         lo += 2 * n
-    return torch.tensor(rows, dtype=torch.int64).to(device)
+    return table
 
 
 def deform_sample_split_ref(cls_feat, pts_feat, pos_yx, taps):
@@ -126,10 +140,14 @@ def deform_sample_split(cls_feat, pts_feat, pos_yx, taps):
     """Sample both branch maps at shared taps, outputs split per column.
 
     cls_feat/pts_feat (B,H,W,C) f32|bf16; pos_yx (B,P,K,2) absolute (y, x)
-    with K == sum(taps). Returns [(cls (B,P,t,C), pts (B,P,t,C)), ...] in
-    the maps' dtype; on CUDA the six tensors are views of one buffer that
-    the kernel writes once."""
+    with K == sum(taps); taps: 1 to 8 columns (the kernel's by-value table
+    holds ``_build.MAX_COLUMNS``) of at least one tap, on either device.
+    Returns [(cls (B,P,t,C), pts (B,P,t,C)), ...] in the maps' dtype; on
+    CUDA the tensors are views of one buffer that the kernel writes once."""
     taps = tuple(int(t) for t in taps)
+    if not 1 <= len(taps) <= _build.MAX_COLUMNS or min(taps) < 1:
+        raise ValueError(f'the split gather takes 1 to {_build.MAX_COLUMNS} '
+                         f'columns of at least one tap, got {taps}')
     B, P, K = pos_yx.shape[:3]
     if cls_feat.shape != pts_feat.shape or cls_feat.dtype != pts_feat.dtype \
             or pos_yx.shape != (B, P, K, 2) or K != sum(taps) \
@@ -139,18 +157,21 @@ def deform_sample_split(cls_feat, pts_feat, pos_yx, taps):
                          f'{tuple(pos_yx.shape)}, taps {taps}')
     if cls_feat.device.type == 'cpu':
         return deform_sample_split_ref(cls_feat, pts_feat, pos_yx, taps)
-    feat = pad_min2(torch.cat([cls_feat, pts_feat], dim=-1)).contiguous()
-    _, H, W, C2 = feat.shape
-    C = C2 // 2
-    starts, w4 = prep_indices(pos_yx.float(), H, W)
-    meta = _split_meta(taps, B, P, C, feat.device)
-    out = torch.empty(B * P * K * C2, dtype=feat.dtype, device=feat.device)
-    _build.require_cuda(feat, starts, w4, meta, out)
+    cls_feat = pad_min2(cls_feat).contiguous()
+    pts_feat = pad_min2(pts_feat).contiguous()
+    _, H, W, C = cls_feat.shape
+    pos_yx = _f32_positions(pos_yx)
+    out = torch.empty(B * P * K * 2 * C, dtype=cls_feat.dtype,
+                      device=cls_feat.device)
+    if out.numel() == 0:            # no tap to sample: nothing to launch
+        return _split_views(out, B, P, C, taps)
+    _build.require_cuda(cls_feat, pts_feat, pos_yx, out)
     lib = _build.load('deform_split')
     rc = lib.kgdet_deform_split(
-        feat.data_ptr(), starts.data_ptr(), w4.data_ptr(), meta.data_ptr(),
-        out.data_ptr(), B, H * W, C, P, K, _build.vec_ok(C, feat, out),
-        _build.dtype_code(feat), _build.stream_ptr(feat.device))
+        cls_feat.data_ptr(), pts_feat.data_ptr(), pos_yx.data_ptr(),
+        out.data_ptr(), _split_table(taps, B, P, C), B, H, W, C, P, K,
+        _build.vec_ok(C, cls_feat, pts_feat, out),
+        _build.dtype_code(cls_feat), _build.stream_ptr(out.device))
     _build.check(rc, 'deform_split')
     deform_sample_split.launches += 1
     return _split_views(out, B, P, C, taps)
@@ -245,14 +266,16 @@ def deform_sample_cols(feat, pos_yx):
     if pos_yx.shape != (B, P, K, 2):
         raise ValueError(f'shape mismatch: feat {tuple(feat.shape)}, pos '
                          f'{tuple(pos_yx.shape)}')
-    starts, w4 = prep_indices(pos_yx.float(), H, W)
+    pos_yx = _f32_positions(pos_yx)
     out = torch.empty((B, P, K, C), dtype=feat.dtype, device=feat.device)
-    _build.require_cuda(feat, starts, w4, out)
+    if out.numel() == 0:            # no tap to sample: nothing to launch
+        return out
+    _build.require_cuda(feat, pos_yx, out)
     lib = _build.load('deform_sample')
     rc = lib.kgdet_deform_sample(
-        feat.data_ptr(), starts.data_ptr(), w4.data_ptr(), out.data_ptr(),
-        B, H * W, C, P, K, _build.vec_ok(C, feat, out),
-        _build.dtype_code(feat), _build.stream_ptr(feat.device))
+        feat.data_ptr(), pos_yx.data_ptr(), out.data_ptr(), B, H, W, C, P, K,
+        _build.vec_ok(C, feat, out), _build.dtype_code(feat),
+        _build.stream_ptr(feat.device))
     _build.check(rc, 'deform_sample')
     deform_sample_cols.launches += 1
     return out

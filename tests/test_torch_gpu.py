@@ -4,12 +4,13 @@ Needs a CUDA card and nvcc; every test skips, in its fixture, without one.
 The main-path shapes are checked by chip_smoke.py; these cases cover ragged
 tiles: pixel counts, channel counts and image sizes that are not multiples
 of the kernels' tile sizes, maps under 2x2, taps that are all out of bounds
-or all on one pixel, the wrappers' shape checks, the relative-offset entries
-at stride 2, the autograd Functions over K6 and K3, and the ResNet per-block
-route (K8) against the chain (K4+K5). f32 tolerance rtol 1e-5,
-atol 1e-4 (chip_smoke.py's); K3's gradient map is summed with f32 atomics in
-an order that changes from run to run, which that tolerance covers. Imports
-no JAX, so it also runs where jax is absent:
+or all on one pixel, the in-kernel index math of K6 and K2 on a grid of
+boundary positions, branch maps in two storages, the wrappers' shape checks,
+the relative-offset entries at stride 2, the autograd Functions over K6 and
+K3, and the ResNet per-block route (K8) against the chain (K4+K5). f32
+tolerance rtol 1e-5, atol 1e-4 (chip_smoke.py's); K3's gradient map is
+summed with f32 atomics in an order that changes from run to run, which that
+tolerance covers. Imports no JAX, so it also runs where jax is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
@@ -191,6 +192,93 @@ def test_k6_edge_shapes(gen, H, W, C, P, taps, kind):
     assert got16.dtype == torch.bfloat16
     assert (got16.float() - ref).abs().max() <= \
         2 * (plain16.float() - ref).abs().max()
+
+
+def _boundary_positions(H, W):
+    """(1, n, 1, 2): the grid of tests/test_torch_kernels.py's index-math
+    test on both axes: every quarter step from -2.5 to size + 1.5, -0.0,
+    -1, size - 1, size and +-1e9."""
+    def axis(size):
+        steps = torch.arange(-2.5, size + 1.5 + 1e-6, 0.25)
+        return torch.cat([steps, torch.tensor(
+            [-0.0, -1.0, size - 1.0, size, 1e9, -1e9])])
+    ys, xs = torch.meshgrid(axis(H), axis(W), indexing='ij')
+    return torch.stack([ys, xs], dim=-1).reshape(1, -1, 1, 2).cuda()
+
+
+def _assert_gather_matches_plain(feats, pos, taps):
+    """K6 on the first map and K2 on both against their plain versions: f32
+    within TOL, bf16 within twice the plain version's error against an f32
+    run."""
+    for dtype in (torch.float32, torch.bfloat16):
+        maps = [f.to(dtype) for f in feats]
+        ref = [dk.deform_sample_cols_ref(m.float(), pos) for m in maps]
+        plain = [dk.deform_sample_cols_ref(m, pos) for m in maps]
+        got = [dk.deform_sample_cols(maps[0], pos)]
+        split = dk.deform_sample_split(maps[0], maps[1], pos, taps)
+        got += [torch.cat([pair[i] for pair in split], dim=2)
+                for i in range(2)]
+        for g, i in zip(got, (0, 0, 1)):
+            assert g.dtype == dtype and g.shape == ref[i].shape
+            if dtype == torch.float32:
+                torch.testing.assert_close(g, ref[i], **TOL)
+            else:
+                assert (g.float() - ref[i]).abs().max() <= \
+                    2 * (plain[i].float() - ref[i]).abs().max()
+
+
+@pytest.mark.parametrize('H,W', [(6, 7), (2, 2), (1, 5), (4, 1), (1, 1)])
+def test_gather_index_math_on_the_boundary_grid(gen, H, W):
+    """The in-kernel index math of K6 and K2 where it can go wrong: every
+    quarter step across every border, exact integers, -0.0, +-1e9 (no
+    corner matches: zeros), on maps down to one row, one column and one
+    pixel (zero-padded to 2x2 by the wrappers)."""
+    feats = [_randn(gen, 1, H, W, 32), _randn(gen, 1, H, W, 32)]
+    pos = _boundary_positions(max(H, 2), max(W, 2))
+    far = pos.abs().amax(dim=-1) >= 1e9
+    assert far.any()
+    _assert_gather_matches_plain(feats, pos, (1,))
+    assert not dk.deform_sample_cols(feats[0], pos)[far].any()
+    # the same grid as the taps of a few pixels, cut into uneven columns
+    n = pos.shape[1] // 12 * 12
+    _assert_gather_matches_plain(feats, pos[:, :n].reshape(1, -1, 12, 2),
+                                 (5, 1, 6))
+
+
+def test_gather_all_taps_on_one_pixel(gen):
+    feats = [_randn(gen, 2, 4, 4, 64), _randn(gen, 2, 4, 4, 64)]
+    pos = _positions(gen, 2, 300, 34, 4, 4, 'one_pixel')
+    _assert_gather_matches_plain(feats, pos, (9, 25))
+
+
+def test_k2_takes_two_storages_strides_and_bf16_positions(gen):
+    """cls and pts maps that are views of different storages, one of them
+    not contiguous, C off the 16-byte pack (the one-channel path), and
+    positions in bf16 (the math still runs in f32)."""
+    H, W, C, P, taps = 5, 7, 12, 35, (2, 3)
+    wide = _randn(gen, 2, H, W, 2 * C + 3)
+    cls_feat = wide[..., 3:3 + C]                       # strided view
+    pts_feat = _randn(gen, 2, W, H, C).transpose(1, 2)  # another storage
+    assert not cls_feat.is_contiguous() and not pts_feat.is_contiguous()
+    pos = _positions(gen, 2, P, sum(taps), H, W, 'mixed').bfloat16()
+    got = dk.deform_sample_split(cls_feat, pts_feat, pos, taps)
+    want = dk.deform_sample_split_ref(cls_feat, pts_feat, pos, taps)
+    for pair, wpair in zip(got, want):
+        for g, w in zip(pair, wpair):
+            torch.testing.assert_close(g, w, **TOL)
+    torch.testing.assert_close(dk.deform_sample_cols(cls_feat, pos),
+                               dk.deform_sample_cols_ref(cls_feat, pos),
+                               **TOL)
+
+
+def test_gather_refuses_what_it_does_not_take(gen):
+    feat = _randn(gen, 1, 4, 4, 32)
+    pos = _randn(gen, 1, 5, 9, 2)
+    with pytest.raises(ValueError, match='columns'):    # nine columns
+        dk.deform_sample_split(feat, feat, pos, (1,) * 9)
+    before = dk.deform_sample_cols.launches
+    assert dk.deform_sample_cols(feat, pos[:, :0]).shape == (1, 0, 9, 32)
+    assert dk.deform_sample_cols.launches == before     # no tap, no launch
 
 
 @pytest.mark.parametrize('stride', [1, 2])

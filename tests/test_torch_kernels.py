@@ -10,7 +10,11 @@ package's CPU path; K4 stem_pool_ref vs pallas_stem.stem_pool_transposed;
 K5 frozen_bottleneck_ref vs pallas_stem.bottleneck_transposed; K6
 deform_sample_cols_ref vs deform_sample_pallas; K8 bottleneck_reference vs
 pallas_resblock.fused_bottleneck; the autograd Functions over K6 and K3 vs
-jax.vjp of deform_conv_fused and deform_sample_hybrid. f32, tolerance 1e-4
+jax.vjp of deform_conv_fused and deform_sample_hybrid; the index math that
+K6 and K2 do inside the kernel (csrc/tap_coeffs.h, compiled for the host with
+g++) vs ops/deform.py::prep_indices bit for bit; the split gather's wrapper
+on strided maps and bf16 positions, and its by-value column table vs
+_split_views. f32, tolerance 1e-4
 (the deform kernels, the scale of tests/test_pallas_deform.py's checks; 1e-5
 for K6, as its own) and 1e-5 (K4/K5/K8, as tests/test_stem_pipeline.py and
 tests/test_resblock.py). The CUDA kernels themselves are held against these
@@ -33,7 +37,7 @@ from kgdet_tpu.ops.pallas_resblock import fused_bottleneck as \
 from kgdet_tpu_torch.ops.deform_kernels import deform_columns_dual, \
     deform_conv_fused, deform_conv_fused_ref, deform_sample_bwd_ref, \
     deform_sample_cols, deform_sample_cols_ref, deform_sample_hybrid, \
-    deform_sample_split_ref
+    deform_sample_split, deform_sample_split_ref
 from kgdet_tpu_torch.ops.resblock import bottleneck_reference, \
     fused_bottleneck
 from tests.test_torch_ops import BOUNDARY_POS, _off_grid
@@ -425,3 +429,147 @@ def test_sample_function_matches_jax_vjp(interpret_mode):
         wg = np.asarray(wg)
         np.testing.assert_allclose(g.numpy(), wg,
                                    atol=1e-4 * np.abs(wg).max())
+
+
+# ------------------------------------ the in-kernel index math, through g++
+_COEFFS_SHIM = r'''
+#include "tap_coeffs.h"
+extern "C" void coeffs(const float* yx, int n, int H, int W, int* starts,
+                       float* w4) {
+  for (int i = 0; i < n; ++i) {
+    float w[4];
+    kgdet::tap_coeffs(yx[2 * i], yx[2 * i + 1], H, W, starts[2 * i],
+                      starts[2 * i + 1], w);
+    for (int j = 0; j < 4; ++j) w4[4 * i + j] = w[j];
+  }
+}
+'''
+
+
+@pytest.fixture(scope='module')
+def host_coeffs(tmp_path_factory):
+    """csrc/tap_coeffs.h, the header the CUDA gathers take their
+    coefficients from, compiled for the host with g++ (no contraction of
+    a * b + c, so no bit can differ for that reason) and loaded with
+    ctypes."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from kgdet_tpu_torch.ops._build import CSRC
+    gxx = shutil.which('g++')
+    if gxx is None:
+        pytest.skip('needs g++')
+    tmp = tmp_path_factory.mktemp('tap_coeffs')
+    (tmp / 'shim.cpp').write_text(_COEFFS_SHIM)
+    lib = tmp / 'libcoeffs.so'
+    subprocess.run([gxx, '-O2', '-ffp-contract=off', '-std=c++17', '-shared',
+                    '-fPIC', f'-I{CSRC}', str(tmp / 'shim.cpp'), '-o',
+                    str(lib)], check=True)
+    fn = ctypes.CDLL(str(lib)).coeffs
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = None
+
+    def run(pos, H, W):
+        """pos (n, 2) f32 -> starts (n, 2), w4 (n, 4)."""
+        pos = np.ascontiguousarray(pos, np.float32)
+        n = len(pos)
+        outs = (np.zeros((n, 2), np.int32), np.zeros((n, 4), np.float32))
+        fn(pos.ctypes.data, n, H, W, *[o.ctypes.data for o in outs])
+        return outs
+    return run
+
+
+def _boundary_grid(size):
+    """Every quarter step from -2.5 to size + 1.5 (the exact integers among
+    them), -0.0, -1, size - 1, size and +-1e9."""
+    steps = np.arange(-2.5, size + 1.5 + 1e-6, 0.25)
+    return np.concatenate([steps, [-0.0, -1.0, size - 1.0, size, 1e9, -1e9]]) \
+        .astype(np.float32)
+
+
+@pytest.mark.parametrize('H,W', [(6, 7), (2, 2)])
+def test_kernel_index_math_equals_prep_indices_bit_for_bit(host_coeffs, H, W):
+    """K6's and K2's in-kernel coefficients (csrc/tap_coeffs.h) against
+    ops/deform.py::prep_indices on the full boundary grid of both axes:
+    starts equal, every weight equal in every bit."""
+    from kgdet_tpu_torch.ops.deform import prep_indices
+    ys, xs = _boundary_grid(H), _boundary_grid(W)
+    pos = np.stack(np.meshgrid(ys, xs, indexing='ij'), -1).reshape(-1, 2)
+    assert np.signbit(pos[:, 0]).any() and (pos == 0).any()
+    starts, w4 = host_coeffs(pos, H, W)
+    tpos = _t(pos).reshape(1, -1, 1, 2)
+    want_s, want_w = prep_indices(tpos, H, W)
+    np.testing.assert_array_equal(starts, want_s.reshape(-1, 2).numpy())
+    np.testing.assert_array_equal(
+        w4.view(np.int32), want_w.reshape(-1, 4).numpy().view(np.int32))
+    # the far positions match no corner; the rest of the grid has live taps
+    far = np.abs(pos).max(-1) >= 1e9
+    assert far.any() and not w4[far].any() and w4[~far].any()
+    assert starts.min() >= 0 and starts[:, 1].max() + 1 < H * W
+
+
+# ------------------------------------------- the split gather's wrapper edges
+@pytest.mark.parametrize('case', ['strided_maps', 'bf16_positions'])
+def test_k2_wrapper_edges_match_plain_and_split_pallas(interpret_mode, case):
+    """deform_sample_split with branch maps that are views of two storages
+    with different strides, and with positions in bf16 (the position math
+    runs in f32 on the widened values), against its plain version (equal)
+    and the TPU kernel in interpret mode; atol 1e-5 as the case above."""
+    rng = np.random.RandomState(41)
+    B, H, W, C, taps = 2, 5, 6, 128, (2, 3, 4)
+    P = pd.TP + 3
+    wide = _t(rng.randn(B, H, W, 2 * C + 3).astype(np.float32))
+    cls_f = wide[..., 3:3 + C]
+    pts_f = _t(rng.randn(B, W, H, C).astype(np.float32)).transpose(1, 2)
+    assert not cls_f.is_contiguous() and not pts_f.is_contiguous()
+    pos = _t(rng.uniform(-1.5, 6.5, (B, P, sum(taps), 2)).astype(np.float32))
+    if case == 'bf16_positions':
+        pos = pos.bfloat16()
+    got = deform_sample_split(cls_f, pts_f, pos, taps)
+    plain = deform_sample_split_ref(cls_f, pts_f, pos, taps)
+    want = pd.deform_sample_split_pallas(
+        jnp.asarray(cls_f.contiguous().numpy()),
+        jnp.asarray(pts_f.contiguous().numpy()),
+        jnp.asarray(pos.float().numpy()), taps)
+    for t, pair, ppair, wpair in zip(taps, got, plain, want):
+        for g, p_, w in zip(pair, ppair, wpair):
+            assert g.shape == (B, P, t, C) and g.dtype == torch.float32
+            np.testing.assert_array_equal(g.numpy(), p_.numpy())
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+
+
+@pytest.mark.parametrize('taps', [(9, 25, 49), (83,), (1, 2)])
+def test_k2_column_table_agrees_with_split_views(taps):
+    """The layout the kernel is given by value against the views the wrapper
+    returns: per column its first tap, its tap count and the offsets of its
+    cls and pts tensors; every tap falls in exactly one column."""
+    from kgdet_tpu_torch.ops.deform_kernels import _split_table, _split_views
+    B, P, C = 2, 7, 8
+    K = sum(taps)
+    buf = torch.zeros(B * P * K * 2 * C)
+    views = _split_views(buf, B, P, C, taps)
+    table = _split_table(taps, B, P, C)
+    assert table.n == len(taps) == len(views)
+    first = 0
+    for i, (t, pair) in enumerate(zip(taps, views)):
+        assert (table.first[i], table.taps[i]) == (first, t)
+        for m in range(2):
+            assert pair[m].shape == (B, P, t, C) and pair[m].is_contiguous()
+            assert table.off[m][i] == pair[m].storage_offset()
+        first += t
+    assert first == K
+    # the kernel's own walk: tap k of pixel bp goes to column i, row
+    # (bp * taps[i] + k - first[i]) of both tensors; mark and count
+    for bp in range(B * P):
+        for k in range(K):
+            i = max(j for j in range(table.n) if k >= table.first[j])
+            row = (bp * table.taps[i] + k - table.first[i]) * C
+            for m in range(2):
+                buf[table.off[m][i] + row:table.off[m][i] + row + C] += 1
+    assert bool((buf == 1).all())
+    # more columns than the table holds: refused on the CPU as on the card
+    feat = torch.zeros(1, 3, 3, C)
+    with pytest.raises(ValueError, match='columns'):
+        deform_sample_split(feat, feat, torch.zeros(1, 4, 9, 2), (1,) * 9)
