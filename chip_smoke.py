@@ -16,12 +16,16 @@ of the serial family with 9 taps, the 200x336 layer1 input), in f32 (rtol
 run to run, atol 1e-4 of the largest sum) and in bf16 (the kernel's max
 error against an f32 plain run is at most 2x the bf16 plain run's), with
 the median time of the wrapper call by CUDA events, the kernel's own device
-time and the number of device activities a call by torch.profiler (K2 and
-K6, which take positions and do their index math inside, must put exactly
-one kernel on the device), each kernel's bound (the least time the card
-could take, from the bytes and operations of this run's inputs) and, for K2,
-K3 and K6, the time of F.grid_sample and of its backward as a yardstick that
-the port never calls; K8 is also held against K5 on the same inputs.
+time and the number of device activities a call by torch.profiler (every
+deformable kernel takes positions and does its index math inside: a call of
+K1, K2 or K6 must put exactly one kernel on the device, a call of K3 one
+kernel of the port plus at most a fill and a cast), each kernel's bound
+(the least time the card could take, from the bytes and operations of this
+run's inputs) and, for K2, K3 and K6, the time of F.grid_sample and of its
+backward as a yardstick that the port never calls; K3 is checked and timed
+twice, with taps spread uniformly over the map and with taps near their own
+pixel (centre + N(0, 2 cells)), which is where a scatter's adds collide; K8
+is also held against K5 on the same inputs.
 Phase 2: serves 2 requests of 2 uint8 images at full width
 (configs/kgdet_moment_r50_fpn_1x_deepfashion2.py, bf16, 800x1344, seeded
 random weights) through make_predict_fn, checks the launch counts and the
@@ -153,7 +157,8 @@ def device_profile(fn, reps=10):
     """What one call of ``fn`` puts on the device, under torch.profiler over
     ``reps`` calls: (device ms a call of the port's own kernels, the
     ``kgdet::`` ones; device activities a call: every kernel, copy and
-    memset, the library's included). Short recordings in quick succession
+    memset, the library's included; the port's own kernels a call). Short
+    recordings in quick succession
     now and then come back with device records missing; a recording counts
     when it holds the port's kernels in a multiple of ``reps``, else it is
     taken again."""
@@ -172,7 +177,7 @@ def device_profile(fn, reps=10):
         own = [e.time_range.end - e.time_range.start for e in dev
                if 'kgdet::' in e.name]
         if own and len(own) % reps == 0:
-            return sum(own) / 1e3 / reps, len(dev) / reps
+            return sum(own) / 1e3 / reps, len(dev) / reps, len(own) / reps
         print(f'device_profile: {len(own)} records of the port\'s kernels '
               f'in {reps} calls, recording {attempt + 1} taken again',
               flush=True)
@@ -215,9 +220,10 @@ def check_pair(name, kernel, plain, args_f32, cast_bf16, scaled=False):
     order, and is held to the f32 tolerance instead).
     Returns (measurements, bf16 args): the f32 max err, the bf16 medians by
     CUDA events of the wrapper call (``ms``) and of the plain version, the
-    kernel's own device time a call (``device_ms``) and the device
-    activities a call (``device_kernels``), the wrapper's torch prep
-    included, both by torch.profiler."""
+    kernel's own device time a call (``device_ms``), the device activities
+    a call (``device_kernels``, whatever torch the wrapper runs included)
+    and the port's own kernels among them (``own_kernels``), all three by
+    torch.profiler."""
     import torch
     got, want = tensors(kernel(*args_f32)), tensors(plain(*args_f32))
     torch.cuda.synchronize()
@@ -253,13 +259,13 @@ def check_pair(name, kernel, plain, args_f32, cast_bf16, scaled=False):
         ek, ep = max(ek, eki), max(ep, epi)
     ms = median_ms(lambda: kernel(*args16))
     pms = median_ms(lambda: plain(*args16))
-    dms, n_dev = device_profile(lambda: kernel(*args16))
+    dms, n_dev, n_own = device_profile(lambda: kernel(*args16))
     print(f'{name}: f32 max_abs_err {e32:.3e} | bf16 max_abs_err vs f32 '
           f'plain: kernel {ek:.3e}, plain {ep:.3e} | bf16 median ms: '
           f'kernel {ms:.4f} (on the device {dms:.4f}, {n_dev:g} device '
           f'activities a call), plain {pms:.4f}', flush=True)
     return {'max_abs_err': e32, 'ms': ms, 'plain_ms': pms, 'device_ms': dms,
-            'device_kernels': n_dev}, args16
+            'device_kernels': n_dev, 'own_kernels': n_own}, args16
 
 
 def entry(measured, bound_ms, bound_by, library_ms=None):
@@ -273,7 +279,7 @@ def merge(entries, calls=1):
     activities a call are the largest."""
     measured = {k: calls * sum(e[k] for e in entries)
                 for k in ('ms', 'plain_ms', 'device_ms')}
-    for k in ('max_abs_err', 'device_kernels'):
+    for k in ('max_abs_err', 'device_kernels', 'own_kernels'):
         measured[k] = max(e[k] for e in entries)
     worst = max(entries, key=lambda e: e['bound_ms'])
     library = None if any(e['library_ms'] is None for e in entries) \
@@ -299,6 +305,13 @@ def phase_kernels(torch, gen):
     def rand_pos(H, W, P, K):       # up to 2 cells outside the map
         pos = torch.rand((B, P, K, 2), generator=gen).to(dev)
         return pos * torch.tensor([H + 4.0, W + 4.0], device=dev) - 2.0
+
+    def near_pos(H, W, K):          # every tap near its own pixel
+        ys, xs = torch.meshgrid(torch.arange(H), torch.arange(W),
+                                indexing='ij')
+        centre = torch.stack([ys, xs], dim=-1).reshape(1, H * W, 1, 2)
+        noise = 2.0 * torch.randn((B, H * W, K, 2), generator=gen)
+        return (centre + noise).to(dev)
 
     def out_bytes(fn, args):
         return nbytes(*tensors(fn(*args)))
@@ -349,11 +362,29 @@ def phase_kernels(torch, gen):
             print(f'grid_sample in bf16: {str(exc)[:80]}; timed in f32')
             return (*timed(torch.float32), err, torch.float32)
 
-    def one_launch(name, measured):
-        # positions in, index math in the kernel: a call is one launch
-        if measured['device_kernels'] != 1:
+    def one_launch(name, measured, others=0):
+        # positions in, index math in the kernel: a call is one kernel of
+        # the port and at most ``others`` other activities (a fill, a cast)
+        if measured['own_kernels'] != 1 or \
+                measured['device_kernels'] > 1 + others:
             fail(f'{name}: a call put {measured["device_kernels"]:g} '
-                 f'activities on the device, not one kernel')
+                 f'activities on the device, {measured["own_kernels"]:g} of '
+                 f'them the port\'s kernels, not one kernel and at most '
+                 f'{others} others')
+
+    def cast_bwd(a):                # K3's (feat, pos, g) in bf16
+        return [a[0].to(bf16), a[1], a[2].to(bf16)]
+
+    def check_bwd(name, feat, pos, g, library_ms):
+        m, a16 = check_pair(
+            f'K3 deform_sample_bwd {name} (sums by f32 atomics: their '
+            f'order varies)', dk.deform_sample_bwd, dk.deform_sample_bwd_ref,
+            [feat, pos, g], cast_bwd, scaled=True)
+        one_launch(f'K3 deform_sample_bwd {name}', m, others=2)
+        # a sampled value: 8 operations of scatter, 18 of the dot products
+        return entry(m, *bound(
+            nbytes(*a16) + out_bytes(dk.deform_sample_bwd, a16),
+            26 * g.numel(), 'f32'), library_ms=library_ms)
 
     results = {}
     # K1 at the three column widths: map 25x42x256, P = 1050, F = 256
@@ -367,6 +398,7 @@ def phase_kernels(torch, gen):
         m, a16 = check_pair(
             f'K1 deform_fused t={t}', dk.deform_conv_fused,
             dk.deform_conv_fused_ref, [feat, pos, w], cast)
+        one_launch(f'K1 deform_fused t={t}', m)
         k1.append(entry(m, *bound(
             nbytes(*a16) + out_bytes(dk.deform_conv_fused, a16),
             k1_ops(P, t, C, C), 'bf16')))
@@ -395,23 +427,21 @@ def phase_kernels(torch, gen):
           f'the port): {lib_ms:.4f} ms, f32 max err vs plain {lib_err:.3e}',
           flush=True)
 
-    m, a16 = check_pair(
-        'K3 deform_sample_bwd (grad_feat by f32 atomics: sum order varies)',
-        dk.deform_sample_bwd, dk.deform_sample_bwd_ref, [cat, pos, g],
-        lambda a: [a[0].to(torch.bfloat16), a[1], a[2].to(torch.bfloat16)],
-        scaled=True)
-    # a sampled value: 8 operations of scatter, 18 of the two dot products
-    results['deform_sample_bwd'] = entry(m, *bound(
-        nbytes(*a16) + out_bytes(dk.deform_sample_bwd, a16),
-        26 * n_samples, 'f32'), library_ms=lib_bwd_ms)
-    print(f'K3 yardstick backward of F.grid_sample ({lib_dtype}): '
-          f'{lib_bwd_ms:.4f} ms', flush=True)
+    results['deform_sample_bwd'] = check_bwd('uniform taps', cat, pos, g,
+                                             lib_bwd_ms)
+    pos = near_pos(H, W, K)
+    _, near_bwd_ms, _, _ = library_sampling(cat, pos, g)
+    results['deform_sample_bwd']['near'] = check_bwd(
+        'taps near their pixel', cat, pos, g, near_bwd_ms)
+    print(f'K3 yardstick backward of F.grid_sample ({lib_dtype}): uniform '
+          f'taps {lib_bwd_ms:.4f} ms, near taps {near_bwd_ms:.4f} ms',
+          flush=True)
 
     # the serial family's five levels, 9 taps a pixel: K1 (serving: the cls
     # and the pts branch of a level), K6 (training forward) and K3 (its
     # backward) on the same maps and positions
     K = 9
-    k1s, k6, k3s = [], [], []
+    k1s, k6, k3s, k3n = [], [], [], []
     for H, W in SERIAL_LEVELS:
         P = H * W
         feat, pos = randn(B, H, W, C), rand_pos(H, W, P, K)
@@ -420,6 +450,7 @@ def phase_kernels(torch, gen):
         m, a16 = check_pair(
             f'K1 deform_fused serial level {H}x{W}', dk.deform_conv_fused,
             dk.deform_conv_fused_ref, [feat, pos, w], cast)
+        one_launch(f'K1 deform_fused serial level {H}x{W}', m)
         k1s.append(entry(m, *bound(
             nbytes(*a16) + out_bytes(dk.deform_conv_fused, a16),
             k1_ops(P, K, C, C), 'bf16')))
@@ -433,21 +464,21 @@ def phase_kernels(torch, gen):
         k6.append(entry(m, *bound(
             nbytes(*a16) + out_bytes(dk.deform_sample_cols, a16), 7 * n,
             'f32'), library_ms=lib_fwd))
-        m, a16 = check_pair(
-            f'K3 deform_sample_bwd serial level {H}x{W}',
-            dk.deform_sample_bwd, dk.deform_sample_bwd_ref, [feat, pos, g],
-            lambda a: [a[0].to(bf16), a[1], a[2].to(bf16)], scaled=True)
-        k3s.append(entry(m, *bound(
-            nbytes(*a16) + out_bytes(dk.deform_sample_bwd, a16), 26 * n,
-            'f32'), library_ms=lib_bwd))
+        k3s.append(check_bwd(f'serial level {H}x{W}, uniform taps', feat,
+                             pos, g, lib_bwd))
+        pos = near_pos(H, W, K)
+        _, near_bwd, _, _ = library_sampling(feat, pos, g)
+        k3n.append(check_bwd(f'serial level {H}x{W}, taps near their pixel',
+                             feat, pos, g, near_bwd))
         print(f'K6 / K3 yardstick F.grid_sample and its backward '
               f'({lib_dtype}, NCHW) level {H}x{W}: {lib_fwd:.4f} / '
-              f'{lib_bwd:.4f} ms, f32 max err vs plain {lib_err:.3e}',
-              flush=True)
+              f'{lib_bwd:.4f} ms (backward with near taps {near_bwd:.4f}), '
+              f'f32 max err vs plain {lib_err:.3e}', flush=True)
     # a level's two branches: 2 launches a level and forward or step
     results['deform_fused']['serial'] = merge(k1s, calls=2)
     results['deform_sample_cols'] = merge(k6, calls=2)
     results['deform_sample_bwd']['serial'] = merge(k3s, calls=2)
+    results['deform_sample_bwd']['serial_near'] = merge(k3n, calls=2)
     # the parallel head's pts branch: kpt | rep weights side by side, F = 512
     H, W = SERIAL_LEVELS[0]
     feat, pos = randn(B, H, W, C), rand_pos(H, W, H * W, K)
@@ -455,6 +486,7 @@ def phase_kernels(torch, gen):
     m, a16 = check_pair(
         f'K1 deform_fused F=512 level {H}x{W}', dk.deform_conv_fused,
         dk.deform_conv_fused_ref, [feat, pos, w], cast)
+    one_launch(f'K1 deform_fused F=512 level {H}x{W}', m)
     results['deform_fused']['f512_level0'] = entry(m, *bound(
         nbytes(*a16) + out_bytes(dk.deform_conv_fused, a16),
         k1_ops(H * W, K, C, 2 * C), 'bf16'))
@@ -517,11 +549,13 @@ def phase_kernels(torch, gen):
               f'(wrapper calls {r["ms"]:.4f} ms, kernel on the device '
               f'{r["device_ms"]:.4f} ms, per forward or step of batch {B})',
               flush=True)
-        if 'serial' in r:
-            q = r['serial']
-            print(f'bound {name}, serial family: {q["bound_ms"]:.4f} ms by '
-                  f'{q["bound_by"]} (wrapper calls {q["ms"]:.4f} ms, kernel '
-                  f'on the device {q["device_ms"]:.4f} ms)', flush=True)
+        for case in ('near', 'serial', 'serial_near'):
+            if case in r:
+                q = r[case]
+                print(f'bound {name}, {case}: {q["bound_ms"]:.4f} ms by '
+                      f'{q["bound_by"]} (wrapper calls {q["ms"]:.4f} ms, '
+                      f'kernel on the device {q["device_ms"]:.4f} ms)',
+                      flush=True)
     return results
 
 
@@ -700,6 +734,20 @@ def print_top_kernels(kern, steps, top):
         print(f'  {ms:8.3f} ms x{n // steps:<4d} {name[:96]}')
 
 
+def short_name(kernel):
+    """A kernel of the port as the profiler names it, without namespaces
+    and arguments but with its template arguments (the tile or the dtype)."""
+    return kernel.replace('(anonymous namespace)::', '').split('(')[0] \
+        .split('::')[-1]
+
+
+def print_own_kernels(kern, steps, per):
+    print(f'  the port\'s kernels, device ms per {per}: ' + ', '.join(
+        f'{short_name(name)} {ms:.3f} x{n // steps}'
+        for name, (ms, n) in sorted(kern.items()) if 'kgdet::' in name),
+        flush=True)
+
+
 STAGES = ('normalize', 'backbone', 'neck', 'head', 'decode')
 
 
@@ -752,6 +800,7 @@ def phase_profile(torch, model, cfg, req, gpu, steps=2):
     print('  stage device span / busy ms per batch: ' + ', '.join(
         f'{s} {span_ms[s]:.3f}/{busy_ms[s]:.3f}' for s in STAGES), flush=True)
     print_top_kernels(kern, steps, 8)
+    print_own_kernels(kern, steps, 'batch')
 
 
 def make_train_batches(n, seed, num_keypts):
@@ -1254,10 +1303,7 @@ def phase_train_profile(torch, model, cfg, optimizer, batch, gpu, steps=2):
           + ', '.join(f'{s} {span_ms[s]:.3f}/{busy_ms[s]:.3f}'
                       for s in TRAIN_STAGES + ('other',)), flush=True)
     print_top_kernels(kern, steps, 10)
-    print('  the port\'s kernels, device ms per step: ' + ', '.join(
-        f'{name.split("<")[0].split("::")[-1]} {ms:.3f} x{n // steps}'
-        for name, (ms, n) in sorted(kern.items()) if 'kgdet::' in name),
-        flush=True)
+    print_own_kernels(kern, steps, 'step')
 
 
 def main():

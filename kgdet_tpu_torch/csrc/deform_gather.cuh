@@ -7,11 +7,11 @@
 // the 16-byte loads the card moves fastest, V == 1 takes any channel count
 // and alignment.
 //
-// Two users. K3 (deform_bwd.cu) takes load_corners / tap_grid and reads its
-// starts and coefficients from device memory. K6 (deform_sample.cu, replaces
-// kgdet_tpu/ops/pallas_deform.py::_sample_kernel) and K2 (deform_split.cu,
-// replaces ::_split_kernel) are both `gather_columns` below: positions in,
-// columns out, one launch a call.
+// Two users. K3 (deform_bwd.cu) takes the packs, load_corners and the
+// persistent grid's constants for its own walks. K6 (deform_sample.cu,
+// replaces kgdet_tpu/ops/pallas_deform.py::_sample_kernel) and K2
+// (deform_split.cu, replaces ::_split_kernel) are both `gather_columns`
+// below: positions in, columns out, one launch a call.
 //
 // What bounds the column gather on the H100: bytes. It does 7 operations a
 // sampled value and writes every one of them (155 to 178 MB of columns at
@@ -107,14 +107,20 @@ __device__ __forceinline__ void load_corners(const T* __restrict__ fb, int C,
   }
 }
 
-// Warps of a launch walk `items` (b, p, k) taps in a grid-stride loop.
+// Warps of a launch walk the taps of an image in chunks of 32.
 constexpr int kTapThreads = 256;
 constexpr int kTapWarps = kTapThreads / 32;
 
-inline int tap_grid(long long items) {
-  const long long blocks = (items + kTapWarps - 1) / kTapWarps;
-  const long long cap = 132LL * 64;  // plenty of waves; the loop takes the rest
-  return static_cast<int>(blocks < 1 ? 1 : (blocks < cap ? blocks : cap));
+// SMs of the current device, asked once.
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
 }
 
 // ------------------------------------------------- the column gather (K6, K2)
@@ -282,15 +288,8 @@ cudaError_t launch_gather(GatherArgs<T, MAPS> a, int B, int vec,
   if (B <= 0 || a.P <= 0 || a.K <= 0) return cudaSuccess;  // no tap
   const long long taps_image = (long long)a.P * a.K;
   if (B > 65535 || taps_image >= (1LL << 31)) return cudaErrorInvalidValue;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
   const long long want = (taps_image + 32 * kTapWarps - 1) / (32 * kTapWarps);
-  long long cap = (long long)sms * KGDET_GATHER_BLOCKS_PER_SM / B;
+  long long cap = (long long)sm_count() * KGDET_GATHER_BLOCKS_PER_SM / B;
   if (cap < 1) cap = 1;
   const dim3 grid(static_cast<unsigned>(want < cap ? want : cap), B, 1);
 

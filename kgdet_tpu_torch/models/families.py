@@ -61,10 +61,13 @@ def _kgdet_loss(outs, grids, valids, batch, cfg, canvas_hw):
 
 def _make_point_decode(cfg, canvas):
     from kgdet_tpu_torch.core.postprocess import decode_detections
+    grids = {}                      # the static level grids, once a device
 
     def decode(outs, img_hw, scale_factor):
-        grids = level_grids(cfg, canvas, device=img_hw.device)
-        return decode_detections(outs, grids, img_hw, scale_factor,
+        dev = img_hw.device
+        if dev not in grids:
+            grids[dev] = level_grids(cfg, canvas, device=dev)
+        return decode_detections(outs, grids[dev], img_hw, scale_factor,
                                  cfg.test, num_keypts=cfg.head.num_keypts)
     return decode
 

@@ -44,18 +44,44 @@ def dense_1x1(x, conv):
 
 
 class DeformConvWeight(nn.Module):
-    """Holds a reference DeformConv weight (F, C, k, k) (no bias)."""
+    """Holds a reference DeformConv weight (F, C, k, k) (no bias).
+
+    The kernels read it tap-major, (k*k, C, F), in the compute dtype. While
+    the module serves (``eval()`` and no gradient wanted of the weight) that
+    layout is made once and kept; ``train()``, ``load_state_dict``, a move
+    or cast of the module (``.to()``) and an in-place change of the weight
+    drop it."""
 
     def __init__(self, in_channels: int, out_channels: int, k: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
                                                k, k))
+        self._served = None         # (key, tap-major tensor)
 
     def tap_major(self, dtype):
         """(F, C, k, k) -> (k*k, C, F), taps row-major."""
         w = self.weight
-        return w.reshape(w.shape[0], w.shape[1], -1).permute(2, 1, 0) \
+        serving = not self.training and not (torch.is_grad_enabled()
+                                             and w.requires_grad)
+        key = (dtype, w.device, w._version, w.data_ptr())
+        if serving and self._served is not None and self._served[0] == key:
+            return self._served[1]
+        out = w.reshape(w.shape[0], w.shape[1], -1).permute(2, 1, 0) \
             .to(dtype).contiguous()
+        self._served = (key, out) if serving else None
+        return out
+
+    def train(self, mode: bool = True):
+        self._served = None
+        return super().train(mode)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._served = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._served = None
+        return super()._load_from_state_dict(*args, **kwargs)
 
 
 def dfm_name(branch: str, taps, ci: int) -> str:

@@ -69,6 +69,7 @@ class SerialKpHead(nn.Module):
         self.with_keypoints = with_keypoints
         self.own_rep_branch = parallel or not with_keypoints
         self.plain = False
+        self._pts_weight = None     # (parts' layouts, their concat)
         for prefix in ('cls', 'reg'):
             setattr(self, f'{prefix}_convs', nn.ModuleList(
                 ConvModule(in_channels if i == 0 else feat_channels,
@@ -118,6 +119,21 @@ class SerialKpHead(nn.Module):
         return points2bbox(reppts.float(), self.transform_method,
                            self.moment_transfer, self.moment_mul)
 
+    def pts_weight(self, parts, dtype):
+        """The pts branches' tap-major weights side by side, (K, C, sum F).
+        While the parts serve their kept layouts (the same tensors as at the
+        last call), the concat is kept too."""
+        ws = [m.tap_major(dtype) for m in parts]
+        kept = self._pts_weight
+        if kept is not None and len(kept[0]) == len(ws) \
+                and all(a is b for a, b in zip(kept[0], ws)):
+            return kept[1]
+        w_cat = ws[0] if len(ws) == 1 else torch.cat(ws, dim=-1)
+        serving = all(m._served is not None and m._served[1] is w
+                      for m, w in zip(parts, ws))
+        self._pts_weight = (ws, w_cat) if serving else None
+        return w_cat
+
     def run_level(self, x):
         cls_feat, pts_feat = x, x
         for conv in self.cls_convs:
@@ -155,7 +171,7 @@ class SerialKpHead(nn.Module):
         # weight concat: the columns are gathered once for both
         parts = ([self.keypts_refine_dfmconv] if self.with_keypoints else []) \
             + ([self.reppts_refine_dfmconv] if self.own_rep_branch else [])
-        w_cat = torch.cat([m.tap_major(dt) for m in parts], dim=-1)
+        w_cat = self.pts_weight(parts, dt)
         pts_col = torch.relu(deform_conv_fused(pts_nhwc, pos, w_cat,
                                                plain=self.plain))
         Fp = parts[0].weight.shape[0]

@@ -51,13 +51,13 @@ class ColumnTable(ctypes.Structure):
 # argtypes of every C entry point: pointers and the stream as c_void_p
 SIGNATURES = {
     'deform_fused': {
-        'kgdet_deform_fused': [_P] * 5 + [_I] * 7 + [_P],
+        'kgdet_deform_fused': [_P] * 4 + [_I] * 9 + [_P],
     },
     'deform_split': {
         'kgdet_deform_split': [_P] * 4 + [ColumnTable] + [_I] * 8 + [_P],
     },
     'deform_bwd': {
-        'kgdet_deform_bwd': [_P] * 6 + [_I] * 7 + [_P],
+        'kgdet_deform_bwd': [_P] * 5 + [_I] * 8 + [_P],
     },
     'deform_sample': {
         'kgdet_deform_sample': [_P] * 3 + [_I] * 8 + [_P],

@@ -3,12 +3,12 @@
 Port of kgdet_tpu/ops/deform.py. ``prep_indices`` is the analog of the TPU
 path's ``pallas_deform._prep_indices``: it turns absolute (y, x) positions
 into clamped row starts and 2x2 corner weights, and it is where the boundary
-semantics live. The plain ``bilinear_gather`` and the wrappers of the fused
-conv (K1) take their indices from it, and ``prep_indices_bwd`` does the same
-for the sampling backward (K3). The column gathers (K2, K6) are handed the
-positions and compute the same expressions inside the kernel
-(csrc/tap_coeffs.h); ``prep_indices`` is their specification, and
-tests/test_torch_kernels.py holds the header against it bit for bit.
+semantics live. The plain ``bilinear_gather`` takes its indices from it, and
+the plain sampling backward from ``prep_indices_bwd``. The CUDA kernels (K1,
+K2, K3, K6) are handed the positions and compute the same expressions inside
+(csrc/tap_coeffs.h); ``prep_indices`` and ``prep_indices_bwd`` are their
+specification, and tests/test_torch_kernels.py holds the header against
+both bit for bit.
 ``deform_sample`` / ``deform_conv`` are the relative-offset entries (output
 pixel centers at ``stride`` times the output index, optional modulation).
 

@@ -22,13 +22,14 @@ walk, the raw six-dimensional column layout) has no meaning here; the
 kernels compute the same functions.
 
 On a CPU tensor each wrapper runs its plain version (``*_ref``); on a CUDA
-tensor it launches its kernel or raises. K2 and K6 take the absolute
-positions themselves and do the index math of ``ops/deform.py::prep_indices``
-inside the kernel (csrc/tap_coeffs.h, held against ``prep_indices`` bit for
-bit by tests/test_torch_kernels.py): a call is argument checks, one
-``torch.empty`` and one launch, with no map concat and no table in device
-memory. K1 and K3 still run ``prep_indices`` / ``prep_indices_bwd`` in
-torch and hand their kernels the row starts and coefficients.
+tensor it launches its kernel or raises. Every kernel takes the absolute
+positions themselves and does the index math of ``ops/deform.py::
+prep_indices`` / ``prep_indices_bwd`` inside (csrc/tap_coeffs.h, held
+against both bit for bit by tests/test_torch_kernels.py): a call of K1, K2
+or K6 is argument checks, one ``torch.empty`` and one launch, with no map
+concat and no table in device memory; a call of K3 is one zeroed f32
+buffer, one launch and the cast of the map's gradient. ``prep_indices*``
+feed only the plain versions.
 """
 from __future__ import annotations
 
@@ -36,7 +37,15 @@ import torch
 
 from kgdet_tpu_torch.ops import _build
 from kgdet_tpu_torch.ops.deform import bilinear_gather, pad_min2, \
-    prep_indices, prep_indices_bwd
+    prep_indices_bwd
+
+
+def _f32_positions(pos_yx):
+    """The kernels read contiguous f32 positions; position math runs in f32
+    whatever the input dtype, as in ``prep_indices``."""
+    if pos_yx.dtype != torch.float32:
+        pos_yx = pos_yx.float()
+    return pos_yx.contiguous()
 
 
 def deform_conv_fused_ref(feat, pos_yx, weight):
@@ -52,10 +61,12 @@ def deform_conv_fused(feat, pos_yx, weight, plain: bool = False):
     (y, x), weight (K,C,F). Returns (B,P,F) in feat's dtype.
 
     When no gradient is wanted, kernel K1: on CUDA the sampled columns never
-    reach device memory. Under differentiation, the autograd Function over
-    the column gather (K6) and the sampling backward (K3), which keeps the
-    columns for the weight gradient. ``plain`` runs the kernels' plain
-    versions instead, whatever the device."""
+    reach device memory, and a bf16 map's product runs on the tensor cores
+    (f32 maps keep full-f32 arithmetic). A weight that is already contiguous
+    in feat's dtype is passed as it is. Under differentiation, the autograd
+    Function over the column gather (K6) and the sampling backward (K3),
+    which keeps the columns for the weight gradient. ``plain`` runs the
+    kernels' plain versions instead, whatever the device."""
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (feat, pos_yx, weight)):
         return _FusedConvGrad.apply(feat, pos_yx, weight, plain)
@@ -69,14 +80,19 @@ def deform_conv_fused(feat, pos_yx, weight, plain: bool = False):
                          f'{tuple(pos_yx.shape)}, weight '
                          f'{tuple(weight.shape)}')
     Fo = weight.shape[2]
-    starts, w4 = prep_indices(pos_yx.float(), H, W)
-    weight = weight.to(feat.dtype).contiguous()
+    pos_yx = _f32_positions(pos_yx)
+    if weight.dtype != feat.dtype:
+        weight = weight.to(feat.dtype)
+    weight = weight.contiguous()
     out = torch.empty((B, P, Fo), dtype=feat.dtype, device=feat.device)
-    _build.require_cuda(feat, starts, w4, weight, out)
+    if out.numel() == 0:            # no pixel or no channel: nothing to launch
+        return out
+    _build.require_cuda(feat, pos_yx, weight, out)
     lib = _build.load('deform_fused')
     rc = lib.kgdet_deform_fused(
-        feat.data_ptr(), starts.data_ptr(), w4.data_ptr(), weight.data_ptr(),
-        out.data_ptr(), B, H * W, C, P, K, Fo, _build.dtype_code(feat),
+        feat.data_ptr(), pos_yx.data_ptr(), weight.data_ptr(),
+        out.data_ptr(), B, H, W, C, P, K, Fo,
+        _build.vec_ok(C, feat, weight), _build.dtype_code(feat),
         _build.stream_ptr(feat.device))
     _build.check(rc, 'deform_fused')
     deform_conv_fused.launches += 1
@@ -87,14 +103,6 @@ deform_conv_fused.launches = 0
 
 
 # ------------------------------------------------- K2 and K6: column gathers
-def _f32_positions(pos_yx):
-    """The gather kernels read contiguous f32 positions; position math runs
-    in f32 whatever the input dtype, as in ``prep_indices``."""
-    if pos_yx.dtype != torch.float32:
-        pos_yx = pos_yx.float()
-    return pos_yx.contiguous()
-
-
 def _split_views(buf, B, P, C, taps):
     """The 2 * len(taps) column tensors inside one flat buffer of
     B*P*sum(taps)*2C elements: [(cls (B,P,t,C), pts (B,P,t,C)), ...],
@@ -217,9 +225,10 @@ def deform_sample_bwd(feat, pos_yx, g):
 
     feat (B,H,W,C) f32|bf16; pos_yx (B,P,K,2); g (B,P,K,C) in feat's dtype.
     Returns grad_feat (B,H,W,C), summed in f32 and cast to feat's dtype, and
-    grad_pos (B,P,K,2) in pos_yx's dtype. On CUDA the scatter uses f32
-    atomics, so grad_feat's sums are taken in an order that changes from run
-    to run."""
+    grad_pos (B,P,K,2) in pos_yx's dtype. On CUDA both are summed with f32
+    atomics (shared-memory ones for grad_feat where the map's rows fit, see
+    csrc/deform_bwd.cu), in an order that changes from run to run; the two
+    come out of one zeroed f32 buffer, of which grad_pos is a view."""
     B, P, K = pos_yx.shape[:3]
     if feat.shape[0] != B or pos_yx.shape != (B, P, K, 2) \
             or g.shape != (B, P, K, feat.shape[-1]) or g.dtype != feat.dtype:
@@ -232,18 +241,25 @@ def deform_sample_bwd(feat, pos_yx, g):
     feat = pad_min2(feat).contiguous()
     _, H, W, C = feat.shape
     g = g.contiguous()
-    starts, wd12 = prep_indices_bwd(pos_yx.float(), H, W)
-    gfeat = torch.zeros((B, H, W, C), dtype=torch.float32, device=feat.device)
-    gpos = torch.empty((B, P, K, 2), dtype=torch.float32, device=feat.device)
-    _build.require_cuda(feat, starts, wd12, g, gfeat, gpos)
-    lib = _build.load('deform_bwd')
-    rc = lib.kgdet_deform_bwd(
-        feat.data_ptr(), starts.data_ptr(), wd12.data_ptr(), g.data_ptr(),
-        gfeat.data_ptr(), gpos.data_ptr(), B, H * W, C, P, K,
-        _build.vec_ok(C, feat, g, gfeat), _build.dtype_code(feat),
-        _build.stream_ptr(feat.device))
-    _build.check(rc, 'deform_bwd')
-    deform_sample_bwd.launches += 1
+    pos32 = _f32_positions(pos_yx)
+    # one fill for both outputs; an even element count keeps grad_pos on the
+    # 8-byte boundary of the kernel's float2 adds
+    n_feat = B * H * W * C
+    n_feat += n_feat % 2
+    acc = torch.zeros(n_feat + B * P * K * 2, dtype=torch.float32,
+                      device=feat.device)
+    gfeat = acc[:B * H * W * C].view(B, H, W, C)
+    gpos = acc[n_feat:].view(B, P, K, 2)
+    if gpos.numel() and C:
+        _build.require_cuda(feat, pos32, g, acc)
+        lib = _build.load('deform_bwd')
+        rc = lib.kgdet_deform_bwd(
+            feat.data_ptr(), pos32.data_ptr(), g.data_ptr(),
+            gfeat.data_ptr(), gpos.data_ptr(), B, H, W, C, P, K,
+            _build.vec_ok(C, feat, g, gfeat), _build.dtype_code(feat),
+            _build.stream_ptr(feat.device))
+        _build.check(rc, 'deform_bwd')
+        deform_sample_bwd.launches += 1
     return gfeat[:, :H0, :W0].to(feat.dtype), gpos.to(pos_yx.dtype)
 
 

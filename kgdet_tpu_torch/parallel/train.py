@@ -70,23 +70,29 @@ def paramwise_multipliers(model, o):
     return lr_mult, decay_mult
 
 
+# optax.scale_by_adam's defaults, which the JAX package takes as they are
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
 class SGDOptimizer:
-    """SGD with momentum in the order of the JAX package's optax chain:
-    clip the global gradient norm; add ``weight_decay * decay_mult * p`` to
-    the gradient; momentum trace (no Nesterov, no dampening); scale by the
-    scheduled LR and the parameter's LR multiplier; frozen parameters get
-    no update. Gradients that are ``None`` count as zero, so a parameter the
-    loss does not reach still decays, as under ``jax.grad``.
+    """SGD with momentum, or Adam (``cfg.optim.type``), in the order of the
+    JAX package's optax chain: clip the global gradient norm; add
+    ``weight_decay * decay_mult * p`` to the gradient (L2 folded into the
+    gradient before the moments, as torch.optim does, not decoupled); then
+    for ``sgd`` the momentum trace (no Nesterov, no dampening), for ``adam``
+    the two moments with bias correction (``optax.scale_by_adam``:
+    m / (1 - b1^t) / (sqrt(v / (1 - b2^t)) + eps)); scale by the scheduled LR
+    and the parameter's LR multiplier; frozen parameters get no update.
+    Gradients that are ``None`` count as zero, so a parameter the loss does
+    not reach still decays, as under ``jax.grad``.
 
     ``step()`` reads ``p.grad``, updates the parameters in place and
     returns the gradient norm before clipping (a 0-d tensor)."""
 
     def __init__(self, model, cfg: KGDetConfig, steps_per_epoch: int):
         o = cfg.optim
-        if o.type != 'sgd':
-            raise NotImplementedError(
-                f'optimizer type {o.type!r}: the port has sgd; adam is '
-                'queued in ROADMAP Queue 1')
+        if o.type not in ('sgd', 'adam'):
+            raise ValueError(f'unknown optimizer type: {o.type}')
         self.o = o
         self.schedule = make_lr_schedule(cfg, steps_per_epoch)
         frozen = frozen_param_mask(model, cfg.backbone.frozen_stages)
@@ -97,7 +103,10 @@ class SGDOptimizer:
         self.lr_mult = [lr_mult[n] for n, _ in named if not frozen[n]]
         self.decay = [o.weight_decay * decay_mult[n]
                       for n, _ in named if not frozen[n]]
+        # sgd: the momentum trace; adam: the first moment
         self.momentum = [torch.zeros_like(p) for p in self.params]
+        self.second_moment = [torch.zeros_like(p) for p in self.params] \
+            if o.type == 'adam' else None
         self.step_count = 0
 
     @torch.no_grad()
@@ -109,11 +118,19 @@ class SGDOptimizer:
         # optax.clip_by_global_norm: g * max_norm / max(norm, max_norm)
         scale = o.grad_clip_norm / torch.clamp(norm, min=o.grad_clip_norm)
         lr = self.schedule(self.step_count)
-        for p, buf, mult, decay in zip(self.params, self.momentum,
-                                       self.lr_mult, self.decay):
+        t = self.step_count + 1
+        for i, (p, buf, mult, decay) in enumerate(zip(
+                self.params, self.momentum, self.lr_mult, self.decay)):
             g = p * decay if p.grad is None else p.grad * scale + p * decay
-            buf.mul_(o.momentum).add_(g)
-            p.add_(buf, alpha=-lr * mult)
+            if o.type == 'sgd':
+                buf.mul_(o.momentum).add_(g)
+                p.add_(buf, alpha=-lr * mult)
+                continue
+            nu = self.second_moment[i]
+            buf.mul_(ADAM_B1).add_(g, alpha=1 - ADAM_B1)
+            nu.mul_(ADAM_B2).addcmul_(g, g, value=1 - ADAM_B2)
+            denom = (nu / (1 - ADAM_B2 ** t)).sqrt_().add_(ADAM_EPS)
+            p.addcdiv_(buf, denom, value=-lr * mult / (1 - ADAM_B1 ** t))
         self.step_count += 1
         return norm
 
@@ -123,8 +140,8 @@ class SGDOptimizer:
 
 
 def make_optimizer(cfg: KGDetConfig, model, steps_per_epoch: int):
-    """SGD + momentum + wd 1e-4 + global-norm clip 35 + warmup/step LR.
-    Returns (optimizer, schedule)."""
+    """SGD + momentum (or Adam) + wd 1e-4 + global-norm clip 35 +
+    warmup/step LR. Returns (optimizer, schedule)."""
     opt = SGDOptimizer(model, cfg, steps_per_epoch)
     return opt, opt.schedule
 

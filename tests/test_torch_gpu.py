@@ -4,8 +4,10 @@ Needs a CUDA card and nvcc; every test skips, in its fixture, without one.
 The main-path shapes are checked by chip_smoke.py; these cases cover ragged
 tiles: pixel counts, channel counts and image sizes that are not multiples
 of the kernels' tile sizes, maps under 2x2, taps that are all out of bounds
-or all on one pixel, the in-kernel index math of K6 and K2 on a grid of
-boundary positions, branch maps in two storages, the wrappers' shape checks,
+or all on one pixel, the in-kernel index math of K1, K2, K3 and K6 on a grid
+of boundary positions, both bodies of K1 (tensor cores, FMA) and of K3
+(shared-memory slab in one band and in several, global atomics), branch maps
+in two storages, the wrappers' shape checks,
 the relative-offset entries at stride 2, the autograd Functions over K6 and
 K3, and the ResNet per-block route (K8) against the chain (K4+K5). f32
 tolerance rtol 1e-5, atol 1e-4 (chip_smoke.py's); K3's gradient map is
@@ -243,6 +245,167 @@ def test_gather_index_math_on_the_boundary_grid(gen, H, W):
     n = pos.shape[1] // 12 * 12
     _assert_gather_matches_plain(feats, pos[:, :n].reshape(1, -1, 12, 2),
                                  (5, 1, 6))
+
+
+def _assert_fused_matches_plain(feat, pos, w):
+    """K1 against its plain version: f32 within TOL, bf16 within twice the
+    plain version's error against an f32 run."""
+    torch.testing.assert_close(dk.deform_conv_fused(feat, pos, w),
+                               dk.deform_conv_fused_ref(feat, pos, w), **TOL)
+    f16, w16 = feat.bfloat16(), w.bfloat16()
+    got = dk.deform_conv_fused(f16, pos, w16)
+    ref = dk.deform_conv_fused_ref(f16.float(), pos, w16.float())
+    plain = dk.deform_conv_fused_ref(f16, pos, w16)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert (got.float() - ref).abs().max() <= \
+        2 * (plain.float() - ref).abs().max()
+    return got
+
+
+def _assert_bwd_matches_plain(feat, pos, g):
+    """K3 against its plain version, both outputs: f32 within rtol 1e-5 and
+    atol 1e-4 of the largest sum (the atomics' order varies), bf16 within
+    twice the plain version's error against an f32 run or that floor."""
+    gfeat, gpos = dk.deform_sample_bwd(feat, pos, g)
+    wfeat, wpos = dk.deform_sample_bwd_ref(feat, pos, g)
+    assert gfeat.shape == feat.shape and gpos.shape == pos.shape
+    for got, want in ((gfeat, wfeat), (gpos.float(), wpos.float())):
+        torch.testing.assert_close(
+            got, want, rtol=1e-5,
+            atol=1e-4 * max(1.0, want.abs().max().item()))
+    f16, g16 = feat.bfloat16(), g.bfloat16()
+    kf, kp = dk.deform_sample_bwd(f16, pos, g16)
+    rf, rp = dk.deform_sample_bwd_ref(f16.float(), pos, g16.float())
+    pf, pp = dk.deform_sample_bwd_ref(f16, pos, g16)
+    assert kf.dtype == torch.bfloat16 and kp.dtype == pos.dtype
+    for got, plain, ref in ((kf, pf, rf), (kp, pp, rp)):
+        floor = 1e-4 * max(1.0, ref.abs().max().item())
+        assert (got.float() - ref.float()).abs().max() <= \
+            max(2 * (plain.float() - ref.float()).abs().max().item(), floor)
+    return gfeat, gpos
+
+
+@pytest.mark.parametrize('H,W', [(6, 7), (2, 2), (1, 5), (4, 1), (1, 1)])
+@pytest.mark.parametrize('C,F', [(32, 16), (12, 10)])
+def test_k1_k3_index_math_on_the_boundary_grid(gen, H, W, C, F):
+    """The in-kernel index math of K1 and K3 (forward and backward
+    coefficients) on the grid of the gathers' test: every quarter step
+    across every border, exact integers (where the backward takes the
+    one-sided derivative), -0.0, +-1e9, on maps down to one pixel; with
+    channel counts on the 16-byte pack (K1's tensor-core body in bf16, K3's
+    slab body) and off it (the FMA body, the atomic body); positions in f32
+    and in bf16."""
+    feat = _randn(gen, 1, H, W, C)
+    pos = _boundary_positions(max(H, 2), max(W, 2))
+    n = pos.shape[1] // 12 * 12
+    far = pos.abs().amax(dim=-1) >= 1e9
+    assert far.any()
+    for p in (pos, pos[:, :n].reshape(1, -1, 12, 2)):
+        K = p.shape[2]
+        w = _randn(gen, K, C, F, std=(K * C) ** -0.5)
+        g = _randn(gen, 1, p.shape[1], K, C)
+        _assert_fused_matches_plain(feat, p, w)
+        gfeat, gpos = _assert_bwd_matches_plain(feat, p, g)
+        assert torch.isfinite(gfeat).all() and torch.isfinite(gpos).all()
+        p16 = p.bfloat16()
+        torch.testing.assert_close(
+            dk.deform_conv_fused(feat, p16, w),
+            dk.deform_conv_fused_ref(feat, p16.float(), w), **TOL)
+        kf, kp = dk.deform_sample_bwd(feat, p16, g)
+        wf, wp = dk.deform_sample_bwd_ref(feat, p16, g)
+        assert kp.dtype == torch.bfloat16
+        torch.testing.assert_close(
+            kf, wf, rtol=1e-5, atol=1e-4 * max(1.0, wf.abs().max().item()))
+        torch.testing.assert_close(kp, wp, rtol=1e-2, atol=1e-2 * max(
+            1.0, wp.float().abs().max().item()))
+    # a tap at +-1e9 matches no corner: no gradient to its position
+    assert not dk.deform_sample_bwd(
+        feat, pos, _randn(gen, 1, pos.shape[1], 1, C))[1][far].any()
+
+
+@pytest.mark.parametrize('H,W,C,F,P,K,kind', [
+    (4, 4, 64, 72, 300, 9, 'one_pixel'),    # every tap in one 2x2 cell
+    (6, 6, 32, 24, 40, 4, 'outside'),       # every tap out of bounds
+    (5, 7, 12, 10, 35, 5, 'mixed'),         # C, F off the pack: FMA body
+    (5, 7, 40, 136, 70, 3, 'mixed'),        # C off the 64-channel step,
+                                            # F over one 128-column tile
+    (9, 6, 64, 256, 4300, 2, 'mixed'),      # P large enough for 64-row tiles
+])
+def test_k1_bodies_and_tap_patterns(gen, H, W, C, F, P, K, kind):
+    feat = _randn(gen, 2, H, W, C)
+    pos = _positions(gen, 2, P, K, H, W, kind)
+    w = _randn(gen, K, C, F, std=(K * C) ** -0.5)
+    before = dk.deform_conv_fused.launches
+    got = _assert_fused_matches_plain(feat, pos, w)
+    assert dk.deform_conv_fused.launches == before + 2
+    if kind == 'outside':
+        assert not got.any()
+
+
+@pytest.mark.parametrize('H,W,C,K,kind,body', [
+    (25, 42, 64, 17, 'mixed', 'slab, three bands of 10 rows'),
+    (25, 42, 72, 17, 'near', 'slab, the second slice 8 channels wide'),
+    (64, 200, 16, 70, 'near', 'slab, 32 bands of 2 rows'),
+    (64, 200, 16, 70, 'mixed', 'slab, 32 bands, taps anywhere'),
+    (13, 21, 256, 17, 'near', 'slab, one band, fewer chunks than warps'),
+    (25, 42, 64, 5, 'near', 'under 64 adds an address: atomics'),
+    (2, 1000, 8, 17, 'mixed', 'a map row of 64 channels over 227 KB: '
+                              'atomics'),
+    (40, 800, 8, 200, 'near', 'one row a band, over 32 bands: atomics'),
+    (25, 42, 12, 17, 'near', 'C off the pack: atomics'),
+])
+def test_k3_both_bodies(gen, H, W, C, K, kind, body):
+    """The sampling backward's two bodies and the shapes at which the
+    launcher changes between them (csrc/deform_bwd.cu: the slab from 64 adds
+    an address of the map's gradient, 16 taps a pixel, where its bands fit);
+    no shape is refused: what the slab does not take goes through global
+    atomics. 'near' puts every tap within a few cells of its own pixel, so
+    taps cross the bands' edges."""
+    P = min(H * W, 3000)
+    feat = _randn(gen, 2, H, W, C)
+    if kind == 'near':
+        idx = torch.arange(P)
+        centre = torch.stack([idx // W, idx % W], dim=-1).float()
+        pos = (centre.reshape(1, P, 1, 2) + 2.0 * torch.randn(
+            (2, P, K, 2), generator=gen)).cuda()
+    else:
+        pos = _positions(gen, 2, P, K, H, W, kind)
+    g = _randn(gen, 2, P, K, C)
+    before = dk.deform_sample_bwd.launches
+    _assert_bwd_matches_plain(feat, pos, g)
+    assert dk.deform_sample_bwd.launches == before + 2, body
+
+
+def test_k3_no_tap_and_all_taps_outside(gen):
+    feat = _randn(gen, 2, 6, 6, 32)
+    pos = _positions(gen, 2, 40, 4, 6, 6, 'outside')
+    gfeat, gpos = dk.deform_sample_bwd(feat, pos, _randn(gen, 2, 40, 4, 32))
+    assert not gfeat.any() and not gpos.any()
+    before = dk.deform_sample_bwd.launches
+    gfeat, gpos = dk.deform_sample_bwd(feat, pos[:, :0],
+                                       _randn(gen, 2, 0, 4, 32))
+    assert gfeat.shape == feat.shape and not gfeat.any()
+    assert gpos.shape == (2, 0, 4, 2)
+    assert dk.deform_sample_bwd.launches == before      # no tap, no launch
+
+
+def test_served_weight_layout_is_kept_on_the_card(gen):
+    """DeformConvWeight.tap_major in eval(): one tensor for every call, in
+    the compute dtype, handed to K1 as it is (no copy in the wrapper)."""
+    from kgdet_tpu_torch.models.kgdet_head import DeformConvWeight
+    m = DeformConvWeight(32, 16, 3).cuda().eval()
+    torch.nn.init.normal_(m.weight, generator=None)
+    with torch.inference_mode():
+        w = m.tap_major(torch.bfloat16)
+        assert m.tap_major(torch.bfloat16) is w and w.is_contiguous()
+        feat = _randn(gen, 1, 5, 5, 32).bfloat16()
+        pos = _positions(gen, 1, 25, 9, 5, 5, 'mixed')
+        got = dk.deform_conv_fused(feat, pos, w)
+        want = dk.deform_conv_fused_ref(feat.float(), pos, w.float())
+        plain = dk.deform_conv_fused_ref(feat, pos, w)
+    assert (got.float() - want).abs().max() <= \
+        2 * (plain.float() - want).abs().max()
+    assert m.cpu().tap_major(torch.bfloat16) is not w
 
 
 def test_gather_all_taps_on_one_pixel(gen):

@@ -11,8 +11,10 @@ K5 frozen_bottleneck_ref vs pallas_stem.bottleneck_transposed; K6
 deform_sample_cols_ref vs deform_sample_pallas; K8 bottleneck_reference vs
 pallas_resblock.fused_bottleneck; the autograd Functions over K6 and K3 vs
 jax.vjp of deform_conv_fused and deform_sample_hybrid; the index math that
-K6 and K2 do inside the kernel (csrc/tap_coeffs.h, compiled for the host with
-g++) vs ops/deform.py::prep_indices bit for bit; the split gather's wrapper
+the deformable kernels do inside (csrc/tap_coeffs.h, compiled for the host
+with g++) vs ops/deform.py::prep_indices (K1, K2, K6) and prep_indices_bwd
+(K3) bit for bit; the tap-major weight layout the heads keep while they
+serve; the split gather's wrapper
 on strided maps and bf16 positions, and its by-value column table vs
 _split_views. f32, tolerance 1e-4
 (the deform kernels, the scale of tests/test_pallas_deform.py's checks; 1e-5
@@ -443,15 +445,26 @@ extern "C" void coeffs(const float* yx, int n, int H, int W, int* starts,
     for (int j = 0; j < 4; ++j) w4[4 * i + j] = w[j];
   }
 }
+extern "C" void coeffs_bwd(const float* yx, int n, int H, int W, int* starts,
+                           float* wd12) {
+  for (int i = 0; i < n; ++i) {
+    float w[12];
+    kgdet::tap_coeffs_bwd(yx[2 * i], yx[2 * i + 1], H, W, starts[2 * i],
+                          starts[2 * i + 1], w);
+    for (int j = 0; j < 12; ++j) wd12[12 * i + j] = w[j];
+  }
+}
 '''
 
 
 @pytest.fixture(scope='module')
 def host_coeffs(tmp_path_factory):
-    """csrc/tap_coeffs.h, the header the CUDA gathers take their
+    """csrc/tap_coeffs.h, the header the CUDA kernels take their
     coefficients from, compiled for the host with g++ (no contraction of
     a * b + c, so no bit can differ for that reason) and loaded with
-    ctypes."""
+    ctypes. run(pos, H, W) gives the forward's starts and four weights,
+    run(pos, H, W, bwd=True) the backward's starts and twelve
+    coefficients."""
     import ctypes
     import shutil
     import subprocess
@@ -466,17 +479,20 @@ def host_coeffs(tmp_path_factory):
     subprocess.run([gxx, '-O2', '-ffp-contract=off', '-std=c++17', '-shared',
                     '-fPIC', f'-I{CSRC}', str(tmp / 'shim.cpp'), '-o',
                     str(lib)], check=True)
-    fn = ctypes.CDLL(str(lib)).coeffs
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = None
+    cdll = ctypes.CDLL(str(lib))
+    for fn in (cdll.coeffs, cdll.coeffs_bwd):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = None
 
-    def run(pos, H, W):
-        """pos (n, 2) f32 -> starts (n, 2), w4 (n, 4)."""
+    def run(pos, H, W, bwd=False):
+        """pos (n, 2) f32 -> starts (n, 2), w4 (n, 4) or wd12 (n, 12)."""
         pos = np.ascontiguousarray(pos, np.float32)
         n = len(pos)
-        outs = (np.zeros((n, 2), np.int32), np.zeros((n, 4), np.float32))
-        fn(pos.ctypes.data, n, H, W, *[o.ctypes.data for o in outs])
+        outs = (np.zeros((n, 2), np.int32),
+                np.zeros((n, 12 if bwd else 4), np.float32))
+        (cdll.coeffs_bwd if bwd else cdll.coeffs)(
+            pos.ctypes.data, n, H, W, *[o.ctypes.data for o in outs])
         return outs
     return run
 
@@ -508,6 +524,100 @@ def test_kernel_index_math_equals_prep_indices_bit_for_bit(host_coeffs, H, W):
     far = np.abs(pos).max(-1) >= 1e9
     assert far.any() and not w4[far].any() and w4[~far].any()
     assert starts.min() >= 0 and starts[:, 1].max() + 1 < H * W
+
+
+@pytest.mark.parametrize('H,W', [(6, 7), (2, 2)])
+def test_kernel_index_math_equals_prep_indices_bwd_bit_for_bit(host_coeffs,
+                                                               H, W):
+    """K3's in-kernel coefficients (csrc/tap_coeffs.h::tap_coeffs_bwd)
+    against ops/deform.py::prep_indices_bwd on the forward test's grid of
+    both axes plus NaN: starts equal, all twelve coefficients [w4 | u4 | v4]
+    equal in every bit (the sign of a zero too), and its first four equal to
+    the forward's."""
+    from kgdet_tpu_torch.ops.deform import prep_indices_bwd
+    ys = np.append(_boundary_grid(H), np.float32('nan'))
+    xs = np.append(_boundary_grid(W), np.float32('nan'))
+    pos = np.stack(np.meshgrid(ys, xs, indexing='ij'), -1).reshape(-1, 2)
+    starts, wd12 = host_coeffs(pos, H, W, bwd=True)
+    want_s, want_w = prep_indices_bwd(_t(pos).reshape(1, -1, 1, 2), H, W)
+    np.testing.assert_array_equal(starts, want_s.reshape(-1, 2).numpy())
+    np.testing.assert_array_equal(
+        wd12.view(np.int32), want_w.reshape(-1, 12).numpy().view(np.int32))
+    fwd_s, w4 = host_coeffs(pos, H, W)
+    np.testing.assert_array_equal(fwd_s, starts)
+    np.testing.assert_array_equal(w4.view(np.int32),
+                                  wd12[:, :4].view(np.int32))
+    # derivatives are -1, 0 or +1 times the other axis' weight; far and NaN
+    # positions match no corner; an integer coordinate has a zero weight and
+    # a live derivative (the one-sided one of floor()'s cell)
+    dead = (np.abs(pos).max(-1) >= 1e9) | np.isnan(pos).any(-1)
+    assert dead.any() and not wd12[dead].any() and wd12[~dead].any()
+    assert np.isfinite(wd12).all() and np.abs(wd12).max() <= 1.0
+    assert ((wd12[:, :4] == 0) & (wd12[:, 4:8] != 0)).any()
+    assert starts.min() >= 0 and starts[:, 1].max() + 1 < H * W
+
+
+def test_served_weight_layout_is_made_once():
+    """DeformConvWeight.tap_major while the module serves (eval(), no
+    gradient wanted): the same tensor twice, equal to the layout made anew,
+    per dtype; dropped by train(), load_state_dict, a move of the module and
+    an in-place change of the weight; never kept where a gradient could be
+    wanted. The serial head's side-by-side pts weight follows its parts."""
+    from kgdet_tpu_torch.models.kgdet_head import DeformConvWeight
+    from kgdet_tpu_torch.models.serial_head import SerialKpHead
+    m = DeformConvWeight(6, 4, 3)
+    torch.nn.init.normal_(m.weight)
+
+    def fresh(dtype):
+        w = m.weight.detach()
+        return w.reshape(4, 6, 9).permute(2, 1, 0).to(dtype).contiguous()
+
+    assert m.tap_major(torch.float32) is not m.tap_major(torch.float32)
+    m.eval()
+    kept = m.tap_major(torch.float32)       # grad enabled: nothing is kept
+    assert kept.requires_grad and m.tap_major(torch.float32) is not kept
+    with torch.no_grad():
+        kept = m.tap_major(torch.float32)
+        assert m.tap_major(torch.float32) is kept
+        assert kept.shape == (9, 6, 4) and kept.is_contiguous()
+        assert torch.equal(kept, fresh(torch.float32))
+        half = m.tap_major(torch.bfloat16)
+        assert half.dtype == torch.bfloat16 and half is not kept
+        assert torch.equal(half, fresh(torch.bfloat16))
+        kept = m.tap_major(torch.float32)
+        assert m.tap_major(torch.float32) is kept
+        m.train()
+        assert m.tap_major(torch.float32) is not kept
+        m.eval()
+        kept = m.tap_major(torch.float32)
+        m.load_state_dict({'weight': torch.ones_like(m.weight)})
+        again = m.tap_major(torch.float32)
+        assert again is not kept and bool((again == 1).all())
+        m.weight.mul_(2.0)                  # in place, as an optimizer does
+        assert bool((m.tap_major(torch.float32) == 2).all())
+        kept = m.tap_major(torch.float32)
+        m.to(torch.float64)
+        assert m.tap_major(torch.float32) is not kept
+    assert sorted(m.state_dict()) == ['weight']
+
+    head = SerialKpHead(num_classes=3, in_channels=8, feat_channels=8,
+                        point_feat_channels=8, stacked_convs=1, num_keypts=4,
+                        parallel=True, gn_groups=4).eval()
+    parts = [head.keypts_refine_dfmconv, head.reppts_refine_dfmconv]
+    for mod in parts:
+        torch.nn.init.normal_(mod.weight)
+    with torch.no_grad():
+        cat = head.pts_weight(parts, torch.float32)
+        assert head.pts_weight(parts, torch.float32) is cat
+        assert torch.equal(cat, torch.cat(
+            [mod.tap_major(torch.float32) for mod in parts], dim=-1))
+        head.train()
+        assert head.pts_weight(parts, torch.float32) is not cat
+        head.eval()
+        cat = head.pts_weight(parts, torch.float32)
+        parts[0].weight.zero_()
+        assert not head.pts_weight(parts, torch.float32)[..., :8].any()
+    assert head.pts_weight(parts, torch.float32).requires_grad
 
 
 # ------------------------------------------- the split gather's wrapper edges

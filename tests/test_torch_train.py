@@ -8,7 +8,9 @@ JAX package, its variables are carried into the port through
 term, every parameter's gradient, then three optimizer steps under a config
 with paramwise multipliers and a two-step warmup (the optimizer on shared
 gradients, tightly, and the free-running step within its own sensitivity).
-Tolerances are stated at each assert.
+The ``adam`` branch of the optimizer takes the same shared gradients against
+the optax chain, and the demo-overfit config (``adam``, nothing frozen) takes
+one train step at tiny width. Tolerances are stated at each assert.
 """
 import dataclasses
 
@@ -198,6 +200,81 @@ def test_three_optimizer_steps_match_jax(both):
             np.testing.assert_allclose(
                 got_logs[k], want_logs[k], err_msg=k,
                 rtol=2e-2 if k == 'grad_norm' else 1e-3)
+
+
+def test_three_adam_steps_match_optax_chain(both):
+    """``OptimConfig(type='adam')``: the port's update against the JAX
+    package's optax chain (clip, L2 folded into the gradient,
+    ``scale_by_adam`` with bias correction, scheduled LR, paramwise LR
+    multiplier, frozen mask) on shared gradients (JAX's first-step gradients
+    scaled by 1, 3 and 0.5, the second clipped) over three steps of the
+    two-step warmup. f32: every parameter within 1e-6 absolute (a step moves
+    an element by about the LR, 2e-3 to 1e-2 here, so 1e-4 of a move)."""
+    import optax
+
+    cfg = both['cfg']
+    cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, type='adam'))
+    jgrads, jstart = both['jgrads_tree'], both['params_tree']
+    tx, _ = jtrain.make_optimizer(cfg, jstart, STEPS_PER_EPOCH)
+    probe = build_model(cfg, device='cpu')
+    probe.load_state_dict({**both['model'].state_dict(),
+                           **{k: v.clone() for k, v in both['start'].items()}})
+    opt, _ = ttrain.make_optimizer(cfg, probe, STEPS_PER_EPOCH)
+    state, jp = tx.init(jstart), jstart
+    first = _named(jgrads)
+    for mult in (1.0, 3.0, 0.5):
+        g = jax.tree.map(lambda x: x * mult, jgrads)
+        updates, state = tx.update(g, state, jp)
+        jp = optax.apply_updates(jp, updates)
+        for name, p in probe.named_parameters():
+            p.grad = torch.from_numpy(first[name] * np.float32(mult))
+        opt.step()
+    want, start = _named(jp), both['jstart']
+    frozen = ttrain.frozen_param_mask(probe, cfg.backbone.frozen_stages)
+    moved = 0
+    for name, p in probe.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name], rtol=0,
+                                   atol=1e-6, err_msg=name)
+        move = np.abs(want[name] - start[name]).max()
+        assert move == 0 or not frozen[name], name
+        moved += move > 1e-3
+    assert moved > 100
+    with pytest.raises(ValueError, match='optimizer type'):
+        ttrain.make_optimizer(cfg.replace(optim=dataclasses.replace(
+            cfg.optim, type='lamb')), probe, STEPS_PER_EPOCH)
+
+
+def test_demo_overfit_config_takes_a_train_step():
+    """configs/kgdet_moment_r50_fpn_1x_demo_overfit.py (``adam``,
+    ``frozen_stages=-1``: the whole backbone under autograd) cut to tiny
+    widths: one train step on a synthetic batch on the CPU gives a finite
+    loss and gradient norm and moves the stem, which no other trained config
+    frees."""
+    import os
+
+    from kgdet_tpu_torch.api import load_config
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    full = load_config(os.path.join(
+        root, 'configs', 'kgdet_moment_r50_fpn_1x_demo_overfit.py'))
+    assert full.optim.type == 'adam' and full.backbone.frozen_stages == -1
+    tiny = tiny_r50_cfg()
+    cfg = full.replace(
+        neck=dataclasses.replace(full.neck, out_channels=64),
+        head=dataclasses.replace(
+            full.head, in_channels=64, feat_channels=64,
+            point_feat_channels=64, stacked_convs=1, num_keypts=12,
+            gn_groups=8),
+        test=tiny.test)
+    model, opt, step = init_trainer(cfg, CANVAS, STEPS_PER_EPOCH,
+                                    device='cpu')
+    assert opt.second_moment is not None
+    stem = dict(model.named_parameters())['backbone.conv1.weight']
+    before = stem.detach().clone()
+    batch = synth_batch(canvas=CANVAS, B=2, G=4, K=cfg.head.num_keypts)
+    logs = {k: v.item() for k, v in step(batch).items()}
+    assert np.isfinite(logs['loss']) and np.isfinite(logs['grad_norm'])
+    assert logs['grad_norm'] > 0 and opt.step_count == 1
+    assert not torch.equal(stem.detach(), before)
 
 
 def test_frozen_parameters_stay_bit_equal(both):
