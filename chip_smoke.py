@@ -19,13 +19,16 @@ the median time of the wrapper call by CUDA events, the kernel's own device
 time and the number of device activities a call by torch.profiler (every
 deformable kernel takes positions and does its index math inside: a call of
 K1, K2 or K6 must put exactly one kernel on the device, a call of K3 one
-kernel of the port plus at most a fill and a cast), each kernel's bound
+kernel of the port plus at most a fill and a cast; K4 and K5 are called
+through their prepared entries on weights kept per dtype, as the model
+keeps them, and must be one kernel a call too), each kernel's bound
 (the least time the card could take, from the bytes and operations of this
 run's inputs) and, for K2, K3 and K6, the time of F.grid_sample and of its
 backward as a yardstick that the port never calls; K3 is checked and timed
 twice, with taps spread uniformly over the map and with taps near their own
 pixel (centre + N(0, 2 cells)), which is where a scatter's adds collide; K8
-is also held against K5 on the same inputs.
+is also held against K5 on the same inputs in f32 (in bf16 K5 runs on the
+tensor cores, K8 on FMA tiles, and each is held to its plain version).
 Phase 2: serves 2 requests of 2 uint8 images at full width
 (configs/kgdet_moment_r50_fpn_1x_deepfashion2.py, bf16, 800x1344, seeded
 random weights) through make_predict_fn, checks the launch counts and the
@@ -60,7 +63,9 @@ against their plain versions on the same prefix, and the step by stage.
 Phase 8 (run on phase 6's model, before phase 7): the ResNet-50 backbone
 with the per-block frozen layer1 (prefix_pipeline=False): launches K8 3 /
 K5 0 / K4 0, its C2 output against the K4+K5 chain and against the all-plain
-route, and its time beside the chain's.
+route, the chain's bf16 error within 2x the plain chain's, and its time
+beside the chain's; the served frozen prefix on its kept weights must put
+exactly four activities on the device, K4 and K5 x3.
 
 Prints the card's name and power limit, one line per check, a JSON line of
 the seven kernels (launches on each main path, error, wrapper and device
@@ -158,29 +163,39 @@ def device_profile(fn, reps=10):
     ``reps`` calls: (device ms a call of the port's own kernels, the
     ``kgdet::`` ones; device activities a call: every kernel, copy and
     memset, the library's included; the port's own kernels a call). Short
-    recordings in quick succession
-    now and then come back with device records missing; a recording counts
-    when it holds the port's kernels in a multiple of ``reps``, else it is
-    taken again."""
+    recordings in quick succession now and then come back with device
+    records missing, at a recording's edges more than inside it: the calls
+    are bracketed by four short spin kernels on each side, which are not
+    counted, and a recording counts when it holds the port's kernels in a
+    multiple of ``reps``, else it is taken again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def bracket():
+        for _ in range(4):
+            torch.cuda._sleep(1000)
     fn()
     torch.cuda.synchronize()
     for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            bracket()
             for _ in range(reps):
                 fn()
+            bracket()
             torch.cuda.synchronize()
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and 'spin_kernel' not in e.name]
         own = [e.time_range.end - e.time_range.start for e in dev
                if 'kgdet::' in e.name]
         if own and len(own) % reps == 0:
             return sum(own) / 1e3 / reps, len(dev) / reps, len(own) / reps
+        order = [short_name(e.name) for e in
+                 sorted(dev, key=lambda e: e.time_range.start)]
         print(f'device_profile: {len(own)} records of the port\'s kernels '
-              f'in {reps} calls, recording {attempt + 1} taken again',
-              flush=True)
+              f'in {reps} calls, recording {attempt + 1} taken again; in '
+              f'order: {order}', flush=True)
     fail('the profiler lost device records in five recordings')
 
 
@@ -492,15 +507,33 @@ def phase_kernels(torch, gen):
         k1_ops(H * W, K, C, 2 * C), 'bf16'))
     del feat, pos, w, g, a16
 
+    def keeping(prepare, run):
+        """K4 or K5 through its prepared entry, the prepared weights kept
+        per dtype as ResNet.prefix_weights keeps them on the main path: a
+        call is then the kernel alone."""
+        kept = {}
+
+        def kernel(x, *ws):
+            if x.dtype not in kept:
+                kept[x.dtype] = prepare(*ws, x.dtype)
+            return run(x, kept[x.dtype])
+        return kernel
+
+    def prepare_block(*a):
+        return sk.prepare_block(dict(zip(sk.BLOCK_KEYS, a[:-1])), a[-1])
+
     # K4 on both canvas orientations (timed and bounded on the first)
     sw = randn(7, 7, 3, 64, std=(2.0 / 147) ** 0.5)
     sb = randn(64, std=0.1)
     k4 = []
     for hw in (CANVAS, CANVAS[::-1]):
         x = randn(B, *hw, 3)
+        name = f'K4 stem_pool {hw[0]}x{hw[1]}'
         m, a16 = check_pair(
-            f'K4 stem_pool {hw[0]}x{hw[1]}', sk.stem_pool, sk.stem_pool_ref,
-            [x, sw, sb], lambda a: [a[0].to(torch.bfloat16), a[1], a[2]])
+            name, keeping(sk.prepare_stem, sk.stem_pool_prepared),
+            sk.stem_pool_ref, [x, sw, sb],
+            lambda a: [a[0].to(torch.bfloat16), a[1], a[2]])
+        one_launch(name, m)
         ops = 2 * B * (hw[0] // 2) * (hw[1] // 2) * 64 * 147
         k4.append(entry(m, *bound(
             nbytes(*a16) + out_bytes(sk.stem_pool, a16), ops, 'bf16')))
@@ -516,10 +549,12 @@ def phase_kernels(torch, gen):
                randn(64, 256, std=64 ** -0.5), randn(256, std=0.1)]
         blk += ([randn(cin, 256, std=cin ** -0.5), randn(256, std=0.1)]
                 if i == 0 else [None, None])
+        name = f'K5 frozen_bottleneck block {i} (Cin {cin})'
         m, a16 = check_pair(
-            f'K5 frozen_bottleneck block {i} (Cin {cin})',
-            sk.frozen_bottleneck, sk.frozen_bottleneck_ref, [x] + blk,
+            name, keeping(prepare_block, sk.frozen_bottleneck_prepared),
+            sk.frozen_bottleneck_ref, [x] + blk,
             lambda a: [a[0].to(torch.bfloat16)] + a[1:])
+        one_launch(name, m)
         macs = cin * 64 + 9 * 64 * 64 + 64 * 256 + (cin * 256 if i == 0
                                                     else 0)
         k5.append(entry(m, *bound(
@@ -535,15 +570,15 @@ def phase_kernels(torch, gen):
             nbytes(*[a for a in a16 if a is not None])
             + out_bytes(rb.fused_bottleneck, a16),
             2 * B * H4 * W4 * macs, 'bf16')))
-        for dt, args in (('f32', [x] + blk), ('bf16', a16)):
-            if not torch.allclose(rb.fused_bottleneck(*args).float(),
-                                  sk.frozen_bottleneck(*args).float(),
-                                  **F32_TOL):
-                fail(f'K8 and K5 disagree on block {i} in {dt}')
+        # f32 only: there both run FMA tiles of one order; in bf16 K5 runs
+        # on the tensor cores and each is held to its plain version above
+        if not torch.allclose(rb.fused_bottleneck(x, *blk),
+                              sk.frozen_bottleneck(x, *blk), **F32_TOL):
+            fail(f'K8 and K5 disagree on block {i} in f32')
     results['frozen_bottleneck'] = merge(k5)
     results['fused_bottleneck'] = merge(k8)
     print('K8 agrees with K5 on the three layer1 blocks within the f32 '
-          'tolerance, in f32 and in bf16', flush=True)
+          'tolerance, in f32', flush=True)
     for name, r in results.items():
         print(f'bound {name}: {r["bound_ms"]:.4f} ms by {r["bound_by"]} '
               f'(wrapper calls {r["ms"]:.4f} ms, kernel on the device '
@@ -1176,8 +1211,10 @@ def phase_serial_training(torch, gpu):
 def phase_per_block_backbone(torch, model, req, gpu):
     """The backbone with the frozen layer1 run block by block (K8) in place
     of the K4+K5 chain: launch counts, the C2 output against the chain's and
-    against the all-plain route's in f32 and bf16, and the frozen prefix's
-    time on both routes."""
+    against the all-plain route's in f32 and bf16, the chain's own bf16
+    error, and the frozen prefix's time on both routes. And what the served
+    frozen prefix puts on the device once its weights are kept: K4 and K5 x3
+    and nothing else."""
     from kgdet_tpu_torch.ops.image import device_normalize
 
     backbone = model.backbone
@@ -1205,6 +1242,7 @@ def phase_per_block_backbone(torch, model, req, gpu):
         ek, ep = max_err(k16, ref), max_err(c2(torch.bfloat16, True, True),
                                             ref)
         ec = max_err(c2(torch.bfloat16, False, False), ref)
+        epc = max_err(c2(torch.bfloat16, False, True), ref)
         x16 = image.to(torch.bfloat16)
         times = {}
         for per_block in (False, True, True, False):
@@ -1212,6 +1250,10 @@ def phase_per_block_backbone(torch, model, req, gpu):
             backbone.plain_prefix = False
             times.setdefault(per_block, []).append(
                 median_ms(lambda: backbone.frozen_prefix(x16), reps=10))
+        backbone.prefix_pipeline = True
+        with torch.inference_mode():
+            prefix_ms, n_dev, n_own = device_profile(
+                lambda: backbone.frozen_prefix(x16))
     finally:
         backbone.prefix_pipeline = True
         backbone.plain_prefix = False
@@ -1219,15 +1261,25 @@ def phase_per_block_backbone(torch, model, req, gpu):
           f'{tuple(k16.shape)}: f32 vs the K4+K5 chain {e_chain:.3e}, vs the '
           f'all-plain route {e_plain:.3e} (bound {MODEL_F32_REL * scale:.3e});'
           f' bf16 vs f32 plain: K8 route {ek:.3e}, plain route {ep:.3e}, '
-          f'chain {ec:.3e} (bound {BF16_RATIO} x plain); frozen prefix bf16 '
-          f'median ms: per block {min(times[True]):.4f}, chain '
-          f'{min(times[False]):.4f} ({gpu})', flush=True)
+          f'chain {ec:.3e}, plain chain {epc:.3e} (bound {BF16_RATIO} x '
+          f'plain); frozen prefix bf16 median ms: per block '
+          f'{min(times[True]):.4f}, chain {min(times[False]):.4f}; the '
+          f'chain on its kept weights: {n_dev:g} device activities a '
+          f'forward, {n_own:g} of them the port\'s kernels, '
+          f'{prefix_ms:.4f} ms on the device ({gpu})', flush=True)
     if not max(e_chain, e_plain) <= MODEL_F32_REL * scale:
         fail('f32: the per-block backbone differs from the chain or the '
              'plain route')
     if not ek <= BF16_RATIO * ep:
         fail(f'bf16: per-block backbone err {ek:.3e} > {BF16_RATIO} x plain '
              f'{ep:.3e}')
+    if not ec <= BF16_RATIO * epc:
+        fail(f'bf16: K4+K5 chain err {ec:.3e} > {BF16_RATIO} x the plain '
+             f'chain\'s {epc:.3e}')
+    if n_dev != 4 or n_own != 4:
+        fail(f'the served frozen prefix put {n_dev:g} activities on the '
+             f'device, {n_own:g} of them the port\'s kernels, not K4 and K5 '
+             f'x3 alone')
     return got
 
 
@@ -1379,8 +1431,8 @@ def main():
                                 ref + 'pallas_deform.py:302'),
         'deform_sample_bwd': (src + 'deform_bwd.cu',
                               ref + 'pallas_deform.py:1126'),
-        'stem_pool': (src + 'stem_layer1.cu', ref + 'pallas_stem.py:122'),
-        'frozen_bottleneck': (src + 'stem_layer1.cu',
+        'stem_pool': (src + 'prefix_mma.cuh', ref + 'pallas_stem.py:122'),
+        'frozen_bottleneck': (src + 'prefix_mma.cuh',
                               ref + 'pallas_stem.py:215'),
         'deform_sample_cols': (src + 'deform_sample.cu',
                                ref + 'pallas_deform.py:177'),

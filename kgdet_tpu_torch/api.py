@@ -116,11 +116,17 @@ class Detector:
         return boxes, labels, kpts
 
 
-def init_detector(cfg_or_path, pth: Optional[str] = None,
+def init_detector(cfg_or_path, checkpoint=None, pth: Optional[str] = None,
                   jax_variables=None, device=None) -> Detector:
     """A ready-to-call Detector on ``device`` (None: the CUDA card): seeded
     random weights (cfg.seed), or a reference .pth, or flax variables of the
-    JAX package's model."""
+    JAX package's model. ``checkpoint`` is second, as in the JAX package,
+    and raises until the port has checkpoints of its own."""
+    if checkpoint is not None:
+        raise NotImplementedError(
+            'init_detector(checkpoint=...): the port has no checkpoints of '
+            'its own yet (ROADMAP Queue 1 item 3c); a reference .pth loads '
+            'with pth=')
     cfg = load_config(cfg_or_path) if isinstance(cfg_or_path, str) \
         else cfg_or_path
     device = resolve_device(device)

@@ -11,19 +11,27 @@
 // activations (conv1 with its one-pixel halo for the 3x3) kept in shared
 // memory. Only the block input and output cross device memory.
 //
-// What bounds them on the H100: layer1 moves its 256-channel activations
-// through device memory once per block here (vs four times for the plain
-// conv sequence), so what remains is arithmetic: ~70 kMAC per pixel per
-// block, done as register-tiled f32 FMA products over shared-memory tiles
-// (bottleneck_tiles.cuh, shared with K8 in resblock.cu).
-// The stem conv is small (147 MACs per output channel) and reads each
-// input pixel from a shared-memory tile that includes its halo. Both stay
-// on the FMA pipes; tensor-core (mma/wgmma) tiles are later work.
+// What bounds them on the H100: K5 moves its 256-channel activations
+// through device memory once a block (bytes bound 0.108 ms for layer1's
+// three at batch 2, 800x1344) and does ~70 kMAC a pixel; K4 does 147 MACs
+// a stem pixel and channel (bound by operations, 0.010 ms). The first port
+// ran both as register-tiled f32 FMA products over shared-memory tiles
+// restaged every 32 channels (bottleneck_tiles.cuh, shared with K8): 27x
+// and 146x their bounds, K4 slower than cuDNN's three calls.
+//
+// Two bodies each, chosen here by dtype and shape:
+// - bf16 (the main path): the tensor-core bodies of prefix_mma.cuh, implicit
+//   GEMMs on mma.sync with bf16 operands and f32 sums; K5 for Cin % 8 == 0
+//   and 16-byte aligned operands (the wrapper's `vec`), K4 always.
+// - f32 (the CPU-parity dtype; TF32 would break the 1e-5 hold against the
+//   plain version) and bf16 blocks the first body does not take: the FMA
+//   bodies below.
 //
 // Numerics follow the TPU kernels: inputs and weights in the working dtype
 // T, products accumulated in f32, bias added in f32, and every stored
 // intermediate (stem map, conv1 and conv2 activations) rounded to T.
 #include "bottleneck_tiles.cuh"
+#include "prefix_mma.cuh"
 
 #include <math.h>
 
@@ -255,6 +263,8 @@ bottleneck_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   }
 }
 
+// the FMA body for f32 (w (7, 7, 3, 64)), the tensor-core body for bf16 (w
+// packed, (64, kStemKPad))
 template <typename T>
 int launch_stem(const void* x, const void* w, const void* bias, void* out,
                 int B, int H, int W, cudaStream_t stream) {
@@ -262,16 +272,29 @@ int launch_stem(const void* x, const void* w, const void* bias, void* out,
   const int W2 = (W - 1) / 2 + 1;
   const int H4 = (H2 - 1) / 2 + 1;
   const int W4 = (W2 - 1) / 2 + 1;
-  const size_t smem = kStemSmemFloats * sizeof(float);
+  const bool mma = sizeof(T) == 2;
+  const int smem = mma ? static_cast<int>(sizeof(prefix::StemSmem))
+                       : static_cast<int>(kStemSmemFloats * sizeof(float));
+  const void* kernel = mma ? reinterpret_cast<const void*>(
+                                 prefix::stem_pool_mma_kernel)
+                           : reinterpret_cast<const void*>(
+                                 stem_pool_kernel<float>);
   cudaError_t err = cudaFuncSetAttribute(
-      stem_pool_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((W4 + kPoolTW - 1) / kPoolTW, (H4 + kPoolTH - 1) / kPoolTH, B);
-  stem_pool_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<T*>(out), H, W, H2, W2,
-      H4, W4);
+  if (mma) {
+    dim3 grid((W4 + kStemPW - 1) / kStemPW, (H4 + kStemPH - 1) / kStemPH, B);
+    prefix::stem_pool_mma_kernel<<<grid, prefix::kMmaThreads, smem, stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+        static_cast<const float*>(bias), static_cast<bf16*>(out), H, W, H2,
+        W2, H4, W4);
+  } else {
+    dim3 grid((W4 + kPoolTW - 1) / kPoolTW, (H4 + kPoolTH - 1) / kPoolTH, B);
+    stem_pool_kernel<float><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<const float*>(bias), static_cast<float*>(out), H, W, H2,
+        W2, H4, W4);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -279,8 +302,25 @@ template <typename T>
 int launch_block(const void* x, const void* w1, const void* b1,
                  const void* w2, const void* b2, const void* w3,
                  const void* b3, const void* wd, const void* bd, void* out,
-                 int B, int H, int W, int Cin, int Cout,
+                 int B, int H, int W, int Cin, int Cout, bool mma,
                  cudaStream_t stream) {
+  if (mma) {
+    const int smem = static_cast<int>(sizeof(prefix::BlockSmem));
+    cudaError_t err = cudaFuncSetAttribute(
+        prefix::bottleneck_mma_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid((W + kBlkT - 1) / kBlkT, (H + kBlkT - 1) / kBlkT, B);
+    prefix::bottleneck_mma_kernel<<<grid, prefix::kMmaThreads, smem,
+                                    stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+        static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+        static_cast<const float*>(b2), static_cast<const bf16*>(w3),
+        static_cast<const float*>(b3), static_cast<const bf16*>(wd),
+        static_cast<const float*>(bd), static_cast<bf16*>(out), H, W, Cin,
+        Cout);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = kBlockSmemFloats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       bottleneck_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -299,8 +339,10 @@ int launch_block(const void* x, const void* w1, const void* b1,
 }  // namespace
 }  // namespace kgdet
 
-// x (B, H, W, 3) T; w (7, 7, 3, 64) T folded; bias (64,) f32;
-// out (B, H4, W4, 64) T. Returns a cudaError_t code.
+// x (B, H, W, 3) T; bias (64,) f32; out (B, H4, W4, 64) T; w folded: f32
+// (7, 7, 3, 64) HWIO, or bf16 packed for the tensor-core body (64,
+// kStemKPad) [channel][depth], depth as in prefix_index.h. Returns a
+// cudaError_t code.
 extern "C" int kgdet_stem_pool(const void* x, const void* w, const void* bias,
                                void* out, int B, int H, int W, int dtype,
                                void* stream) {
@@ -314,20 +356,22 @@ extern "C" int kgdet_stem_pool(const void* x, const void* w, const void* bias,
 
 // x (B, H, W, Cin) T; w1 (Cin, 64), w2 (9, 64, 64) [tap][ci][co],
 // w3 (64, Cout), wd (Cin, Cout) or null, all T; biases f32;
-// out (B, H, W, Cout) T. Returns a cudaError_t code.
+// out (B, H, W, Cout) T; Cout % 64 == 0. vec != 0 promises Cin % 8 == 0
+// and 16-byte aligned x and weights. Returns a cudaError_t code.
 extern "C" int kgdet_frozen_bottleneck(const void* x, const void* w1,
                                        const void* b1, const void* w2,
                                        const void* b2, const void* w3,
                                        const void* b3, const void* wd,
                                        const void* bd, void* out, int B,
                                        int H, int W, int Cin, int Cout,
-                                       int dtype, void* stream) {
+                                       int vec, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kgdet::kF32)
     return kgdet::launch_block<float>(x, w1, b1, w2, b2, w3, b3, wd, bd, out,
-                                      B, H, W, Cin, Cout, s);
+                                      B, H, W, Cin, Cout, false, s);
   if (dtype == kgdet::kBF16)
-    return kgdet::launch_block<__nv_bfloat16>(x, w1, b1, w2, b2, w3, b3, wd,
-                                              bd, out, B, H, W, Cin, Cout, s);
+    return kgdet::launch_block<__nv_bfloat16>(
+        x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, Cin, Cout,
+        vec && Cin % 8 == 0 && Cout % 64 == 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,8 +6,10 @@ layer1.0.conv1, layer1.0.downsample.0, ...), so a reference .pth loads
 with ``load_state_dict``.
 
 With ``frozen_stages >= 1`` the stem, maxpool and layer1 run as the frozen
-prefix ``ops/stem_kernels.py::stem_layer1`` (kernels K4 and K5) under
-``torch.no_grad()``, with FrozenBatchNorm folded into the convs. With
+prefix ``ops/stem_kernels.py::stem_layer1_prepared`` (kernels K4 and K5)
+under ``torch.no_grad()``, with FrozenBatchNorm folded into the convs; the
+folded weights and the kernels' layout of them are made once and kept
+(``ResNet.prefix_weights``). With
 ``prefix_pipeline=False`` (the JAX module's route when its whole-prefix
 pipeline does not apply) the stem and maxpool are PyTorch calls and each
 layer1 block is one ``ops/resblock.py::fused_bottleneck`` launch (kernel
@@ -23,7 +25,8 @@ import torch.nn.functional as F
 from kgdet_tpu_torch.models.layers import FrozenBatchNorm, init_he_normal_
 from kgdet_tpu_torch.ops.resblock import bottleneck_reference, fold_bn, \
     fused_bottleneck
-from kgdet_tpu_torch.ops.stem_kernels import stem_layer1, stem_layer1_ref
+from kgdet_tpu_torch.ops.stem_kernels import prepare_block, prepare_stem, \
+    stem_layer1_prepared, stem_layer1_ref
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
@@ -93,6 +96,7 @@ class ResNet(nn.Module):
         self.num_stages = num_stages
         self.prefix_pipeline = prefix_pipeline
         self.plain_prefix = False
+        self._kept = None       # (key, folded, {dtype: prepared})
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
         in_ch, planes = 64, 64
@@ -127,30 +131,63 @@ class ResNet(nn.Module):
             if isinstance(m, nn.Conv2d):
                 init_he_normal_(m.weight, gen)
 
+    def prefix_weights(self, dtype):
+        """The frozen prefix's weights: (folded, prepared). ``folded``: the
+        stem's f32 (w (7,7,3,64), b) with bn1 folded, and one dict of folded
+        f32 weights a layer1 block (``Bottleneck.folded``); ``prepared``:
+        the kernels' layout of them for inputs of ``dtype`` (the stem's
+        ``prepare_stem``, one ``prepare_block`` a block). Made once per
+        device and dtype and kept; dropped by ``load_state_dict``, a move or
+        cast of the module (``.to()``) and an in-place change of any
+        parameter or buffer of conv1, bn1 or layer1 (their ``_version``)."""
+        tensors = [*self.conv1.parameters(), *self.bn1.parameters(),
+                   *self.bn1.buffers(), *self.layer1.parameters(),
+                   *self.layer1.buffers()]
+        key = tuple((t.data_ptr(), t._version) for t in tensors)
+        if self._kept is None or self._kept[0] != key:
+            with torch.no_grad():
+                stem = fold_bn(self.conv1.weight.permute(2, 3, 1, 0),
+                               self.bn1.weight, self.bn1.bias,
+                               self.bn1.running_mean, self.bn1.running_var,
+                               self.bn1.eps)
+                folded = (stem, [blk.folded() for blk in self.layer1])
+            self._kept = (key, folded, {})
+        _, folded, prepared = self._kept
+        if dtype not in prepared:
+            (sw, sb), blocks = folded
+            prepared[dtype] = (prepare_stem(sw, sb, dtype),
+                               [prepare_block(f, dtype) for f in blocks])
+        return folded, prepared[dtype]
+
+    def _apply(self, fn, *args, **kwargs):
+        self._kept = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._kept = None
+        return super()._load_from_state_dict(*args, **kwargs)
+
     def frozen_prefix(self, x):
         """Stem conv + BN + ReLU + maxpool + layer1, frozen. x (B,H,W,3) ->
         (B,H/4,W/4,256) NHWC. The kernel chain K4 -> K5 x len(layer1), or
         per block (``prefix_pipeline=False``): the stem and maxpool in
-        PyTorch, then one K8 launch per layer1 block."""
+        PyTorch, then one K8 launch per layer1 block. Both read the kept
+        weights of ``prefix_weights``; the plain chain (``plain_prefix``)
+        computes from their folded f32 form."""
         with torch.no_grad():
+            ((sw, sb), folded), (stem, blocks) = self.prefix_weights(x.dtype)
             if not self.prefix_pipeline:
                 y = torch.relu(self.bn1(_conv(x.permute(0, 3, 1, 2),
                                               self.conv1, 2, 3)))
                 y = F.max_pool2d(y, 3, 2, 1).permute(0, 2, 3, 1)
                 block = bottleneck_reference if self.plain_prefix \
                     else fused_bottleneck
-                for blk in self.layer1:
-                    f = blk.folded()
-                    y = block(y, f['w1'], f['b1'], f['w2'], f['b2'], f['w3'],
-                              f['b3'], f.get('wd'), f.get('bd'))
+                for blk in blocks:
+                    y = block(y, *blk)
                 return y
-            sw, sb = fold_bn(self.conv1.weight.permute(2, 3, 1, 0),
-                             self.bn1.weight, self.bn1.bias,
-                             self.bn1.running_mean, self.bn1.running_var,
-                             self.bn1.eps)
-            blocks = [blk.folded() for blk in self.layer1]
-            run = stem_layer1_ref if self.plain_prefix else stem_layer1
-            return run(x, sw, sb, blocks)
+            if self.plain_prefix:
+                return stem_layer1_ref(x, sw, sb, folded)
+            return stem_layer1_prepared(x, stem, blocks)
 
     def forward(self, x):
         """x: (B, H, W, 3) NHWC in the compute dtype. Returns the

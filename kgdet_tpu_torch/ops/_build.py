@@ -64,7 +64,7 @@ SIGNATURES = {
     },
     'stem_layer1': {
         'kgdet_stem_pool': [_P] * 4 + [_I] * 4 + [_P],
-        'kgdet_frozen_bottleneck': [_P] * 10 + [_I] * 6 + [_P],
+        'kgdet_frozen_bottleneck': [_P] * 10 + [_I] * 7 + [_P],
     },
     'resblock': {
         'kgdet_fused_bottleneck': [_P] * 10 + [_I] * 7 + [_P],

@@ -3,7 +3,10 @@
 Needs a CUDA card and nvcc; every test skips, in its fixture, without one.
 The main-path shapes are checked by chip_smoke.py; these cases cover ragged
 tiles: pixel counts, channel counts and image sizes that are not multiples
-of the kernels' tile sizes, maps under 2x2, taps that are all out of bounds
+of the kernels' tile sizes, K4 and K5 in f32 and bf16 with both bodies of
+K5 (tensor cores, FMA), conv1 halos wholly outside the image, one kernel a
+call of K4 and K5 on prepared weights and four for the ResNet's frozen
+prefix, maps under 2x2, taps that are all out of bounds
 or all on one pixel, the in-kernel index math of K1, K2, K3 and K6 on a grid
 of boundary positions, both bodies of K1 (tensor cores, FMA) and of K3
 (shared-memory slab in one band and in several, global atomics), branch maps
@@ -12,7 +15,9 @@ the relative-offset entries at stride 2, the autograd Functions over K6 and
 K3, and the ResNet per-block route (K8) against the chain (K4+K5). f32
 tolerance rtol 1e-5, atol 1e-4 (chip_smoke.py's); K3's gradient map is
 summed with f32 atomics in an order that changes from run to run, which that
-tolerance covers. Imports no JAX, so it also runs where jax is absent:
+tolerance covers. bf16: the kernel's error against the plain version in
+f32 at most twice the plain version's own bf16 error. Imports no JAX, so it
+also runs where jax is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
@@ -65,6 +70,21 @@ def test_k1_edge_shapes(gen, H, W, C, F, P, K):
         2 * (plain16.float() - ref).abs().max()
 
 
+def _assert_bf16_within_twice_plain(kernel, plain, x, ws):
+    """The kernel on bf16 inputs (weights cast inside, as the wrappers do):
+    its error against the plain version on the same values in f32 at most
+    twice the plain version's own bf16 error."""
+    x16 = x.bfloat16()
+    got = kernel(x16, *ws)
+    ref = plain(x16.float(), *[None if w is None else
+                               w.bfloat16().float() if w.dim() > 1 else w
+                               for w in ws])
+    plain16 = plain(x16, *ws)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert (got.float() - ref).abs().max() <= \
+        2 * (plain16.float() - ref).abs().max()
+
+
 @pytest.mark.parametrize('H,W', [(37, 50), (64, 96), (8, 8)])
 def test_k4_edge_shapes(gen, H, W):
     x = _randn(gen, 2, H, W, 3)
@@ -74,12 +94,13 @@ def test_k4_edge_shapes(gen, H, W):
     want = sk.stem_pool_ref(x, w, b)
     assert got.shape == want.shape
     torch.testing.assert_close(got, want.contiguous(), **TOL)
+    _assert_bf16_within_twice_plain(sk.stem_pool, sk.stem_pool_ref, x, [w, b])
 
 
 @pytest.mark.parametrize('H,W,cin,cout,ds', [
-    (13, 21, 64, 256, True),    # partial 8x8 tiles on both edges
+    (13, 21, 64, 256, True),    # partial tiles on both edges
     (8, 16, 128, 128, False),   # identity path, Cout = 2 x 64
-    (3, 5, 96, 192, True),      # Cin off the 32-channel chunk
+    (3, 5, 96, 192, True),      # Cin off the 64-channel slice
 ])
 def test_k5_edge_shapes(gen, H, W, cin, cout, ds):
     x = torch.relu(_randn(gen, 2, H, W, cin))
@@ -92,6 +113,97 @@ def test_k5_edge_shapes(gen, H, W, cin, cout, ds):
     got = sk.frozen_bottleneck(x, *ws)
     want = sk.frozen_bottleneck_ref(x, *ws)
     torch.testing.assert_close(got, want.contiguous(), **TOL)
+    _assert_bf16_within_twice_plain(sk.frozen_bottleneck,
+                                    sk.frozen_bottleneck_ref, x, ws)
+
+
+def _device_kernels(fn):
+    """The names of the device activities (kernels, copies, fills) of one
+    call of ``fn``, by torch.profiler; a recording that lost its device
+    records is taken again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    pytest.fail('the profiler recorded no device activity in five tries')
+
+
+@pytest.mark.parametrize('H,W,cin,cout,ds,dtype,body', [
+    (13, 21, 64, 256, True, torch.bfloat16, 'mma'),
+    (20, 17, 256, 256, False, torch.bfloat16, 'mma'),
+    (13, 21, 64, 256, True, torch.float32, 'fma'),
+    (9, 11, 12, 64, True, torch.bfloat16, 'fma'),    # Cin off the 16 bytes
+])
+def test_k5_both_bodies(gen, H, W, cin, cout, ds, dtype, body):
+    """The tensor-core body takes bf16 with Cin % 8 == 0; f32 and bf16 it
+    does not take run the FMA body. Checked by the kernel's name on the
+    device, and each against the plain version (f32: TOL; bf16: the 2x
+    rule)."""
+    x = torch.relu(_randn(gen, 2, H, W, cin))
+    ws = _block(gen, cin, 64, cout, ds)
+    xin = x.to(dtype)
+    names = [n for n in _device_kernels(
+        lambda: sk.frozen_bottleneck(xin, *ws)) if 'kgdet::' in n]
+    assert len(names) == 1
+    assert ('bottleneck_mma_kernel' in names[0]) == (body == 'mma')
+    if dtype == torch.float32:
+        torch.testing.assert_close(sk.frozen_bottleneck(x, *ws),
+                                   sk.frozen_bottleneck_ref(x, *ws), **TOL)
+    else:
+        _assert_bf16_within_twice_plain(sk.frozen_bottleneck,
+                                        sk.frozen_bottleneck_ref, x, ws)
+
+
+@pytest.mark.parametrize('size,dtype', [(16, torch.bfloat16),
+                                        (8, torch.float32)])
+def test_k5_single_tile_with_a_distinctive_border(gen, size, dtype):
+    """One tile of each body (16x16 tensor cores, 8x8 FMA) whose conv1 halo
+    lies wholly outside the image, first and last rows at +5 and -5, with
+    relu(b1) far from zero: conv2 must see zeros there, not relu(b1)."""
+    x = _randn(gen, 1, size, size, 64)
+    x[:, 0], x[:, -1] = 5.0, -5.0
+    ws = _block(gen, 64, 64, 256, True)
+    ws[1] = ws[1].abs() + 1.0
+    if dtype == torch.float32:
+        torch.testing.assert_close(sk.frozen_bottleneck(x, *ws),
+                                   sk.frozen_bottleneck_ref(x, *ws), **TOL)
+    else:
+        _assert_bf16_within_twice_plain(sk.frozen_bottleneck,
+                                        sk.frozen_bottleneck_ref, x, ws)
+
+
+def test_prepared_prefix_is_one_kernel_a_call(gen):
+    """Through the prepared entries, a K4 call and a K5 call are one kernel
+    each and nothing else on the device, and the ResNet's frozen prefix on
+    its kept weights is four: K4 and K5 x3."""
+    from kgdet_tpu_torch.models.resnet import ResNet
+    x = _randn(gen, 2, 64, 96, 3).bfloat16()
+    stem = sk.prepare_stem(_randn(gen, 7, 7, 3, 64, std=.2),
+                           _randn(gen, 64, std=.1), torch.bfloat16)
+    names = _device_kernels(lambda: sk.stem_pool_prepared(x, stem))
+    assert len(names) == 1 and 'stem_pool_mma_kernel' in names[0]
+    y = sk.stem_pool_prepared(x, stem)
+    blk = sk.prepare_block(dict(zip(sk.BLOCK_KEYS, _block(gen, 64, 64, 256,
+                                                          True))),
+                           torch.bfloat16)
+    names = _device_kernels(lambda: sk.frozen_bottleneck_prepared(y, blk))
+    assert len(names) == 1 and 'bottleneck_mma_kernel' in names[0]
+
+    net = ResNet(depth=50, num_stages=1, out_indices=(0,),
+                 frozen_stages=1).cuda()
+    net.init_weights(torch.Generator().manual_seed(1))
+    names = _device_kernels(lambda: net.frozen_prefix(x))
+    assert len(names) == 4 and all('kgdet::' in n for n in names)
+    assert sum('bottleneck_mma_kernel' in n for n in names) == 3
 
 
 def _positions(gen, B, P, K, H, W, kind):
@@ -553,6 +665,8 @@ def test_k8_single_tile_with_a_distinctive_border(gen):
 
 
 def test_k8_agrees_with_k5_at_width_64(gen):
+    """f32, where both run FMA tiles of the same order; in bf16 K5 runs on
+    the tensor cores and each is held to its plain version instead."""
     x = torch.relu(_randn(gen, 2, 24, 40, 64))
     ws = _block(gen, 64, 64, 256, True)
     torch.testing.assert_close(rb.fused_bottleneck(x, *ws),

@@ -620,6 +620,217 @@ def test_served_weight_layout_is_made_once():
     assert head.pts_weight(parts, torch.float32).requires_grad
 
 
+def _prefix_net():
+    """A one-stage ResNet-50 with a frozen prefix and BN statistics away
+    from the identity, so a fold that missed one would show."""
+    from kgdet_tpu_torch.models.layers import FrozenBatchNorm
+    from kgdet_tpu_torch.models.resnet import ResNet
+    net = ResNet(depth=50, num_stages=1, out_indices=(0,), frozen_stages=1)
+    gen = torch.Generator().manual_seed(3)
+    net.init_weights(gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, FrozenBatchNorm):
+                n = m.weight.numel()
+                m.weight.copy_(0.5 + torch.rand(n, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+    return net
+
+
+def test_prefix_weights_are_kept_once_per_dtype():
+    """ResNet.prefix_weights: the same tensors on every call, per dtype,
+    equal to a fresh fold and pack; dropped by load_state_dict, an in-place
+    change of a stem, bn1 or layer1 tensor, and .to(); the plain prefix from
+    the kept weights equal to stem_layer1_ref on Bottleneck.folded()
+    weights, bit for bit, and so is the CPU route of the prepared chain."""
+    from kgdet_tpu_torch.ops.resblock import fold_bn
+    from kgdet_tpu_torch.ops.stem_kernels import BLOCK_KEYS, \
+        pack_stem_weight
+    net = _prefix_net()
+
+    def fresh():
+        sw, sb = fold_bn(net.conv1.weight.permute(2, 3, 1, 0),
+                         net.bn1.weight, net.bn1.bias, net.bn1.running_mean,
+                         net.bn1.running_var, net.bn1.eps)
+        return sw.detach(), sb.detach(), [
+            {k: v.detach() for k, v in blk.folded().items()}
+            for blk in net.layer1]
+
+    def assert_fresh(kept, dtype):
+        (ksw, ksb), kblocks = kept[0]
+        stem, blocks = kept[1]
+        sw, sb, fb = fresh()
+        assert torch.equal(ksw, sw) and torch.equal(ksb, sb)
+        assert torch.equal(stem[0], sw.to(dtype)) and stem[1].dtype == \
+            torch.float32 and torch.equal(stem[1], sb)
+        want_k = pack_stem_weight(sw) if dtype == torch.bfloat16 \
+            else sw.to(dtype)
+        assert stem[2].is_contiguous() and torch.equal(stem[2], want_k)
+        for kb, pb, want in zip(kblocks, blocks, fb):
+            assert sorted(kb) == sorted(want)
+            for i, k in enumerate(BLOCK_KEYS):
+                if k not in want:
+                    assert pb[i] is None
+                    continue
+                assert torch.equal(kb[k], want[k])
+                dt = dtype if k[0] == 'w' else torch.float32
+                assert pb[i].dtype == dt and pb[i].is_contiguous()
+                assert torch.equal(pb[i], want[k].to(dt))
+
+    kept = net.prefix_weights(torch.float32)
+    assert net.prefix_weights(torch.float32)[1][0] is kept[1][0]
+    assert_fresh(kept, torch.float32)
+    half = net.prefix_weights(torch.bfloat16)
+    assert half[1][0][2].shape == (64, 176)
+    assert half[0] is kept[0]                 # one fold for both dtypes
+    assert net.prefix_weights(torch.bfloat16)[1][1][0][0] is half[1][1][0][0]
+    assert_fresh(half, torch.bfloat16)
+
+    x = torch.randn(1, 40, 24, 3, generator=torch.Generator().manual_seed(4))
+    sw, sb, fb = fresh()
+    want = stem_layer1_ref(x, sw, sb, fb)
+    net.plain_prefix = True
+    assert torch.equal(net.frozen_prefix(x), want)
+    net.plain_prefix = False                  # the prepared chain on a CPU
+    assert torch.equal(net.frozen_prefix(x), want)
+
+    changes = [lambda: net.load_state_dict(net.state_dict()),
+               lambda: net.conv1.weight.add_(0.01),
+               lambda: net.bn1.running_var.mul_(1.5),
+               lambda: net.layer1[2].bn3.bias.sub_(0.1),
+               lambda: net.layer1[0].downsample[0].weight.mul_(0.5)]
+    for change in changes:
+        kept = net.prefix_weights(torch.float32)
+        with torch.no_grad():
+            change()
+        again = net.prefix_weights(torch.float32)
+        assert again[0] is not kept[0] and again[1][0] is not kept[1][0]
+        assert_fresh(again, torch.float32)
+    kept = net.prefix_weights(torch.float32)
+    net.to(torch.float64)
+    assert net.prefix_weights(torch.float32)[1][0] is not kept[1][0]
+    assert sorted(net.state_dict()) == sorted(_prefix_net().state_dict())
+
+
+_PREFIX_SHIM = r'''
+#include "prefix_index.h"
+extern "C" void geometry(int* g) {
+  const int v[] = {kgdet::kStemPH, kgdet::kStemPW, kgdet::kStemTH,
+                   kgdet::kStemTW, kgdet::kStemMTiles, kgdet::kStemInTH,
+                   kgdet::kStemInTW, kgdet::kStemRow, kgdet::kStemKPad,
+                   kgdet::kBlkT, kgdet::kBlkHalo, kgdet::kBlkHaloRows};
+  for (int i = 0; i < 12; ++i) g[i] = v[i];
+}
+extern "C" void stem_offsets(int* rows, int* depth) {
+  for (int m = 0; m < 16 * kgdet::kStemMTiles; ++m)
+    rows[m] = kgdet::stem_row_offset(m);
+  for (int k = 0; k < kgdet::kStemKPad; ++k)
+    depth[k] = kgdet::stem_k_offset(k);
+}
+extern "C" void halo_rows(int* rows) {
+  for (int tap = 0; tap < 9; ++tap)
+    for (int m = 0; m < kgdet::kBlkT * kgdet::kBlkT; ++m)
+      rows[tap * kgdet::kBlkT * kgdet::kBlkT + m] =
+          kgdet::halo_row(m / kgdet::kBlkT, m % kgdet::kBlkT, tap);
+}
+'''
+
+
+@pytest.fixture(scope='module')
+def prefix_index(tmp_path_factory):
+    """csrc/prefix_index.h compiled for the host with g++ and loaded with
+    ctypes: (geometry dict, the stem's GEMM row and depth offsets, conv2's
+    operand rows a tap)."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from kgdet_tpu_torch.ops._build import CSRC
+    gxx = shutil.which('g++')
+    if gxx is None:
+        pytest.skip('needs g++')
+    tmp = tmp_path_factory.mktemp('prefix_index')
+    (tmp / 'shim.cpp').write_text(_PREFIX_SHIM)
+    lib = tmp / 'libprefix.so'
+    subprocess.run([gxx, '-O2', '-std=c++17', '-shared', '-fPIC',
+                    f'-I{CSRC}', str(tmp / 'shim.cpp'), '-o', str(lib)],
+                   check=True)
+    cdll = ctypes.CDLL(str(lib))
+    cdll.geometry.argtypes = [ctypes.c_void_p]
+    cdll.stem_offsets.argtypes = [ctypes.c_void_p] * 2
+    cdll.halo_rows.argtypes = [ctypes.c_void_p]
+    g = np.zeros(12, np.int32)
+    cdll.geometry(g.ctypes.data)
+    geo = dict(zip(('PH', 'PW', 'TH', 'TW', 'MTILES', 'INTH', 'INTW', 'ROW',
+                    'KPAD', 'BT', 'HALO', 'HALOROWS'), g.tolist()))
+    rows = np.zeros(16 * geo['MTILES'], np.int32)
+    depth = np.zeros(geo['KPAD'], np.int32)
+    cdll.stem_offsets(rows.ctypes.data, depth.ctypes.data)
+    halo = np.zeros((9, geo['BT'] ** 2), np.int32)
+    cdll.halo_rows(halo.ctypes.data)
+    return geo, rows, depth, halo
+
+
+@pytest.mark.parametrize('tile', [(0, 0), (1, 2)])
+def test_stem_gemm_index_math_matches_conv(prefix_index, tile):
+    """K4's tensor-core body reads its A operand straight from the staged
+    input tile at stem_row_offset(m) + stem_k_offset(k) (prefix_index.h)
+    and multiplies by pack_stem_weight's (64, 176) layout: that product,
+    built here from the header's offsets, equals F.conv2d's 7x7/2 stem on
+    the tile's stem pixels (the corner tile, whose halo is zero padding,
+    and an inner one). f32 sums of the same bf16 values in another order:
+    atol 1e-5."""
+    from kgdet_tpu_torch.ops.stem_kernels import pack_stem_weight
+    geo, rows, depth, _ = prefix_index
+    assert geo['ROW'] == 3 * geo['INTW'] and geo['KPAD'] == 176
+    rng = np.random.RandomState(9)
+    H, W = 64, 256
+    x = _t(rng.randn(1, H, W, 3).astype(np.float32)).bfloat16().float()
+    w = _t(rng.randn(7, 7, 3, 64).astype(np.float32) * .1)
+    ty, tx = tile
+    sy0, sx0 = 2 * geo['PH'] * ty - 1, 2 * geo['PW'] * tx - 1
+    iy0, ix0 = 2 * sy0 - 3, 2 * sx0 - 3
+    pad = 16
+    xp = torch.nn.functional.pad(x, (0, 0, pad, pad, pad, pad))
+    staged = xp[0, iy0 + pad:iy0 + pad + geo['INTH'],
+                ix0 + pad:ix0 + pad + geo['INTW']].reshape(-1)
+    a = staged[torch.from_numpy((rows[:, None] + depth[None, :])
+                                .astype(np.int64))]
+    got = a @ pack_stem_weight(w).float().t()           # (576, 64)
+    stem = torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2), w.bfloat16().float().permute(3, 2, 0, 1),
+        stride=2, padding=3)[0].permute(1, 2, 0)        # (H/2, W/2, 64)
+    stem = torch.nn.functional.pad(stem, (0, 0, 1, 1, 1, 1))
+    m = np.arange(geo['TH'] * geo['TW'])
+    sy, sx = sy0 + m // geo['TW'], sx0 + m % geo['TW']
+    inside = (sy >= 0) & (sy < H // 2) & (sx >= 0) & (sx < W // 2)
+    assert inside.any() and (ty or not inside.all())
+    want = stem[sy[inside] + 1, sx[inside] + 1]
+    np.testing.assert_allclose(got[:len(m)][inside].numpy(), want.numpy(),
+                               atol=1e-5)
+
+
+def test_bottleneck_conv2_rows_match_conv(prefix_index):
+    """K5's conv2 reads tap t's operand rows at halo_row(oy, ox, t) of the
+    conv1 tile (prefix_index.h): the sum over taps of those rows times the
+    tap's (64, 64) weight equals F.conv2d's 3x3 on the 18x18 conv1 tile."""
+    geo, _, _, halo = prefix_index
+    n = geo['HALO']
+    rng = np.random.RandomState(11)
+    a1 = _t(rng.randn(n * n, 64).astype(np.float32))
+    w2 = _t(rng.randn(3, 3, 64, 64).astype(np.float32) * .1)
+    idx = torch.from_numpy(halo.astype(np.int64))
+    got = sum(a1[idx[t]] @ w2.reshape(9, 64, 64)[t] for t in range(9))
+    want = torch.nn.functional.conv2d(
+        a1.reshape(1, n, n, 64).permute(0, 3, 1, 2), w2.permute(3, 2, 0, 1))
+    np.testing.assert_allclose(
+        got.numpy(), want[0].permute(1, 2, 0).reshape(-1, 64).numpy(),
+        atol=1e-4)
+    assert halo.max() < geo['HALOROWS'] and halo.max() == n * n - 1
+
+
 # ------------------------------------------- the split gather's wrapper edges
 @pytest.mark.parametrize('case', ['strided_maps', 'bf16_positions'])
 def test_k2_wrapper_edges_match_plain_and_split_pallas(interpret_mode, case):

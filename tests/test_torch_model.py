@@ -360,6 +360,22 @@ def test_init_detector_loads_reference_style_pth(models, tmp_path):
         np.testing.assert_array_equal(got[k].numpy(), want[k].numpy())
 
 
+def test_init_detector_takes_a_checkpoint_second(tmp_path):
+    """The second positional argument is a checkpoint, as in the JAX
+    package's init_detector(config, checkpoint, pth): a .pth given there is
+    not loaded as one, the call raises until the port has checkpoints."""
+    cfg = tiny_r50_cfg()
+    path = tmp_path / 'model.pth'
+    torch.save(build_model(cfg, device='cpu').init_weights(1).state_dict(),
+               path)
+    with pytest.raises(NotImplementedError, match='Queue 1 item 3c'):
+        init_detector(cfg, str(path), device='cpu')
+    det = init_detector(cfg, pth=str(path), device='cpu')
+    want = build_model(cfg, device='cpu').init_weights(1).state_dict()
+    for k, v in det.model.state_dict().items():
+        assert torch.equal(v, want[k])
+
+
 def test_init_detector_defaults_to_the_card():
     """device=None means the CUDA card: without one init_detector raises
     and does not fall back to the CPU."""
