@@ -27,8 +27,14 @@ run's inputs) and, for K2, K3 and K6, the time of F.grid_sample and of its
 backward as a yardstick that the port never calls; K3 is checked and timed
 twice, with taps spread uniformly over the map and with taps near their own
 pixel (centre + N(0, 2 cells)), which is where a scatter's adds collide; K8
-is also held against K5 on the same inputs in f32 (in bf16 K5 runs on the
-tensor cores, K8 on FMA tiles, and each is held to its plain version).
+is called through its prepared entry too (one kernel a call), held against
+K5 on the same inputs (f32: within the tolerance, each on its FMA body;
+bf16: bit for bit, one tensor-core body), shown by the kernel's name to run
+the 16x16 tensor-core body, and checked and timed once more at width 128
+(layer2's stride-1 block at layer1's map size, the 8x16 tile). After the
+build, ptxas's registers and spills a kernel and, by cuobjdump, the bf16
+tensor-core instructions and local-memory accesses in the SASS of the
+bottleneck bodies of K5 and K8 (fails if a tensor-core instance has none).
 Phase 2: serves 2 requests of 2 uint8 images at full width
 (configs/kgdet_moment_r50_fpn_1x_deepfashion2.py, bf16, 800x1344, seeded
 random weights) through make_predict_fn, checks the launch counts and the
@@ -64,8 +70,10 @@ Phase 8 (run on phase 6's model, before phase 7): the ResNet-50 backbone
 with the per-block frozen layer1 (prefix_pipeline=False): launches K8 3 /
 K5 0 / K4 0, its C2 output against the K4+K5 chain and against the all-plain
 route, the chain's bf16 error within 2x the plain chain's, and its time
-beside the chain's; the served frozen prefix on its kept weights must put
-exactly four activities on the device, K4 and K5 x3.
+beside the chain's; what each route puts on the device on its kept weights
+(activities, device time): the per-block route's three K8 launches must run
+the 16x16 tensor-core body, and the served frozen prefix must put exactly
+four activities on the device, K4 and K5 x3.
 
 Prints the card's name and power limit, one line per check, a JSON line of
 the seven kernels (launches on each main path, error, wrapper and device
@@ -79,6 +87,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -141,6 +150,41 @@ def gpu_line():
     return out[0] if out else ''
 
 
+def build_report(build, logs):
+    """What nvcc made of the kernels: ptxas's registers and spills a kernel
+    (from the build's logs), and for the frozen-bottleneck bodies of
+    libresblock.so (K8) and libstem_layer1.so (K5) the count of bf16
+    tensor-core instructions (HMMA.16816.F32.BF16) and of local-memory
+    loads and stores (LDL, STL: spills) in their SASS, by cuobjdump. Fails
+    unless every instance of the tensor-core body (bottleneck_mma_kernel)
+    holds the bf16 MMA."""
+    for name, log in logs.items():
+        fn = ''
+        for line in log.splitlines():
+            m = re.search(r"entry function '(\w+)'", line)
+            fn = m.group(1) if m else fn
+            if 'registers' in line or 'spill' in line:
+                print(f'  {name} {fn[:72]}: {line.strip()}')
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), 'cuobjdump')
+    for name in ('resblock', 'stem_layer1'):
+        sass = subprocess.run([cuobjdump, '-sass', str(build.lib_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        parts = re.split(r'Function : (\S+)', sass)
+        for fn, body in zip(parts[1::2], parts[2::2]):
+            if 'bottleneck' not in fn:
+                continue
+            hmma = body.count('HMMA.16816.F32.BF16')
+            local = len(re.findall(r'\b(?:LDL|STL)\b', body))
+            tile = re.search(r'ILi(\d+)ELi(\d+)E', fn)
+            what = f'tile {tile.group(1)}x{tile.group(2)}' if tile else ''
+            print(f'  SASS lib{name}.so {fn[:48]} {what}: '
+                  f'HMMA.16816.F32.BF16 x{hmma}, LDL/STL x{local}',
+                  flush=True)
+            if 'bottleneck_mma_kernel' in fn and hmma == 0:
+                fail(f'{fn} in lib{name}.so has no bf16 tensor-core MMA')
+
+
 def median_ms(fn, reps=20, warmup=3):
     import torch
     for _ in range(warmup):
@@ -158,11 +202,13 @@ def median_ms(fn, reps=20, warmup=3):
     return times[len(times) // 2]
 
 
-def device_profile(fn, reps=10):
+def device_profile(fn, reps=10, names=None):
     """What one call of ``fn`` puts on the device, under torch.profiler over
     ``reps`` calls: (device ms a call of the port's own kernels, the
     ``kgdet::`` ones; device activities a call: every kernel, copy and
-    memset, the library's included; the port's own kernels a call). Short
+    memset, the library's included; the port's own kernels a call). With a
+    dict ``names``, also names['own'], the port's kernels by short name,
+    and names['device_ms'], the device time a call of every activity. Short
     recordings in quick succession now and then come back with device
     records missing, at a recording's edges more than inside it: the calls
     are bracketed by four short spin kernels on each side, which are not
@@ -190,6 +236,12 @@ def device_profile(fn, reps=10):
         own = [e.time_range.end - e.time_range.start for e in dev
                if 'kgdet::' in e.name]
         if own and len(own) % reps == 0:
+            if names is not None:
+                names['own'] = sorted({short_name(e.name) for e in dev
+                                       if 'kgdet::' in e.name})
+                names['device_ms'] = sum(
+                    e.time_range.end - e.time_range.start
+                    for e in dev) / 1e3 / reps
             return sum(own) / 1e3 / reps, len(dev) / reps, len(own) / reps
         order = [short_name(e.name) for e in
                  sorted(dev, key=lambda e: e.time_range.start)]
@@ -508,7 +560,7 @@ def phase_kernels(torch, gen):
     del feat, pos, w, g, a16
 
     def keeping(prepare, run):
-        """K4 or K5 through its prepared entry, the prepared weights kept
+        """K4, K5 or K8 through its prepared entry, the prepared weights kept
         per dtype as ResNet.prefix_weights keeps them on the main path: a
         call is then the kernel alone."""
         kept = {}
@@ -539,7 +591,19 @@ def phase_kernels(torch, gen):
             nbytes(*a16) + out_bytes(sk.stem_pool, a16), ops, 'bf16')))
     results['stem_pool'] = k4[0]
 
-    # K5 for the three layer1 blocks at the stem output shape
+    def tile_of(fn):
+        """The bottleneck body one call of ``fn`` runs: 'fma' or the
+        tensor-core body's tile, read off the kernel's name in a profile."""
+        seen, tiles = {}, set()
+        device_profile(fn, reps=2, names=seen)
+        for n in seen['own']:
+            m = re.search(r'bottleneck_mma_kernel<(\d+), ?(\d+)>', n)
+            tiles.add(f'{m.group(1)}x{m.group(2)}' if m else 'fma')
+        return ', '.join(sorted(tiles))
+
+    # K5 for the three layer1 blocks at the stem output shape, and K8, the
+    # per-block route's kernel, on the same inputs, both through their
+    # prepared entries on weights kept per dtype in the layout they share
     H4, W4 = CANVAS[0] // 4, CANVAS[1] // 4
     k5, k8 = [], []
     for i, cin in enumerate((64, 256, 256)):
@@ -550,10 +614,9 @@ def phase_kernels(torch, gen):
         blk += ([randn(cin, 256, std=cin ** -0.5), randn(256, std=0.1)]
                 if i == 0 else [None, None])
         name = f'K5 frozen_bottleneck block {i} (Cin {cin})'
-        m, a16 = check_pair(
-            name, keeping(prepare_block, sk.frozen_bottleneck_prepared),
-            sk.frozen_bottleneck_ref, [x] + blk,
-            lambda a: [a[0].to(torch.bfloat16)] + a[1:])
+        k5_kept = keeping(prepare_block, sk.frozen_bottleneck_prepared)
+        m, a16 = check_pair(name, k5_kept, sk.frozen_bottleneck_ref,
+                            [x] + blk, lambda a: [a[0].to(bf16)] + a[1:])
         one_launch(name, m)
         macs = cin * 64 + 9 * 64 * 64 + 64 * 256 + (cin * 256 if i == 0
                                                     else 0)
@@ -561,30 +624,58 @@ def phase_kernels(torch, gen):
             nbytes(*[a for a in a16 if a is not None])
             + out_bytes(sk.frozen_bottleneck, a16),
             2 * B * H4 * W4 * macs, 'bf16')))
-        # K8, the per-block route's kernel, on the same inputs
-        m, a16 = check_pair(
-            f'K8 fused_bottleneck block {i} (Cin {cin})',
-            rb.fused_bottleneck, rb.bottleneck_reference, [x] + blk,
-            lambda a: [a[0].to(bf16)] + a[1:])
+        name = f'K8 fused_bottleneck block {i} (Cin {cin})'
+        k8_kept = keeping(prepare_block, rb.fused_bottleneck_prepared)
+        m, a16 = check_pair(name, k8_kept, rb.bottleneck_reference, [x] + blk,
+                            lambda a: [a[0].to(bf16)] + a[1:])
+        one_launch(name, m)
         k8.append(entry(m, *bound(
             nbytes(*[a for a in a16 if a is not None])
             + out_bytes(rb.fused_bottleneck, a16),
             2 * B * H4 * W4 * macs, 'bf16')))
-        # f32 only: there both run FMA tiles of one order; in bf16 K5 runs
-        # on the tensor cores and each is held to its plain version above
-        if not torch.allclose(rb.fused_bottleneck(x, *blk),
-                              sk.frozen_bottleneck(x, *blk), **F32_TOL):
+        # f32: each on its FMA body, within the f32 tolerance; bf16: one
+        # tensor-core body, the same bits
+        if not torch.allclose(k8_kept(x, *blk), k5_kept(x, *blk),
+                              **F32_TOL):
             fail(f'K8 and K5 disagree on block {i} in f32')
+        x16 = a16[0]
+        if not torch.equal(k8_kept(x16, *blk), k5_kept(x16, *blk)):
+            fail(f'K8 and K5 differ on block {i} in bf16')
+        body = tile_of(lambda: k8_kept(x16, *blk))
+        print(f'{name}: bf16 body {body}', flush=True)
+        if body != '16x16':
+            fail(f'{name} in bf16 ran {body}, not the 16x16 tensor-core body')
     results['frozen_bottleneck'] = merge(k5)
     results['fused_bottleneck'] = merge(k8)
     print('K8 agrees with K5 on the three layer1 blocks within the f32 '
-          'tolerance, in f32', flush=True)
+          'tolerance in f32, and bit for bit in bf16', flush=True)
+    # K8 at a width the tensor-core body takes on 8x16 tiles: layer2's
+    # stride-1 block (512 -> 128 -> 512, identity) at layer1's map size
+    x = torch.relu(randn(B, H4, W4, 512))
+    blk = [randn(512, 128, std=512 ** -0.5), randn(128, std=0.1),
+           randn(3, 3, 128, 128, std=(9 * 128) ** -0.5), randn(128, std=0.1),
+           randn(128, 512, std=128 ** -0.5), randn(512, std=0.1), None, None]
+    name = 'K8 fused_bottleneck width 128 (Cin 512, Cout 512)'
+    k8_kept = keeping(prepare_block, rb.fused_bottleneck_prepared)
+    m, a16 = check_pair(name, k8_kept, rb.bottleneck_reference, [x] + blk,
+                        lambda a: [a[0].to(bf16)] + a[1:])
+    one_launch(name, m)
+    body = tile_of(lambda: k8_kept(a16[0], *blk))
+    print(f'{name}: bf16 body {body}', flush=True)
+    if body != '8x16':
+        fail(f'{name} in bf16 ran {body}, not the 8x16 tensor-core body')
+    macs = 512 * 128 + 9 * 128 * 128 + 128 * 512
+    results['fused_bottleneck']['width128'] = entry(m, *bound(
+        nbytes(*[a for a in a16 if a is not None])
+        + out_bytes(rb.fused_bottleneck, a16), 2 * B * H4 * W4 * macs,
+        'bf16'))
+    del x, blk, a16
     for name, r in results.items():
         print(f'bound {name}: {r["bound_ms"]:.4f} ms by {r["bound_by"]} '
               f'(wrapper calls {r["ms"]:.4f} ms, kernel on the device '
               f'{r["device_ms"]:.4f} ms, per forward or step of batch {B})',
               flush=True)
-        for case in ('near', 'serial', 'serial_near'):
+        for case in ('near', 'serial', 'serial_near', 'width128'):
             if case in r:
                 q = r[case]
                 print(f'bound {name}, {case}: {q["bound_ms"]:.4f} ms by '
@@ -1212,9 +1303,10 @@ def phase_per_block_backbone(torch, model, req, gpu):
     """The backbone with the frozen layer1 run block by block (K8) in place
     of the K4+K5 chain: launch counts, the C2 output against the chain's and
     against the all-plain route's in f32 and bf16, the chain's own bf16
-    error, and the frozen prefix's time on both routes. And what the served
-    frozen prefix puts on the device once its weights are kept: K4 and K5 x3
-    and nothing else."""
+    error, and the frozen prefix's time on both routes. And what each route
+    puts on the device once its weights are kept: the per-block route K8's
+    16x16 tensor-core body x3 beside PyTorch's stem, the served chain K4 and
+    K5 x3 and nothing else."""
     from kgdet_tpu_torch.ops.image import device_normalize
 
     backbone = model.backbone
@@ -1250,10 +1342,15 @@ def phase_per_block_backbone(torch, model, req, gpu):
             backbone.plain_prefix = False
             times.setdefault(per_block, []).append(
                 median_ms(lambda: backbone.frozen_prefix(x16), reps=10))
-        backbone.prefix_pipeline = True
         with torch.inference_mode():
+            backbone.prefix_pipeline = False
+            pb_names = {}
+            pb_ms, pb_dev, pb_own = device_profile(
+                lambda: backbone.frozen_prefix(x16), names=pb_names)
+            backbone.prefix_pipeline = True
+            chain_names = {}
             prefix_ms, n_dev, n_own = device_profile(
-                lambda: backbone.frozen_prefix(x16))
+                lambda: backbone.frozen_prefix(x16), names=chain_names)
     finally:
         backbone.prefix_pipeline = True
         backbone.plain_prefix = False
@@ -1263,10 +1360,14 @@ def phase_per_block_backbone(torch, model, req, gpu):
           f' bf16 vs f32 plain: K8 route {ek:.3e}, plain route {ep:.3e}, '
           f'chain {ec:.3e}, plain chain {epc:.3e} (bound {BF16_RATIO} x '
           f'plain); frozen prefix bf16 median ms: per block '
-          f'{min(times[True]):.4f}, chain {min(times[False]):.4f}; the '
-          f'chain on its kept weights: {n_dev:g} device activities a '
-          f'forward, {n_own:g} of them the port\'s kernels, '
-          f'{prefix_ms:.4f} ms on the device ({gpu})', flush=True)
+          f'{min(times[True]):.4f}, chain {min(times[False]):.4f}; on '
+          f'their kept weights, a forward puts on the device: per block '
+          f'{pb_dev:g} activities, {pb_names["device_ms"]:.4f} ms, of '
+          f'which K8 {pb_own:g} launches, {pb_ms:.4f} ms ({pb_names["own"]});'
+          f' chain {n_dev:g} activities, {chain_names["device_ms"]:.4f} ms, '
+          f'of '
+          f'which the port\'s kernels {n_own:g}, {prefix_ms:.4f} ms '
+          f'({gpu})', flush=True)
     if not max(e_chain, e_plain) <= MODEL_F32_REL * scale:
         fail('f32: the per-block backbone differs from the chain or the '
              'plain route')
@@ -1276,6 +1377,10 @@ def phase_per_block_backbone(torch, model, req, gpu):
     if not ec <= BF16_RATIO * epc:
         fail(f'bf16: K4+K5 chain err {ec:.3e} > {BF16_RATIO} x the plain '
              f'chain\'s {epc:.3e}')
+    if pb_own != 3 or not all(re.search(r'bottleneck_mma_kernel<16, ?16>', n)
+                              for n in pb_names['own']):
+        fail(f'the per-block frozen prefix ran {pb_names["own"]} x '
+             f'{pb_own:g}, not K8\'s 16x16 tensor-core body x3')
     if n_dev != 4 or n_own != 4:
         fail(f'the served frozen prefix put {n_dev:g} activities on the '
              f'device, {n_own:g} of them the port\'s kernels, not K4 and K5 '
@@ -1381,10 +1486,7 @@ def main():
     logs = _build.build_all()
     print(f'build: {len(logs)} sources compiled by nvcc in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if 'registers' in line or 'spill' in line:
-                print(f'  {name}: {line.strip()}')
+    build_report(_build, logs)
 
     gen = torch.Generator().manual_seed(SEED)
     kernels = phase_kernels(torch, gen)
@@ -1436,7 +1538,7 @@ def main():
                               ref + 'pallas_stem.py:215'),
         'deform_sample_cols': (src + 'deform_sample.cu',
                                ref + 'pallas_deform.py:177'),
-        'fused_bottleneck': (src + 'resblock.cu',
+        'fused_bottleneck': (src + 'prefix_mma.cuh',
                              ref + 'pallas_resblock.py:103'),
     }
     rows = []

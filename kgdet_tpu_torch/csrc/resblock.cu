@@ -8,29 +8,41 @@
 // whole-prefix chain.
 //
 // The TPU kernel keeps conv1's output for whole image rows in VMEM. Whole
-// rows of a 336-pixel map do not fit a block's shared memory beside the
-// staging tiles, so the image is cut into 8x8 pixel tiles: a block computes
-// conv1 over its tile and a one-pixel halo (10x10), keeps that and conv2's
-// output in shared memory, and writes only the block output. What carries
-// over from the TPU kernel is the border rule: conv2 zero-pads conv1's
-// OUTPUT, so a halo pixel outside the image is 0, not relu(b1).
+// rows do not fit a block's shared memory beside the staging tiles, so the
+// image is cut into pixel tiles: a block computes conv1 over its tile and a
+// one-pixel halo, keeps that and conv2's output in shared memory, and
+// writes only the block output. What carries over from the TPU kernel is
+// the border rule: conv2 zero-pads conv1's OUTPUT, so a halo pixel outside
+// the image is 0, not relu(b1).
 //
 // What bounds it on the H100: each block of layer1 moves its input and its
-// 256-channel output through device memory once (bytes), against about
-// 70 kMAC a pixel done here as register-tiled f32 FMA products
-// (bottleneck_tiles.cuh): at the layer1 shapes the FMA pipes, not the
-// memory, set the time, as for K5. Tensor-core tiles are later work.
+// 256-channel output through device memory once (bytes, 0.108 ms for
+// layer1's three at batch 2, 800x1344) against about 70 kMAC a pixel.
 //
-// The width is a runtime quantity: the two activation tiles take
-// 4 * ceil32(width) * (100 + 64) bytes of dynamic shared memory, which the
-// wrapper checks against the card's 227 KB before it launches. Ragged edges
-// (H, W off the tile, channels off the 64-wide product tile or the
-// 32-deep reduction chunk) are masked here.
+// Two bodies, chosen in kgdet_fused_bottleneck by dtype and shape alone:
+// - bf16 with Cin, width and Cout multiples of 8, 16-byte aligned operands
+//   and a width whose tiles fit (up to 448): the tensor-core body of
+//   prefix_mma.cuh, implicit GEMMs on mma.sync with bf16 operands and f32
+//   sums (prefix_index.h::blk_tile): K5's 16x16 instance at width 64 with
+//   Cout a multiple of 64, where the two agree bit for bit; 8x16 tiles for
+//   other widths to 192 and 8x8 above. Every shape of the per-block route
+//   (width 64, Cin 64 or 256, Cout 256) takes K5's instance.
+// - f32 (TF32 would break the 1e-5 hold against the plain version) and the
+//   bf16 shapes the first does not take: the register-tiled f32 FMA body
+//   below (bottleneck_tiles.cuh) on 8x8 tiles. Its two activation tiles
+//   take 4 * ceil32(width) * (100 + 64) bytes of shared memory (up to width
+//   320). Ragged edges (H, W off the tile, channels off the 64-wide product
+//   tile or the 32-deep reduction chunk) are masked here.
+// kgdet_fused_bottleneck_smem gives what the chosen body asks for, which the
+// wrapper checks against the card's 227 KB before it launches.
 //
 // Numerics follow the TPU kernel: inputs and weights in the working dtype
 // T, products accumulated in f32, bias added in f32, conv1's and conv2's
 // activations rounded to T.
+#include <stdint.h>
+
 #include "bottleneck_tiles.cuh"
+#include "prefix_mma.cuh"
 
 namespace kgdet {
 namespace {
@@ -212,12 +224,49 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2,
   return static_cast<int>(cudaGetLastError());
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// the tensor-core body's tile for these bf16 operands, or -1 (the FMA body)
+int mma_tile(const void* x, const void* w1, const void* w2, const void* w3,
+             const void* wd, const void* out, int Cin, int width, int Cout) {
+  const bool ok = Cin % 8 == 0 && width % 8 == 0 && Cout % 8 == 0 &&
+                  aligned16(x) && aligned16(w1) && aligned16(w2) &&
+                  aligned16(w3) && aligned16(out) &&
+                  (wd == nullptr || aligned16(wd));
+  return ok ? blk_tile(width, Cout) : -1;
+}
+
+int launch_mma(int tile, const void* x, const void* w1, const void* b1,
+               const void* w2, const void* b2, const void* w3,
+               const void* b3, const void* wd, const void* bd, void* out,
+               int B, int H, int W, int Cin, int width, int Cout,
+               cudaStream_t stream) {
+  switch (tile) {
+    case 0:
+      return prefix::launch_bottleneck<16, 16>(x, w1, b1, w2, b2, w3, b3, wd,
+                                               bd, out, B, H, W, Cin, width,
+                                               Cout, stream);
+    case 1:
+      return prefix::launch_bottleneck<8, 16>(x, w1, b1, w2, b2, w3, b3, wd,
+                                              bd, out, B, H, W, Cin, width,
+                                              Cout, stream);
+    default:
+      return prefix::launch_bottleneck<8, 8>(x, w1, b1, w2, b2, w3, b3, wd,
+                                             bd, out, B, H, W, Cin, width,
+                                             Cout, stream);
+  }
+}
+
 }  // namespace
 }  // namespace kgdet
 
 // x (B, H, W, Cin) T; w1 (Cin, width), w2 (9, width, width) [tap][ci][co],
 // w3 (width, Cout), wd (Cin, Cout) or null (then Cin == Cout), all T;
-// biases f32; out (B, H, W, Cout) T. Returns a cudaError_t code.
+// biases f32; out (B, H, W, Cout) T. The body as the header says: the
+// tensor-core one for bf16 where kgdet::mma_tile finds a tile, else FMA.
+// Returns a cudaError_t code.
 extern "C" int kgdet_fused_bottleneck(const void* x, const void* w1,
                                       const void* b1, const void* w2,
                                       const void* b2, const void* w3,
@@ -229,13 +278,22 @@ extern "C" int kgdet_fused_bottleneck(const void* x, const void* w1,
   if (dtype == kgdet::kF32)
     return kgdet::launch<float>(x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H,
                                 W, Cin, width, Cout, s);
-  if (dtype == kgdet::kBF16)
-    return kgdet::launch<__nv_bfloat16>(x, w1, b1, w2, b2, w3, b3, wd, bd,
-                                        out, B, H, W, Cin, width, Cout, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != kgdet::kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = kgdet::mma_tile(x, w1, w2, w3, wd, out, Cin, width, Cout);
+  if (tile >= 0)
+    return kgdet::launch_mma(tile, x, w1, b1, w2, b2, w3, b3, wd, bd, out, B,
+                             H, W, Cin, width, Cout, s);
+  return kgdet::launch<__nv_bfloat16>(x, w1, b1, w2, b2, w3, b3, wd, bd, out,
+                                      B, H, W, Cin, width, Cout, s);
 }
 
-// Dynamic shared memory, in bytes, that a launch at this width asks for.
-extern "C" int kgdet_fused_bottleneck_smem(int width) {
+// Dynamic shared memory, in bytes, that a launch at this width and dtype
+// asks for (at a Cout that is a multiple of 64; the other tile a width may
+// take fits too): the tensor-core body's where a bf16 tile fits, else the
+// FMA body's. Neither fits above width 448 in bf16 and 320 in f32.
+extern "C" int kgdet_fused_bottleneck_smem(int width, int dtype) {
+  const int tile = width % 8 ? -1 : kgdet::blk_tile(width, 64);
+  if (dtype == kgdet::kBF16 && tile >= 0)
+    return kgdet::blk_tile_smem(tile, width);
   return static_cast<int>(kgdet::smem_bytes(width));
 }

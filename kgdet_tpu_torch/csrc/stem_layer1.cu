@@ -22,7 +22,9 @@
 // Two bodies each, chosen here by dtype and shape:
 // - bf16 (the main path): the tensor-core bodies of prefix_mma.cuh, implicit
 //   GEMMs on mma.sync with bf16 operands and f32 sums; K5 for Cin % 8 == 0
-//   and 16-byte aligned operands (the wrapper's `vec`), K4 always.
+//   and 16-byte aligned operands (the wrapper's `vec`), K4 always. K5's is
+//   the width-64, 16x16-tile instance of the bottleneck body that K8
+//   (resblock.cu) launches at any width: one bf16 body for both.
 // - f32 (the CPU-parity dtype; TF32 would break the 1e-5 hold against the
 //   plain version) and bf16 blocks the first body does not take: the FMA
 //   bodies below.
@@ -304,23 +306,10 @@ int launch_block(const void* x, const void* w1, const void* b1,
                  const void* b3, const void* wd, const void* bd, void* out,
                  int B, int H, int W, int Cin, int Cout, bool mma,
                  cudaStream_t stream) {
-  if (mma) {
-    const int smem = static_cast<int>(sizeof(prefix::BlockSmem));
-    cudaError_t err = cudaFuncSetAttribute(
-        prefix::bottleneck_mma_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((W + kBlkT - 1) / kBlkT, (H + kBlkT - 1) / kBlkT, B);
-    prefix::bottleneck_mma_kernel<<<grid, prefix::kMmaThreads, smem,
-                                    stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-        static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-        static_cast<const float*>(b2), static_cast<const bf16*>(w3),
-        static_cast<const float*>(b3), static_cast<const bf16*>(wd),
-        static_cast<const float*>(bd), static_cast<bf16*>(out), H, W, Cin,
-        Cout);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (mma)  // the bottleneck body K8 shares, at width 64 on 16x16 tiles
+    return prefix::launch_bottleneck<kBlkT, kBlkT>(
+        x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, Cin, kWidth, Cout,
+        stream);
   const size_t smem = kBlockSmemFloats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       bottleneck_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,

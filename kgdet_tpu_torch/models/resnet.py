@@ -12,9 +12,9 @@ folded weights and the kernels' layout of them are made once and kept
 (``ResNet.prefix_weights``). With
 ``prefix_pipeline=False`` (the JAX module's route when its whole-prefix
 pipeline does not apply) the stem and maxpool are PyTorch calls and each
-layer1 block is one ``ops/resblock.py::fused_bottleneck`` launch (kernel
-K8). The stem is the plain 7x7/2 conv, not the TPU's space-to-depth
-rewrite. layer2-4 are plain ``F.conv2d`` blocks.
+layer1 block is one ``ops/resblock.py::fused_bottleneck_prepared`` launch
+(kernel K8) on the same kept weights. The stem is the plain 7x7/2 conv, not
+the TPU's space-to-depth rewrite. layer2-4 are plain ``F.conv2d`` blocks.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from kgdet_tpu_torch.models.layers import FrozenBatchNorm, init_he_normal_
 from kgdet_tpu_torch.ops.resblock import bottleneck_reference, fold_bn, \
-    fused_bottleneck
+    fused_bottleneck_prepared
 from kgdet_tpu_torch.ops.stem_kernels import prepare_block, prepare_stem, \
     stem_layer1_prepared, stem_layer1_ref
 
@@ -136,10 +136,11 @@ class ResNet(nn.Module):
         stem's f32 (w (7,7,3,64), b) with bn1 folded, and one dict of folded
         f32 weights a layer1 block (``Bottleneck.folded``); ``prepared``:
         the kernels' layout of them for inputs of ``dtype`` (the stem's
-        ``prepare_stem``, one ``prepare_block`` a block). Made once per
-        device and dtype and kept; dropped by ``load_state_dict``, a move or
-        cast of the module (``.to()``) and an in-place change of any
-        parameter or buffer of conv1, bn1 or layer1 (their ``_version``)."""
+        ``prepare_stem``, one ``prepare_block`` a block, which K5 and K8
+        share). Made once per device and dtype and kept; dropped by
+        ``load_state_dict``, a move or cast of the module (``.to()``) and an
+        in-place change of any parameter or buffer of conv1, bn1 or layer1
+        (their ``_version``)."""
         tensors = [*self.conv1.parameters(), *self.bn1.parameters(),
                    *self.bn1.buffers(), *self.layer1.parameters(),
                    *self.layer1.buffers()]
@@ -180,10 +181,9 @@ class ResNet(nn.Module):
                 y = torch.relu(self.bn1(_conv(x.permute(0, 3, 1, 2),
                                               self.conv1, 2, 3)))
                 y = F.max_pool2d(y, 3, 2, 1).permute(0, 2, 3, 1)
-                block = bottleneck_reference if self.plain_prefix \
-                    else fused_bottleneck
                 for blk in blocks:
-                    y = block(y, *blk)
+                    y = bottleneck_reference(y, *blk) if self.plain_prefix \
+                        else fused_bottleneck_prepared(y, blk)
                 return y
             if self.plain_prefix:
                 return stem_layer1_ref(x, sw, sb, folded)

@@ -68,7 +68,7 @@ SIGNATURES = {
     },
     'resblock': {
         'kgdet_fused_bottleneck': [_P] * 10 + [_I] * 7 + [_P],
-        'kgdet_fused_bottleneck_smem': [_I],
+        'kgdet_fused_bottleneck_smem': [_I, _I],
     },
 }
 

@@ -6,10 +6,18 @@ replaces the TPU kernel ``fused_bottleneck`` (kernel ``_kernel``): one frozen
 stride-1 bottleneck per launch at any width, the per-block route of a frozen
 layer1. ``bottleneck_reference`` is its plain version, and also that of
 kernel K5 (ops/stem_kernels.py::frozen_bottleneck, width 64 only, inside the
-whole-prefix chain).
+whole-prefix chain). In bf16 K8 and K5 run one tensor-core body
+(csrc/prefix_mma.cuh); f32 runs an FMA body.
 
 On a CPU tensor ``fused_bottleneck`` runs the plain version; on a CUDA tensor
 it launches its kernel or raises. There is no gradient: the block is frozen.
+
+Two levels of entry, as for K5: ``fused_bottleneck`` takes folded weights
+and prepares them on every call; ``fused_bottleneck_prepared`` takes what
+``prepare_resblock`` made once (the kernels' layout in the compute dtype,
+which K5 shares), so a caller that keeps those
+(models/resnet.py::ResNet.prefix_weights) puts one kernel and nothing else
+on the device a call.
 
 Weight convention (as in the JAX reference): w1 (Cin, width), w2
 (3, 3, width, width) HWIO, w3 (width, Cout), wd (Cin, Cout) or None; f32
@@ -24,6 +32,7 @@ from kgdet_tpu_torch.ops import _build
 
 # dynamic shared memory a block can ask for on the H100 (227 KB)
 MAX_SHARED_BYTES = 232448
+BLOCK_KEYS = ('w1', 'b1', 'w2', 'b2', 'w3', 'b3', 'wd', 'bd')
 
 
 def fold_bn(kernel, scale, bias, mean, var, eps=1e-5):
@@ -56,6 +65,62 @@ def bottleneck_reference(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None):
     return torch.relu(c + ident).to(dt)
 
 
+def prepare_resblock(blk, dtype):
+    """K8's (and K5's) weights for inputs of ``dtype`` from a dict of folded
+    weights {w1, b1, w2, b2, w3, b3, wd?, bd?}: the tuple (w1, b1, ..., wd,
+    bd), weights in ``dtype`` and contiguous, which is the kernels' layout
+    (w1 [ci][co], w2 (3,3,width,width) [tap][ci][co], w3 and wd [ci][co]),
+    biases f32, wd and bd None without a downsample."""
+    return tuple(None if blk.get(k) is None else
+                 blk[k].to(dtype if k[0] == 'w' else torch.float32)
+                 .contiguous() for k in BLOCK_KEYS)
+
+
+def fused_bottleneck_prepared(x, blk):
+    """fused_bottleneck on weights from ``prepare_resblock(.., x.dtype)``:
+    one K8 launch. Raises on shapes the kernel does not take and on a width
+    whose tiles fit neither body's shared memory."""
+    if x.device.type == 'cpu':
+        return bottleneck_reference(x, *blk)
+    w1, b1, w2, b2, w3, b3, wd, bd = blk
+    B, H, W, cin = x.shape
+    width, cout = w1.shape[-1], w3.shape[-1]
+    has_ds = wd is not None
+    if tuple(w1.shape) != (cin, width) \
+            or tuple(w2.shape) != (3, 3, width, width) \
+            or tuple(w3.shape) != (width, cout) or cin % 8 or width % 8 \
+            or (has_ds and tuple(wd.shape) != (cin, cout)) \
+            or (not has_ds and cin != cout) \
+            or any(w.dtype != x.dtype for w in (w1, w2, w3)):
+        raise ValueError(
+            f'fused_bottleneck takes cin and width in multiples of 8, '
+            f'cin == cout without a downsample and weights prepared for its '
+            f'dtype, got x {tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)} '
+            f'{w1.dtype}, w2 {tuple(w2.shape)}, w3 {tuple(w3.shape)}, '
+            f'downsample {has_ds}')
+    code = _build.dtype_code(x)
+    lib = _build.load('resblock')
+    need = lib.kgdet_fused_bottleneck_smem(width, code)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f'fused_bottleneck: width {width} needs {need} bytes of shared '
+            f'memory a block, the card has {MAX_SHARED_BYTES}')
+    x = x.contiguous()
+    weights = [w1, w2, w3] + ([wd] if has_ds else [])
+    biases = [b1, b2, b3] + ([bd] if has_ds else [])
+    out = torch.empty((B, H, W, cout), dtype=x.dtype, device=x.device)
+    _build.require_cuda(x, *weights, *biases, out)
+    rc = lib.kgdet_fused_bottleneck(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
+        wd.data_ptr() if has_ds else None, bd.data_ptr() if has_ds else None,
+        out.data_ptr(), B, H, W, cin, width, cout, code,
+        _build.stream_ptr(x.device))
+    _build.check(rc, 'fused_bottleneck')
+    fused_bottleneck.launches += 1
+    return out
+
+
 def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None):
     """One frozen stride-1 bottleneck block in one launch, conv1's and
     conv2's activations in shared memory.
@@ -68,43 +133,8 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None):
     block's shared memory."""
     if x.device.type == 'cpu':
         return bottleneck_reference(x, w1, b1, w2, b2, w3, b3, wd, bd)
-    B, H, W, cin = x.shape
-    width, cout = w1.shape[-1], w3.shape[-1]
-    has_ds = wd is not None
-    if tuple(w1.shape) != (cin, width) \
-            or tuple(w2.shape) != (3, 3, width, width) \
-            or tuple(w3.shape) != (width, cout) or cin % 8 or width % 8 \
-            or (has_ds and tuple(wd.shape) != (cin, cout)) \
-            or (not has_ds and cin != cout):
-        raise ValueError(
-            f'fused_bottleneck takes cin and width in multiples of 8 and '
-            f'cin == cout without a downsample, got x {tuple(x.shape)}, w1 '
-            f'{tuple(w1.shape)}, w2 {tuple(w2.shape)}, w3 '
-            f'{tuple(w3.shape)}, downsample {has_ds}')
-    lib = _build.load('resblock')
-    need = lib.kgdet_fused_bottleneck_smem(width)
-    if need > MAX_SHARED_BYTES:
-        raise ValueError(
-            f'fused_bottleneck: width {width} needs {need} bytes of shared '
-            f'memory a block, the card has {MAX_SHARED_BYTES}')
-    dt = x.dtype
-    x = x.contiguous()
-    ws = [w.to(dt).contiguous() for w in (w1, w2, w3)]
-    bs = [v.float().contiguous() for v in (b1, b2, b3)]
-    ds = ([wd.to(dt).contiguous(), bd.float().contiguous()] if has_ds
-          else [])
-    out = torch.empty((B, H, W, cout), dtype=dt, device=x.device)
-    _build.require_cuda(x, *ws, *bs, *ds, out)
-    rc = lib.kgdet_fused_bottleneck(
-        x.data_ptr(), ws[0].data_ptr(), bs[0].data_ptr(), ws[1].data_ptr(),
-        bs[1].data_ptr(), ws[2].data_ptr(), bs[2].data_ptr(),
-        ds[0].data_ptr() if has_ds else None,
-        ds[1].data_ptr() if has_ds else None, out.data_ptr(),
-        B, H, W, cin, width, cout, _build.dtype_code(x),
-        _build.stream_ptr(x.device))
-    _build.check(rc, 'fused_bottleneck')
-    fused_bottleneck.launches += 1
-    return out
+    blk = dict(zip(BLOCK_KEYS, (w1, b1, w2, b2, w3, b3, wd, bd)))
+    return fused_bottleneck_prepared(x, prepare_resblock(blk, x.dtype))
 
 
 fused_bottleneck.launches = 0

@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from kgdet_tpu_torch.ops import _build
-from kgdet_tpu_torch.ops.resblock import bottleneck_reference
+from kgdet_tpu_torch.ops.resblock import BLOCK_KEYS, bottleneck_reference, \
+    prepare_resblock
 
 STEM_CH = 64
 WIDTH = 64
@@ -33,7 +34,6 @@ WIDTH = 64
 # past 7 rows, STEM_KPAD deep
 STEM_KROW = 24
 STEM_KPAD = 176
-BLOCK_KEYS = ('w1', 'b1', 'w2', 'b2', 'w3', 'b3', 'wd', 'bd')
 
 
 def _pool_hw(H, W):
@@ -110,15 +110,9 @@ stem_pool.launches = 0
 frozen_bottleneck_ref = bottleneck_reference
 
 
-def prepare_block(blk, dtype):
-    """K5's weights for inputs of ``dtype`` from a dict of folded weights
-    {w1, b1, w2, b2, w3, b3, wd?, bd?} (ops/resblock.py convention): the
-    tuple (w1, b1, ..., wd, bd), weights in dtype and contiguous (the
-    kernel's layout: w2 (3,3,64,64) is [tap][ci][co]), biases f32, wd and bd
-    None without a downsample."""
-    return tuple(None if blk.get(k) is None else
-                 blk[k].to(dtype if k[0] == 'w' else torch.float32)
-                 .contiguous() for k in BLOCK_KEYS)
+# K5 takes K8's layout (ops/resblock.py): at width 64 one prepared block
+# serves both kernels
+prepare_block = prepare_resblock
 
 
 def frozen_bottleneck_prepared(x, blk):

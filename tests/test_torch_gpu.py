@@ -12,7 +12,9 @@ of boundary positions, both bodies of K1 (tensor cores, FMA) and of K3
 (shared-memory slab in one band and in several, global atomics), branch maps
 in two storages, the wrappers' shape checks,
 the relative-offset entries at stride 2, the autograd Functions over K6 and
-K3, and the ResNet per-block route (K8) against the chain (K4+K5). f32
+K3, K8 through both its entries with both bodies (tensor cores on each of
+their three tiles, FMA), K8 and K5 bit for bit in bf16 at width 64, and the
+ResNet per-block route (K8) against the chain (K4+K5). f32
 tolerance rtol 1e-5, atol 1e-4 (chip_smoke.py's); K3's gradient map is
 summed with f32 atomics in an order that changes from run to run, which that
 tolerance covers. bf16: the kernel's error against the plain version in
@@ -650,18 +652,97 @@ def test_k8_edge_shapes(gen, H, W, cin, width, cout, ds):
     assert got16.dtype == torch.bfloat16
     assert (got16.float() - ref).abs().max() <= \
         2 * (plain16.float() - ref).abs().max()
+    # the prepared entry: the same kernel on the same values
+    for xin, want in ((x, got), (x16, got16)):
+        blk = rb.prepare_resblock(dict(zip(rb.BLOCK_KEYS, ws)), xin.dtype)
+        before = rb.fused_bottleneck.launches
+        assert torch.equal(rb.fused_bottleneck_prepared(xin, blk), want)
+        assert rb.fused_bottleneck.launches == before + 1
 
 
-def test_k8_single_tile_with_a_distinctive_border(gen):
-    """One 8x8 tile whose halo lies wholly outside the image, first and last
-    rows at +5 and -5: conv2 must see zeros there, not relu(b1)."""
-    x = _randn(gen, 1, 8, 8, 8)
+def _body(names):
+    """The K8 body a profile's one kernel of the port names: 'fma', or the
+    tensor-core body's tile as 'mma TH x TW'."""
+    import re
+    own = [n for n in names if 'kgdet::' in n]
+    assert len(own) == 1, own
+    if 'resblock_kernel' in own[0]:
+        return 'fma'
+    m = re.search(r'bottleneck_mma_kernel<(\d+), ?(\d+)>', own[0])
+    assert m, own[0]
+    return f'mma {m.group(1)} x {m.group(2)}'
+
+
+@pytest.mark.parametrize('H,W,cin,width,cout,ds,dtype,body', [
+    # the per-block route's shapes
+    (13, 21, 64, 64, 256, True, torch.bfloat16, 'mma 16 x 16'),
+    (20, 17, 256, 64, 256, False, torch.bfloat16, 'mma 16 x 16'),
+    (5, 3, 24, 40, 72, True, torch.bfloat16, 'mma 8 x 16'),  # width, Cout
+    (9, 11, 64, 64, 72, True, torch.bfloat16, 'mma 8 x 16'),  # Cout 72
+    (9, 9, 128, 128, 128, False, torch.bfloat16, 'mma 8 x 16'),
+    (11, 13, 64, 192, 128, True, torch.bfloat16, 'mma 8 x 16'),
+    (10, 7, 32, 256, 64, True, torch.bfloat16, 'mma 8 x 8'),
+    (7, 9, 64, 448, 64, False, torch.bfloat16, 'mma 8 x 8'),  # the widest
+    (13, 21, 64, 64, 256, True, torch.float32, 'fma'),
+    (6, 5, 16, 8, 12, True, torch.bfloat16, 'fma'),   # Cout off the 16 bytes
+])
+def test_k8_both_bodies(gen, H, W, cin, width, cout, ds, dtype, body):
+    """bf16 with channel counts on the 16-byte pack and a width whose tiles
+    fit takes the tensor-core body: K5's 16x16 instance at width 64 with
+    Cout a multiple of 64, else 8x16 to width 192 and 8x8 to 448; f32 and
+    bf16 it does not take run the FMA body. Checked by the kernel's name on
+    the device (one kernel a prepared call), and each against the plain
+    version (f32: TOL; bf16: the 2x rule)."""
+    x = torch.relu(_randn(gen, 2, H, W, cin))
+    ws = _block(gen, cin, width, cout, ds)
+    xin = x.to(dtype)
+    blk = rb.prepare_resblock(dict(zip(rb.BLOCK_KEYS, ws)), dtype)
+    names = _device_kernels(lambda: rb.fused_bottleneck_prepared(xin, blk))
+    assert len(names) == 1 and _body(names) == body
+    if dtype == torch.float32:
+        torch.testing.assert_close(rb.fused_bottleneck(x, *ws),
+                                   rb.bottleneck_reference(x, *ws), **TOL)
+    else:
+        _assert_bf16_within_twice_plain(rb.fused_bottleneck,
+                                        rb.bottleneck_reference, x, ws)
+
+
+@pytest.mark.parametrize('cin,ds', [(64, True), (256, False)])
+def test_k8_and_k5_are_one_bf16_body_at_width_64(gen, cin, ds):
+    """At width 64 in bf16 K8 and K5 launch the same tensor-core body on
+    one prepared block: bit-equal outputs, one kernel a call each."""
+    x = torch.relu(_randn(gen, 2, 24, 40, cin)).bfloat16()
+    blk = rb.prepare_resblock(
+        dict(zip(rb.BLOCK_KEYS, _block(gen, cin, 64, 256, ds))),
+        torch.bfloat16)
+    assert torch.equal(rb.fused_bottleneck_prepared(x, blk),
+                       sk.frozen_bottleneck_prepared(x, blk))
+    for fn in (rb.fused_bottleneck_prepared, sk.frozen_bottleneck_prepared):
+        names = _device_kernels(lambda: fn(x, blk))
+        assert len(names) == 1 and _body(names) == 'mma 16 x 16'
+
+
+@pytest.mark.parametrize('size,width,dtype', [
+    (8, 8, torch.float32), (8, 8, torch.bfloat16), (16, 64, torch.bfloat16),
+    (8, 40, torch.bfloat16), (8, 128, torch.bfloat16),
+    (8, 256, torch.bfloat16)])
+def test_k8_single_tile_with_a_distinctive_border(gen, size, width, dtype):
+    """One tile whose halo lies wholly outside the image (f32: the FMA
+    body's 8x8; bf16: the tensor-core body's 16x16 at width 64, 8x16 and
+    8x8, with the width's padding at width 8 and 40), first and last rows
+    at +5 and -5, relu(b1) far from zero: conv2 must see zeros there and in
+    the padded channels, not relu(b1)."""
+    x = _randn(gen, 1, size, size, 8)
     x[:, 0], x[:, -1] = 5.0, -5.0
-    ws = _block(gen, 8, 8, 16, True)
+    ws = _block(gen, 8, width, 64, True)
     ws[1] = ws[1].abs() + 1.0               # relu(b1) far from zero
-    torch.testing.assert_close(rb.fused_bottleneck(x, *ws),
-                               rb.bottleneck_reference(x, *ws).contiguous(),
-                               **TOL)
+    if dtype == torch.float32:
+        torch.testing.assert_close(
+            rb.fused_bottleneck(x, *ws),
+            rb.bottleneck_reference(x, *ws).contiguous(), **TOL)
+    else:
+        _assert_bf16_within_twice_plain(rb.fused_bottleneck,
+                                        rb.bottleneck_reference, x, ws)
 
 
 def test_k8_agrees_with_k5_at_width_64(gen):
@@ -677,6 +758,8 @@ def test_k8_refuses_what_it_does_not_take(gen):
     y = _randn(gen, 1, 8, 8, 64)
     with pytest.raises(ValueError, match='shared memory'):   # 344 KB of tiles
         rb.fused_bottleneck(y, *_block(gen, 64, 512, 64, False))
+    with pytest.raises(ValueError, match='shared memory'):   # 228 KB, bf16
+        rb.fused_bottleneck(y.bfloat16(), *_block(gen, 64, 512, 64, False))
     with pytest.raises(ValueError):           # cin != cout, no downsample
         rb.fused_bottleneck(y, *_block(gen, 64, 64, 256, False))
     with pytest.raises(ValueError):           # width off the multiple of 8

@@ -9,11 +9,14 @@ autograd Function of deform_columns_dual vs jax.grad through the JAX
 package's CPU path; K4 stem_pool_ref vs pallas_stem.stem_pool_transposed;
 K5 frozen_bottleneck_ref vs pallas_stem.bottleneck_transposed; K6
 deform_sample_cols_ref vs deform_sample_pallas; K8 bottleneck_reference vs
-pallas_resblock.fused_bottleneck; the autograd Functions over K6 and K3 vs
+pallas_resblock.fused_bottleneck, through both its entries, and the
+layout prepare_resblock keeps; the autograd Functions over K6 and K3 vs
 jax.vjp of deform_conv_fused and deform_sample_hybrid; the index math that
 the deformable kernels do inside (csrc/tap_coeffs.h, compiled for the host
 with g++) vs ops/deform.py::prep_indices (K1, K2, K6) and prep_indices_bwd
-(K3) bit for bit; the tap-major weight layout the heads keep while they
+(K3) bit for bit; the tensor-core bodies' tile geometry and the
+bottleneck's schedule (csrc/prefix_index.h through g++) vs F.conv2d and an
+enumeration of the steps; the tap-major weight layout the heads keep while they
 serve; the split gather's wrapper
 on strided maps and bf16 positions, and its by-value column table vs
 _split_views. f32, tolerance 1e-4
@@ -40,8 +43,8 @@ from kgdet_tpu_torch.ops.deform_kernels import deform_columns_dual, \
     deform_conv_fused, deform_conv_fused_ref, deform_sample_bwd_ref, \
     deform_sample_cols, deform_sample_cols_ref, deform_sample_hybrid, \
     deform_sample_split, deform_sample_split_ref
-from kgdet_tpu_torch.ops.resblock import bottleneck_reference, \
-    fused_bottleneck
+from kgdet_tpu_torch.ops.resblock import BLOCK_KEYS, bottleneck_reference, \
+    fused_bottleneck, fused_bottleneck_prepared, prepare_resblock
 from tests.test_torch_ops import BOUNDARY_POS, _off_grid
 from kgdet_tpu_torch.ops.stem_kernels import frozen_bottleneck_ref, \
     stem_layer1_ref, stem_pool_ref
@@ -384,6 +387,69 @@ def test_k8_plain_matches_fused_bottleneck_pallas(case):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize('case', ['downsample', 'identity', 'border'])
+def test_k8_prepared_plain_matches_fused_bottleneck_pallas(case):
+    """The same three cases through fused_bottleneck_prepared on the weights
+    prepare_resblock keeps: on the CPU the plain version, equal to the
+    unprepared entry bit for bit and to the TPU kernel within 1e-5."""
+    cin, width, cout = (16, 8, 16) if case == 'identity' else (8, 8, 16)
+    H = W = 8 if case == 'border' else 16
+    rng = np.random.RandomState(52)
+    x = rng.randn(1 if case == 'border' else 2, H, W, cin).astype(np.float32)
+    if case == 'border':
+        x[:, 0], x[:, -1] = 5.0, -5.0
+    ws = _block_weights(cin, width, cout, case != 'identity', seed=53)
+    want = jfused_bottleneck(jnp.asarray(x), *[
+        None if a is None else jnp.asarray(a) for a in ws], interpret=True)
+    tws = [None if a is None else _t(a) for a in ws]
+    blk = prepare_resblock(dict(zip(BLOCK_KEYS, tws)), torch.float32)
+    before = fused_bottleneck.launches
+    got = fused_bottleneck_prepared(_t(x), blk)      # CPU: the plain version
+    assert fused_bottleneck.launches == before
+    np.testing.assert_array_equal(got.numpy(),
+                                  fused_bottleneck(_t(x), *tws).numpy())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize('width', [8, 40, 64, 128])
+def test_prepare_resblock_layout_undone_gives_the_folded_weights(width):
+    """prepare_resblock's tuple, read back in the kernels' layout (w1
+    [ci][co], w2 [tap][ci][co], w3 and wd [ci][co]) and widened to f32,
+    gives the folded weights rounded to the dtype; biases stay f32 and
+    exact; no downsample gives None twice. K5's prepare_block is the same
+    function."""
+    from kgdet_tpu_torch.ops.stem_kernels import prepare_block
+    assert prepare_block is prepare_resblock
+    for ds, cin, cout in ((True, 24, 72), (False, 72, 72)):
+        ws = [None if a is None else _t(a)
+              for a in _block_weights(cin, width, cout, ds, seed=width)]
+        folded = dict(zip(BLOCK_KEYS, ws))
+        for dtype in (torch.float32, torch.bfloat16):
+            got = prepare_resblock(folded, dtype)
+            assert len(got) == len(BLOCK_KEYS)
+            for k, p in zip(BLOCK_KEYS, got):
+                if folded[k] is None:
+                    assert p is None
+                    continue
+                assert p.is_contiguous()
+                assert p.dtype == (dtype if k[0] == 'w' else torch.float32)
+            w1, b1, w2, b2, w3, b3, wd, bd = got
+            back = {'w1': w1.reshape(cin, width),
+                    'w2': w2.reshape(9, width, width).reshape(
+                        3, 3, width, width),
+                    'w3': w3.reshape(width, cout), 'b1': b1, 'b2': b2,
+                    'b3': b3}
+            assert torch.equal(w2.reshape(9, width, width)[4],
+                               folded['w2'][1, 1].to(dtype))
+            if ds:
+                back.update(wd=wd.reshape(cin, cout), bd=bd)
+            for k, v in back.items():
+                want = folded[k].to(dtype).float() if k[0] == 'w' \
+                    else folded[k]
+                assert torch.equal(v.float(), want), k
+
+
 def test_fused_conv_function_matches_pallas_custom_vjp(interpret_mode):
     """The same Function against jax.vjp of pallas_deform.deform_conv_fused
     itself (K6's and K3's TPU kernels in interpret mode, C = 128): output
@@ -716,11 +782,12 @@ def test_prefix_weights_are_kept_once_per_dtype():
 
 _PREFIX_SHIM = r'''
 #include "prefix_index.h"
+using K5Tile = kgdet::BlkTile<kgdet::kBlkT, kgdet::kBlkT>;
 extern "C" void geometry(int* g) {
   const int v[] = {kgdet::kStemPH, kgdet::kStemPW, kgdet::kStemTH,
                    kgdet::kStemTW, kgdet::kStemMTiles, kgdet::kStemInTH,
                    kgdet::kStemInTW, kgdet::kStemRow, kgdet::kStemKPad,
-                   kgdet::kBlkT, kgdet::kBlkHalo, kgdet::kBlkHaloRows};
+                   kgdet::kBlkT, K5Tile::kHaloW, K5Tile::kHaloRows};
   for (int i = 0; i < 12; ++i) g[i] = v[i];
 }
 extern "C" void stem_offsets(int* rows, int* depth) {
@@ -733,7 +800,8 @@ extern "C" void halo_rows(int* rows) {
   for (int tap = 0; tap < 9; ++tap)
     for (int m = 0; m < kgdet::kBlkT * kgdet::kBlkT; ++m)
       rows[tap * kgdet::kBlkT * kgdet::kBlkT + m] =
-          kgdet::halo_row(m / kgdet::kBlkT, m % kgdet::kBlkT, tap);
+          kgdet::halo_row(m / kgdet::kBlkT, m % kgdet::kBlkT, tap,
+                          K5Tile::kHaloW);
 }
 '''
 
@@ -829,6 +897,285 @@ def test_bottleneck_conv2_rows_match_conv(prefix_index):
         got.numpy(), want[0].permute(1, 2, 0).reshape(-1, 64).numpy(),
         atol=1e-4)
     assert halo.max() < geo['HALOROWS'] and halo.max() == n * n - 1
+
+
+_BLK_SHIM = r'''
+#include "prefix_index.h"
+template <int TH, int TW> void geo(int* g) {
+  using T = kgdet::BlkTile<TH, TW>;
+  const int v[] = {TH, TW, T::kPix, T::kHaloW, T::kHaloPix, T::kHaloRows,
+                   T::kMaxSlices};
+  for (int i = 0; i < 7; ++i) g[i] = v[i];
+}
+extern "C" void blk_geometry(int t, int* g) {
+  if (t == 0) geo<16, 16>(g);
+  else if (t == 1) geo<8, 16>(g);
+  else geo<8, 8>(g);
+}
+extern "C" int blk_tile(int width, int cout) {
+  return kgdet::blk_tile(width, cout);
+}
+extern "C" int blk_tile_smem(int t, int width) {
+  return kgdet::blk_tile_smem(t, width);
+}
+extern "C" int blk_ld(int width) { return kgdet::blk_ld(width); }
+extern "C" int halo_row(int oy, int ox, int tap, int halo_w) {
+  return kgdet::halo_row(oy, ox, tap, halo_w);
+}
+extern "C" int blk_schedule(int nc, int ns, int nout, int ds, int* out,
+                            int cap) {
+  kgdet::BlkStep st{kgdet::kConv1, 0, 0, 0};
+  int n = 0;
+  for (; st.phase != kgdet::kDone && n < cap; ++n) {
+    const int v[] = {st.phase, st.out, st.tap, st.in};
+    for (int i = 0; i < 4; ++i) out[4 * n + i] = v[i];
+    st = kgdet::blk_next(st, nc, ns, nout, ds != 0);
+  }
+  return n;
+}
+'''
+
+
+@pytest.fixture(scope='module')
+def blk_index(tmp_path_factory):
+    """The bottleneck body's helpers of csrc/prefix_index.h (tiles, shared
+    memory, conv2's rows, the schedule) compiled for the host with g++:
+    (ctypes library, {tile: geometry dict}, schedule(nc, ns, nout, ds) as
+    an (steps, 4) array of phase, output slice, tap, input slice: blk_next
+    walked from the first step to kDone)."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from kgdet_tpu_torch.ops._build import CSRC
+    gxx = shutil.which('g++')
+    if gxx is None:
+        pytest.skip('needs g++')
+    tmp = tmp_path_factory.mktemp('blk_index')
+    (tmp / 'shim.cpp').write_text(_BLK_SHIM)
+    lib = tmp / 'libblk.so'
+    subprocess.run([gxx, '-O2', '-std=c++17', '-shared', '-fPIC',
+                    f'-I{CSRC}', str(tmp / 'shim.cpp'), '-o', str(lib)],
+                   check=True)
+    cdll = ctypes.CDLL(str(lib))
+    cdll.blk_geometry.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    cdll.blk_schedule.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p,
+                                                        ctypes.c_int]
+    geos = {}
+    for t in range(3):
+        g = np.zeros(7, np.int32)
+        cdll.blk_geometry(t, g.ctypes.data)
+        geos[t] = dict(zip(('TH', 'TW', 'PIX', 'HALOW', 'HALOPIX',
+                            'HALOROWS', 'MAXSLICES'), g.tolist()))
+
+    def schedule(nc, ns, nout, ds):
+        cap = 4096
+        out = np.zeros((cap, 4), np.int32)
+        n = cdll.blk_schedule(nc, ns, nout, ds, out.ctypes.data, cap)
+        assert n < cap
+        return out[:n]
+    return cdll, geos, schedule
+
+
+def _loop_nest(nc, ns, nout, ds):
+    """The bottleneck body's loops in the order the kernel runs them
+    (csrc/prefix_mma.cuh::bottleneck_mma_kernel): conv1, conv2, conv3 and
+    the downsample, as (phase, output slice, tap, input slice)."""
+    steps = [(0, j, 0, c) for j in range(ns) for c in range(nc)]
+    steps += [(1, j, tap, i) for j in range(ns) for tap in range(9)
+              for i in range(ns)]
+    for n in range(nout):
+        steps += [(2, n, 0, i) for i in range(ns)]
+        steps += [(3, n, 0, c) for c in range(nc)] if ds else []
+    return steps
+
+
+@pytest.mark.parametrize('nc,ns,nout,ds', [
+    (1, 1, 4, True), (4, 1, 4, False),    # K5's layer1 blocks, width 64
+    (8, 2, 8, False), (4, 2, 8, True),    # width 128
+    (1, 7, 2, True), (3, 3, 1, False),    # width 448, 192
+])
+def test_bottleneck_schedule_matches_the_loop_nest(blk_index, nc, ns, nout,
+                                                   ds):
+    """blk_next, which names the step whose slices the kernel fetches
+    next, walks from the first step to kDone in the order of the kernel's
+    loops; at width 64 that is K5's schedule of nc + 9 + (Cout / 64) *
+    per_n steps."""
+    _, _, schedule = blk_index
+    got = [tuple(r) for r in schedule(nc, ns, nout, int(ds)).tolist()]
+    assert got == _loop_nest(nc, ns, nout, ds)
+    if ns == 1:
+        assert len(got) == nc + 9 + nout * (1 + (nc if ds else 0))
+
+
+def test_bottleneck_tiles_and_shared_memory(blk_index):
+    """Each tile's geometry, the shared memory of a1, a2 and the two ring
+    stages at every width, and the tile the body takes: 16x16 for K5's
+    shapes (width 64, Cout a multiple of 64), else the first of 8x16 and
+    8x8 that fits 227 KB (to width 192 and 448; none above). A tile's
+    kMaxSlices is the most 64-channel slices of the width that fit it: one
+    for 16x16, whose kernel fixes width and Cout's masks at compile time."""
+    lib, geos, _ = blk_index
+    for t, (th, tw) in enumerate(((16, 16), (8, 16), (8, 8))):
+        g = geos[t]
+        assert (g['TH'], g['TW'], g['PIX'], g['HALOW']) == \
+            (th, tw, th * tw, tw + 2)
+        assert g['HALOPIX'] == (th + 2) * (tw + 2)
+        assert g['HALOROWS'] == -(-g['HALOPIX'] // 16) * 16
+        for width in range(8, 1032, 8):
+            assert (lib.blk_tile_smem(t, width) <= 232448) == \
+                (-(-width // 64) <= g['MAXSLICES'])
+    assert [g['MAXSLICES'] for g in geos.values()] == [1, 3, 7]
+    assert lib.blk_tile_smem(0, 64) == 200448       # K5's tile
+    for width in range(8, 520, 8):
+        ld = -(-width // 64) * 64 + 8
+        assert lib.blk_ld(width) == ld
+        sizes = [2 * ((g['HALOROWS'] + g['PIX']) * ld
+                      + 2 * (g['HALOROWS'] + 64) * 72) for g in geos.values()]
+        assert [lib.blk_tile_smem(t, width) for t in range(3)] == sizes
+        fits = [t for t in (1, 2) if sizes[t] <= 232448]
+        for cout in (64, 256, 72):
+            k5 = width == 64 and cout % 64 == 0
+            want = 0 if k5 else fits[0] if fits else -1
+            assert lib.blk_tile(width, cout) == want
+            assert want == (0 if k5 else 1 if width <= 192
+                            else 2 if width <= 448 else -1)
+
+
+def _emulate_bottleneck(blk_index, t, x, w1, b1, w2, b2, w3, b3, wd, bd):
+    """The tensor-core body's arithmetic in f32, block by block on tile t,
+    from the header's helpers alone: every step of the decoded schedule is
+    one 64 x 64 weight slice, zero past Cin, the width or Cout, as the
+    kernel's fetches fill it; conv1 runs over the halo rows, 0 outside the
+    image and in the width's padding; conv2 reads its rows at halo_row; an
+    epilogue runs where the next step starts another output slice."""
+    lib, geos, schedule = blk_index
+    g = geos[t]
+    th, tw, hw = g['TH'], g['TW'], g['HALOW']
+    B, H, W, cin = x.shape
+    width, cout = w1.shape[1], w3.shape[1]
+    ds = wd is not None
+    nc, ns, nout = -(-cin // 64), -(-width // 64), -(-cout // 64)
+
+    def block(m, r, c):            # the zero-filled 64 x 64 slice of m
+        out = torch.zeros(64, 64)
+        v = m[64 * r:64 * r + 64, 64 * c:64 * c + 64]
+        out[:v.shape[0], :v.shape[1]] = v
+        return out
+
+    def chans(v, n):               # a vector zero-padded to n slices
+        return torch.nn.functional.pad(v, (0, 64 * n - v.shape[-1]))
+    steps = schedule(nc, ns, nout, int(ds)).tolist()
+    w2t = w2.reshape(9, width, width)
+    hp = np.arange(g['HALOROWS'])
+    rows = torch.from_numpy(np.array(
+        [[lib.halo_row(m // tw, m % tw, tap, hw) for m in range(g['PIX'])]
+         for tap in range(9)], np.int64))
+    out = torch.zeros(B, H, W, cout)
+    for b in range(B):
+        for h0 in range(0, H, th):
+            for w0 in range(0, W, tw):
+                gy, gx = h0 - 1 + hp // hw, w0 - 1 + hp % hw
+                inside = torch.from_numpy(
+                    (hp < g['HALOPIX']) & (gy >= 0) & (gy < H) & (gx >= 0)
+                    & (gx < W))
+                xh = torch.zeros(g['HALOROWS'], 64 * nc)
+                xh[inside, :cin] = x[b, gy[inside.numpy()],
+                                     gx[inside.numpy()]]
+                m = np.arange(g['PIX'])
+                oy, ox = h0 + m // tw, w0 + m % tw
+                ok = (oy < H) & (ox < W)
+                xt = torch.zeros(g['PIX'], 64 * nc)
+                xt[torch.from_numpy(ok), :cin] = x[b, oy[ok], ox[ok]]
+                a1 = torch.zeros(g['HALOROWS'], 64 * ns)
+                a2 = torch.zeros(g['PIX'], 64 * ns)
+                acc = 0
+                for k, (phase, o, tap, i) in enumerate(steps):
+                    if phase == 0:
+                        acc = acc + xh[:, 64 * i:64 * i + 64] @ block(w1, i, o)
+                    elif phase == 1:
+                        acc = acc + a1[rows[tap], 64 * i:64 * i + 64] \
+                            @ block(w2t[tap], i, o)
+                    elif phase == 2:
+                        acc = acc + a2[:, 64 * i:64 * i + 64] @ block(w3, i, o)
+                    else:
+                        acc = acc + xt[:, 64 * i:64 * i + 64] @ block(wd, i, o)
+                    nxt = steps[k + 1] if k + 1 < len(steps) else (9, -1, 0, 0)
+                    if (min(nxt[0], 2), nxt[1]) == (min(phase, 2), o):
+                        continue
+                    cols = slice(64 * o, 64 * o + 64)
+                    if phase == 0:
+                        v = torch.relu(acc + chans(b1, ns)[cols])
+                        live = torch.arange(64 * o, 64 * o + 64) < width
+                        a1[:, cols] = v * inside[:, None] * live
+                    elif phase == 1:
+                        live = torch.arange(64 * o, 64 * o + 64) < width
+                        a2[:, cols] = torch.relu(
+                            acc + chans(b2, ns)[cols]) * live
+                    else:
+                        ident = chans(bd, nout)[cols] if ds \
+                            else chans(xt, nout)[:, cols]
+                        y = torch.relu(acc + chans(b3, nout)[cols] + ident)
+                        n = min(64, cout - 64 * o)
+                        out[b, oy[ok], ox[ok], 64 * o:64 * o + n] = \
+                            y[torch.from_numpy(ok), :n]
+                    acc = 0
+    return out
+
+
+@pytest.mark.parametrize('t,H,W,cin,width,cout,ds', [
+    (0, 18, 20, 72, 64, 128, True),    # 16x16, K5's instance, Cin off 64
+    (1, 9, 7, 16, 40, 16, False),      # 8x16, a width off the slice
+    (1, 10, 19, 24, 128, 136, True),   # two slices, Cout off the slice
+    (2, 11, 9, 64, 136, 64, False),    # 8x8, three slices, split columns
+])
+def test_bottleneck_body_schedule_matches_plain(blk_index, t, H, W, cin,
+                                                width, cout, ds):
+    """The body's schedule, tiles and conv2 rows (prefix_index.h through
+    g++), run as the kernel runs them in f32 (_emulate_bottleneck), equal
+    the plain version at each tile size within 1e-5 of the output's scale
+    (summation order only), ragged tiles, halos
+    outside the image and channel padding included; the first and last
+    rows of the image at +5 and -5 and relu(b1) far from zero, so a halo
+    or a padded channel holding relu(b1) instead of 0 would show."""
+    rng = np.random.RandomState(60 + t)
+    x = rng.randn(2, H, W, cin).astype(np.float32)
+    x[:, 0], x[:, -1] = 5.0, -5.0
+    ws = _block_weights(cin, width, cout, ds, seed=61 + t)
+    ws[1] = np.abs(ws[1]) + 1.0
+    tws = [None if a is None else _t(a) for a in ws]
+    got = _emulate_bottleneck(blk_index, t, _t(x), *tws)
+    want = bottleneck_reference(_t(x), *tws)
+    # f32 sums in another order, of outputs up to some 30
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize('t', [0, 1, 2])
+def test_bottleneck_conv2_rows_match_conv_at_each_tile(blk_index, t):
+    """conv2's rows at halo_row(m / TW, m % TW, tap, TW + 2) of each tile's
+    conv1 tile, times the tap's weight, summed over taps and the width's
+    two slices, equal F.conv2d's 3x3 on that conv1 tile."""
+    lib, geos, _ = blk_index
+    g = geos[t]
+    th, tw, hw = g['TH'], g['TW'], g['HALOW']
+    width = 128
+    rng = np.random.RandomState(12 + t)
+    a1 = _t(rng.randn(g['HALOROWS'], width).astype(np.float32))
+    w2 = _t(rng.randn(3, 3, width, width).astype(np.float32) * .1)
+    rows = torch.from_numpy(np.array(
+        [[lib.halo_row(m // tw, m % tw, tap, hw) for m in range(g['PIX'])]
+         for tap in range(9)], np.int64))
+    got = sum(a1[rows[tap], 64 * i:64 * i + 64]
+              @ w2.reshape(9, width, width)[tap, 64 * i:64 * i + 64]
+              for tap in range(9) for i in range(2))
+    tile = a1[:g['HALOPIX']].reshape(1, th + 2, hw, width)
+    want = torch.nn.functional.conv2d(tile.permute(0, 3, 1, 2),
+                                      w2.permute(3, 2, 0, 1))
+    np.testing.assert_allclose(
+        got.numpy(), want[0].permute(1, 2, 0).reshape(-1, width).numpy(),
+        atol=1e-4)
+    assert rows.max() == g['HALOPIX'] - 1
 
 
 # ------------------------------------------- the split gather's wrapper edges

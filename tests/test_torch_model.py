@@ -311,6 +311,44 @@ def test_resnet_per_block_route_matches_jax_and_the_chain(models):
     assert net.layer2[0].conv1.weight.grad is not None
 
 
+def test_resnet_per_block_route_runs_on_the_kept_weights(monkeypatch):
+    """prefix_pipeline=False: each layer1 block goes to
+    fused_bottleneck_prepared with the very tuple ResNet.prefix_weights
+    keeps for the dtype (the one K5 reads too), and a second forward
+    prepares nothing: no fold, cast or copy of a weight. On the CPU no
+    launch, and the output equals the plain per-block route bit for bit."""
+    import kgdet_tpu_torch.models.resnet as resnet_mod
+    from kgdet_tpu_torch.ops.resblock import fused_bottleneck
+    net = resnet_mod.ResNet(depth=50, num_stages=1, out_indices=(0,),
+                            frozen_stages=1, prefix_pipeline=False)
+    net.init_weights(torch.Generator().manual_seed(5))
+    x = torch.from_numpy(np.random.RandomState(7).randn(
+        1, 40, 56, 3).astype(np.float32))
+    seen, prepared = [], []
+    real_block = resnet_mod.fused_bottleneck_prepared
+    real_prepare = resnet_mod.prepare_block
+
+    def block(y, blk):
+        seen.append(blk)
+        return real_block(y, blk)
+
+    def prepare(*a):
+        prepared.append(a)
+        return real_prepare(*a)
+    monkeypatch.setattr(resnet_mod, 'fused_bottleneck_prepared', block)
+    monkeypatch.setattr(resnet_mod, 'prepare_block', prepare)
+    before = fused_bottleneck.launches
+    first = net(x)[0]
+    assert len(prepared) == 3
+    second = net(x)[0]
+    assert len(prepared) == 3 and fused_bottleneck.launches == before
+    kept = net.prefix_weights(torch.float32)[1][1]
+    assert len(seen) == 6 and all(b is kept[i % 3] for i, b in
+                                  enumerate(seen))
+    net.plain_prefix = True
+    assert torch.equal(first, second) and torch.equal(first, net(x)[0])
+
+
 @pytest.mark.parametrize('extra_convs', [True, False])
 def test_fpn_all_levels_match_jax(extra_convs):
     """Every FPN level, including the stride-2 extra convs (flax 'SAME'
