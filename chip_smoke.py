@@ -74,10 +74,27 @@ beside the chain's; what each route puts on the device on its kept weights
 (activities, device time): the per-block route's three K8 launches must run
 the 16x16 tensor-core body, and the served frozen prefix must put exactly
 four activities on the device, K4 and K5 x3.
+Phase 9: the evaluation path at full width on the cascade config (bf16,
+seeded random weights, val_data as shipped: batch 8, canvases 800x1344 and
+1344x800, img_scale (1333, 800); test.score_thr 0): writes a synthetic
+DeepFashion2-style validation set of 192 PNGs (NumPy + zlib; 24 batches),
+checks that the evaluator scores its own ground truth at all-area AP 1
+(bbox and keypoints), holds the last-stage head outputs of the model on its
+kernels against on their plain versions on the first batch of 8 of each
+canvas (as phase 2 does at batch 2), runs the CLI
+kgdet_tpu_torch/tools/test.py in-process (every image once in the results,
+both JSON files, 12 / 10 finite numbers on the copypaste lines, launches K1
+12 / K4 1 / K5 3 a batch over the batches of both canvases and no other
+kernel), holds run_inference's detections of the first batch bit for bit
+against a direct make_predict_fn call, and runs multi-scale / flip TTA on 4
+images (scales at, below and beyond the canvas buckets). Prints the
+image_io backend, host data and predict ms a batch, the CLI's setup,
+inference and evaluation seconds, and its img/s over the inference window,
+the evaluation and the whole run.
 
 Prints the card's name and power limit, one line per check, a JSON line of
-the seven kernels (launches on each main path, error, wrapper and device
-times, bound), and as
+the seven kernels (launches on each main path, the evaluation CLI's
+included, error, wrapper and device times, bound), and as
 its last line {"ok": true, "device": {...}}. Exits
 nonzero, with no result line, when a check fails or no CUDA device is
 present. Imports nothing of JAX and nothing of the JAX package.
@@ -741,13 +758,51 @@ def last_stage(outs):
             for k in ('cls', 'kpt', 'bbox')}
 
 
+def hold_against_plain(torch, model, batch, where=''):
+    """The last-stage head outputs of ``model`` on ``batch``, on its kernels
+    against on their plain versions: f32 within MODEL_F32_REL of each
+    output's scale, bf16 within BF16_RATIO x the plain bf16 model's error
+    from the f32 plain model."""
+    from kgdet_tpu_torch.ops.image import device_normalize
+
+    image = device_normalize(torch.as_tensor(batch['image']).cuda(),
+                             torch.as_tensor(batch['img_hw']).cuda())
+    dtype0 = model.dtype
+    try:
+        with torch.inference_mode():
+            runs = {}
+            for dtype in (torch.bfloat16, torch.float32):
+                model.dtype = dtype
+                for plain in (False, True):
+                    model.use_plain_kernels(plain)
+                    runs[dtype, plain] = last_stage(model(image))
+    finally:
+        model.dtype = dtype0
+        model.use_plain_kernels(False)
+    ref = runs[torch.float32, True]
+    for k in ref:
+        scale = max(1.0, ref[k].float().abs().max().item())
+        e32 = max_err(runs[torch.float32, False][k], ref[k])
+        ek = max_err(runs[torch.bfloat16, False][k], ref[k])
+        ep = max_err(runs[torch.bfloat16, True][k], ref[k])
+        print(f'{where}last stage {k}: f32 kernels vs plain {e32:.3e} (bound '
+              f'{MODEL_F32_REL * scale:.3e}); bf16 vs f32 plain: kernels '
+              f'{ek:.3e}, plain {ep:.3e} (bound {BF16_RATIO} x plain)',
+              flush=True)
+        if not e32 <= MODEL_F32_REL * scale:
+            fail(f'{where}last stage {k}: f32 kernel model differs by '
+                 f'{e32:.3e}')
+        if not ek <= BF16_RATIO * ep:
+            fail(f'{where}last stage {k}: bf16 kernel model err {ek:.3e} > '
+                 f'{BF16_RATIO} x plain {ep:.3e}')
+
+
 def phase_serving(torch, gpu, config, per_fwd, n_reqs=SERVED, compare=True):
     """Serve ``n_reqs`` requests through make_predict_fn on the config's
     model at full width; check the launch counts per forward and the
     detections; with ``compare``, hold the last-stage head outputs of the
     model on its kernels against the model on their plain versions."""
     from kgdet_tpu_torch.api import build_model, load_config, make_predict_fn
-    from kgdet_tpu_torch.ops.image import device_normalize
 
     cfg = load_config(config)
     cfg = cfg.replace(test=dataclasses.replace(cfg.test, score_thr=0.0))
@@ -799,32 +854,7 @@ def phase_serving(torch, gpu, config, per_fwd, n_reqs=SERVED, compare=True):
           f'{pips:.2f} img/s with plain versions ({gpu})', flush=True)
 
     # last-stage head outputs: kernels vs plain, bf16 and f32
-    image = device_normalize(torch.as_tensor(reqs[0]['image']).cuda(),
-                             torch.as_tensor(reqs[0]['img_hw']).cuda())
-    with torch.inference_mode():
-        runs = {}
-        for dtype in (torch.bfloat16, torch.float32):
-            model.dtype = dtype
-            for plain in (False, True):
-                model.use_plain_kernels(plain)
-                runs[dtype, plain] = last_stage(model(image))
-        model.dtype = torch.bfloat16
-        model.use_plain_kernels(False)
-    ref = runs[torch.float32, True]
-    for k in ref:
-        scale = max(1.0, ref[k].float().abs().max().item())
-        e32 = max_err(runs[torch.float32, False][k], ref[k])
-        ek = max_err(runs[torch.bfloat16, False][k], ref[k])
-        ep = max_err(runs[torch.bfloat16, True][k], ref[k])
-        print(f'last stage {k}: f32 kernels vs plain {e32:.3e} (bound '
-              f'{MODEL_F32_REL * scale:.3e}); bf16 vs f32 plain: kernels '
-              f'{ek:.3e}, plain {ep:.3e} (bound {BF16_RATIO} x plain)',
-              flush=True)
-        if not e32 <= MODEL_F32_REL * scale:
-            fail(f'last stage {k}: f32 kernel model differs by {e32:.3e}')
-        if not ek <= BF16_RATIO * ep:
-            fail(f'last stage {k}: bf16 kernel model err {ek:.3e} > '
-                 f'{BF16_RATIO} x plain {ep:.3e}')
+    hold_against_plain(torch, model, reqs[0])
     return model, cfg, reqs[0], launches
 
 
@@ -889,7 +919,8 @@ def phase_profile(torch, model, cfg, req, gpu, steps=2):
     from kgdet_tpu_torch.models.families import get_head_family
     from kgdet_tpu_torch.ops.image import device_normalize
 
-    decode = get_head_family(cfg.head.type).make_decode(cfg, CANVAS)
+    canvas = tuple(req['image'].shape[1:3])
+    decode = get_head_family(cfg.head.type).make_decode(cfg, canvas)
     img = torch.as_tensor(req['image']).cuda()
     img_hw = torch.as_tensor(req['img_hw']).cuda()
     sf = torch.as_tensor(req['scale_factor']).cuda()
@@ -920,7 +951,8 @@ def phase_profile(torch, model, cfg, req, gpu, steps=2):
                                          steps)
     busy = sum(busy_ms.values())
     kind = 'plain versions' if model.backbone.plain_prefix else 'kernels'
-    print(f'profile ({kind}): {steps} batches of {B} under torch.profiler: '
+    print(f'profile ({kind}): {steps} batches of {len(img)} at '
+          f'{canvas[0]}x{canvas[1]} under torch.profiler: '
           f'{wall:.3f} ms per batch, device busy {busy:.3f} ms, idle share '
           f'{1 - busy / wall:.3f} ({gpu})', flush=True)
     print('  stage device span / busy ms per batch: ' + ', '.join(
@@ -1463,6 +1495,366 @@ def phase_train_profile(torch, model, cfg, optimizer, batch, gpu, steps=2):
     print_own_kernels(kern, steps, 'step')
 
 
+# ------------------------------------------------------------ phase 9: eval
+# 24 batches of 8, 12 on each canvas: a window of inference and evaluation
+# long enough that setup and the first calls do not set the rate
+EVAL_IMAGES = 192
+# (height, width) of the landscape images, in turn; the portrait ones are
+# these transposed. One in eight is exactly the 1333 x 800 scale, the rest
+# need a resize. The first 16 images hold every size in both orientations
+EVAL_SIZES = ((800, 1333), (600, 900), (480, 640), (720, 1280),
+              (1000, 1500), (375, 500), (768, 1024), (900, 1200))
+# two landscape and two portrait images, batches of 2 (the grouped loader,
+# as the JAX package's, cannot wrap-pad a group of fewer than half a batch)
+TTA_IMAGES = 4
+# the configured scale, half of it (inside the canvas buckets) and one
+# beyond every bucket (its canvas and predict function made on first use)
+TTA_SCALES = ('1333', '800', '667', '400', '1600', '960')
+
+
+def write_png(path, bgr):
+    """(H, W, 3) uint8 BGR -> an 8-bit RGB PNG, rows filtered None / Sub /
+    Up in turn (NumPy and zlib, so that the phase needs no OpenCV)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    rgb = np.ascontiguousarray(bgr[..., ::-1]).reshape(bgr.shape[0], -1)
+    rows, prev = [], np.zeros(rgb.shape[1], np.uint8)
+    for y, line in enumerate(rgb):
+        kind = y % 3
+        if kind == 1:
+            line_f = line - np.concatenate([np.zeros(3, np.uint8), line[:-3]])
+        elif kind == 2:
+            line_f = line - prev
+        else:
+            line_f = line
+        rows.append(bytes([kind]) + line_f.tobytes())
+        prev = line
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body +
+                struct.pack('>I', zlib.crc32(kind + body) & 0xFFFFFFFF))
+    with open(path, 'wb') as f:
+        f.write(b'\x89PNG\r\n\x1a\n' + chunk(b'IHDR', struct.pack(
+            '>IIBBBBB', bgr.shape[1], bgr.shape[0], 8, 2, 0, 0, 0)) +
+            chunk(b'IDAT', zlib.compress(b''.join(rows), 1)) +
+            chunk(b'IEND', b''))
+
+
+def make_eval_set(root, seed):
+    """A DeepFashion2-style validation set under ``root``:
+    validation-coco_style.json and validation/image/*.png, EVAL_IMAGES
+    images (half landscape, half portrait, EVAL_SIZES), 1 to 3 garments an
+    image with keypoints in their class's slice of the 294 and
+    num_keypoints, and a crowd region in every fourth image. The images are
+    smooth colour ramps with the garments as flat boxes and a little
+    noise."""
+    import numpy as np
+
+    from kgdet_tpu_torch.data.deepfashion2_meta import (
+        CLASS_KEYPOINT_RANGES, NUM_KEYPOINTS)
+
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, 'validation', 'image')
+    os.makedirs(img_dir)
+    images, anns = [], []
+    for i in range(EVAL_IMAGES):
+        h, w = EVAL_SIZES[i // 2 % len(EVAL_SIZES)]
+        if i % 2:
+            h, w = w, h
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = np.stack([xx * 255 // w, yy * 255 // h,
+                        (xx + yy) * 255 // (h + w)], -1).astype(np.int32)
+        name = f'{i + 1:06d}.png'
+        images.append({'id': i + 1, 'file_name': name, 'height': h,
+                       'width': w})
+        for _ in range(rng.randint(1, 4)):
+            bw, bh = rng.randint(w // 6, w // 2), rng.randint(h // 6, h // 2)
+            x0, y0 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+            img[y0:y0 + bh, x0:x0 + bw] = rng.randint(0, 256, 3)
+            cat = int(rng.randint(1, 14))
+            s, e = CLASS_KEYPOINT_RANGES[cat]
+            kp = np.zeros((NUM_KEYPOINTS, 3))
+            kp[s:e, 0] = rng.uniform(x0, x0 + bw, e - s).round(1)
+            kp[s:e, 1] = rng.uniform(y0, y0 + bh, e - s).round(1)
+            kp[s:e, 2] = rng.choice([0, 1, 2], e - s, p=[0.2, 0.4, 0.4])
+            anns.append({'id': len(anns) + 1, 'image_id': i + 1,
+                         'category_id': cat, 'iscrowd': 0,
+                         'bbox': [float(x0), float(y0), float(bw),
+                                  float(bh)], 'area': float(bw * bh),
+                         'keypoints': kp.reshape(-1).tolist(),
+                         'num_keypoints': int((kp[:, 2] > 0).sum())})
+        if i % 4 == 0:
+            anns.append({'id': len(anns) + 1, 'image_id': i + 1,
+                         'category_id': int(rng.randint(1, 14)),
+                         'iscrowd': 1, 'bbox': [0.0, 0.0, w / 4, h / 4],
+                         'area': w * h / 16, 'num_keypoints': 0,
+                         'keypoints': [0.0] * 3 * NUM_KEYPOINTS})
+        img += rng.randint(-4, 5, img.shape)
+        write_png(os.path.join(img_dir, name),
+                  np.clip(img, 0, 255).astype(np.uint8))
+    cats = [{'id': c, 'name': f'cls{c}'} for c in range(1, 14)]
+    with open(os.path.join(root, 'validation-coco_style.json'), 'w') as f:
+        json.dump({'images': images, 'annotations': anns,
+                   'categories': cats}, f)
+    return images, anns
+
+
+def eval_config(root, name):
+    """CONFIG with its data root at ``root`` and test.score_thr 0.0 (so the
+    evaluation has detections to score under random weights)."""
+    with open(CONFIG) as f:
+        text = f.read()
+    if "_DATA_ROOT = '/data/deepfashion2'" not in text:
+        fail('the cascade config no longer sets _DATA_ROOT')
+    text = text.replace("_DATA_ROOT = '/data/deepfashion2'",
+                        f'_DATA_ROOT = {root!r}')
+    text += ('\nimport dataclasses\nconfig = config.replace(test='
+             'dataclasses.replace(config.test, score_thr=0.0))\n')
+    path = os.path.join(root, name)
+    with open(path, 'w') as f:
+        f.write(text)
+    return path
+
+
+def run_cli(argv):
+    """tools/test.py's main in this process; returns its result and what
+    it printed (echoed here)."""
+    import contextlib
+    import io
+
+    from kgdet_tpu_torch.tools import test as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = cli.main(argv)
+    print(buf.getvalue(), end='', flush=True)
+    return out, buf.getvalue()
+
+
+def copypaste(printed, iou_type, n):
+    import math
+    lines = [ln for ln in printed.splitlines()
+             if ln.startswith(f'{iou_type}_mAP_copypaste: ')]
+    if len(lines) != 1:
+        fail(f'{len(lines)} {iou_type}_mAP_copypaste lines')
+    vals = [float(v) for v in lines[0].split(': ', 1)[1].split()]
+    if len(vals) != n or not all(math.isfinite(v) for v in vals):
+        fail(f'{iou_type}_mAP_copypaste: {vals}, want {n} finite numbers')
+    return vals
+
+
+def phase_eval(torch, gpu, per_fwd):
+    """The evaluation path at full width: a synthetic DeepFashion2-style
+    validation set as PNGs, the evaluator on its own ground truth, the
+    model on its kernels against on their plain versions at batch 8 on both
+    canvases, the CLI tools/test.py in-process (launch counts per batch,
+    both JSON files, the copypaste lines), run_inference against a direct
+    predict call, and multi-scale / flip TTA on a subset."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from kgdet_tpu_torch.api import init_detector, make_predict_fn
+    from kgdet_tpu_torch.config import load_config
+    from kgdet_tpu_torch.data import image_io
+    from kgdet_tpu_torch.data.dataset import DeepFashion2Dataset
+    from kgdet_tpu_torch.data.loader import DataLoader
+    from kgdet_tpu_torch.eval_loop import evaluate_results, run_inference
+
+    root = tempfile.mkdtemp(prefix='kgdet_eval_')
+    try:
+        t0 = time.perf_counter()
+        images, anns = make_eval_set(root, SEED)
+        cfg_path = eval_config(root, 'eval_cfg.py')
+        cfg = load_config(cfg_path)
+        data = cfg.val_data
+        print(f'eval: {len(images)} PNG images '
+              f'({sum(im["width"] > im["height"] for im in images)} '
+              f'landscape), {len(anns)} annotations '
+              f'({sum(a["iscrowd"] for a in anns)} crowd) written in '
+              f'{time.perf_counter() - t0:.1f} s; image_io backend '
+              f'{image_io.BACKEND}; val_data batch {data.batch_size}, '
+              f'canvases {data.canvas_hw}, img_scale {data.img_scale}; '
+              f'test.score_thr set to 0.0', flush=True)
+        dataset = DeepFashion2Dataset(data, train=False)
+
+        # the evaluator on its own ground truth: all-area AP 1
+        gt = {}
+        for a in anns:
+            if a['iscrowd']:
+                continue
+            x, y, w, h = a['bbox']
+            gt.setdefault(a['image_id'], []).append(
+                ([x, y, x + w - 1, y + h - 1, 1.0],
+                 dataset.cat_ids.index(a['category_id']), a['keypoints']))
+        results = {i: (np.asarray([g[0] for g in v], np.float32),
+                       np.asarray([g[1] for g in v]),
+                       np.asarray([g[2] for g in v], np.float32))
+                   for i, v in gt.items()}
+        stats, _ = evaluate_results(results, dataset,
+                                    os.path.join(root, 'gt'), verbose=False)
+        print(f'eval: ground truth as detections, all-area AP bbox '
+              f'{stats["bbox"]["AP"]:.4f}, keypoints '
+              f'{stats["keypoints"]["AP"]:.4f}', flush=True)
+        for k in ('bbox', 'keypoints'):
+            if stats[k]['AP'] != 1.0:
+                fail(f'ground truth as detections: {k} AP {stats[k]}')
+
+        # host data alone: read, resize, pad, collate, one thread; the
+        # first batch of each canvas kept
+        t0 = time.perf_counter()
+        firsts, n_batches_data = {}, 0
+        for batch in DataLoader(dataset, data.batch_size, train=False,
+                                num_workers=0):
+            firsts.setdefault(tuple(batch['image'].shape[1:3]), batch)
+            n_batches_data += 1
+        data_ms = 1e3 * (time.perf_counter() - t0) / n_batches_data
+        if sorted(firsts) != sorted(map(tuple, data.canvas_hw)):
+            fail(f'batch canvases {sorted(firsts)}, want both of '
+                 f'{data.canvas_hw}')
+        img_ms = own_ms = 1e3 * (time.perf_counter() - t0) / len(dataset)
+        if image_io.cv2 is not None:
+            # the port's own PNG reader and resize (what runs where OpenCV
+            # is absent) on the first 16 images, every size in both
+            # orientations: the same samples, bit for bit
+            n = min(16, len(dataset))
+            t0 = time.perf_counter()
+            ref = [dataset.prepare_test(i) for i in range(n)]
+            img_ms = 1e3 * (time.perf_counter() - t0) / n
+            opencv, image_io.cv2 = image_io.cv2, None
+            try:
+                t0 = time.perf_counter()
+                own = [dataset.prepare_test(i) for i in range(n)]
+                own_ms = 1e3 * (time.perf_counter() - t0) / n
+            finally:
+                image_io.cv2 = opencv
+            for i, (a, b) in enumerate(zip(ref, own)):
+                for k in a:
+                    if not np.array_equal(a[k], b[k]):
+                        fail(f'the NumPy image path differs from cv2 '
+                             f'{opencv.__version__} in {k} of sample {i}')
+            print(f'eval: the NumPy image path gives the samples of cv2 '
+                  f'{opencv.__version__} bit for bit on {n} images; an '
+                  f'image: {img_ms:.1f} ms with cv2, {own_ms:.1f} ms with '
+                  f'NumPy', flush=True)
+
+        # the model on its kernels against on their plain versions, on the
+        # first batch of 8 of each canvas
+        model = init_detector(cfg).model
+        for (h, w), batch in sorted(firsts.items()):
+            hold_against_plain(torch, model, batch,
+                               f'eval batch {data.batch_size} {h}x{w}: ')
+
+        # the CLI, in-process, on the card
+        prefix = os.path.join(root, 'results')
+        torch.cuda.synchronize()
+        reset_launches()
+        out, printed = run_cli([cfg_path, '--json-out', prefix])
+        got = read_launches()
+        n_batches = out['timings']['batches']
+        want = {k: v * n_batches for k, v in per_fwd.items()}
+        print(f'eval: CLI launches {got} over {n_batches} batches of '
+              f'{data.batch_size}', flush=True)
+        if n_batches != n_batches_data or got != want:
+            fail(f'CLI launches {got} != {want} for {n_batches_data} '
+                 f'batches')
+        ids = sorted(r['id'] for r in images)
+        if sorted(out['results']) != ids:
+            fail('the CLI results do not hold every image once')
+        for k in ('bbox', 'keypoints'):
+            if not os.path.isfile(out['files'][k]):
+                fail(f'{out["files"][k]} was not written')
+        copypaste(printed, 'bbox', 12)
+        copypaste(printed, 'keypoints', 10)
+        n_dets = sum(len(r[0]) for r in out['results'].values())
+        if n_dets == 0:
+            fail('the CLI scored no detection')
+
+        # the loop adds nothing: run_inference's detections of a batch are
+        # the predict function's, cut by valid
+        canvas, first = next(iter(firsts.items()))
+        dets = make_predict_fn(model, cfg, canvas)(first)
+        timings = {}
+        loop = run_inference(model, cfg, DataLoader(
+            dataset, data.batch_size, train=False), verbose=False,
+            timings=timings)
+        for i, img_id in enumerate(first['img_id'].tolist()):
+            v = dets['valid'][i].cpu().numpy()
+            direct = [dets[k][i].cpu().numpy()[v]
+                      for k in ('det_bboxes', 'det_labels', 'det_kpts')]
+            for a, b in zip(loop[img_id], direct):
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    fail(f'run_inference differs from the predict call on '
+                         f'image {img_id}')
+        print(f'eval: run_inference bit-equal to make_predict_fn on the '
+              f'{len(first["img_id"])} images of the first batch', flush=True)
+        phase_profile(torch, model, cfg, first, gpu)
+        del model
+        torch.cuda.empty_cache()
+
+        # multi-scale / flip TTA on a subset
+        with open(os.path.join(root, 'validation-coco_style.json')) as f:
+            coco = json.load(f)
+        keep = {im['id'] for im in coco['images'][:TTA_IMAGES]}
+        coco['images'] = [im for im in coco['images'] if im['id'] in keep]
+        coco['annotations'] = [a for a in coco['annotations']
+                               if a['image_id'] in keep]
+        with open(os.path.join(root, 'subset.json'), 'w') as f:
+            json.dump(coco, f)
+        tta_cfg = eval_config(root, 'tta_cfg.py')
+        with open(tta_cfg, 'a') as f:
+            f.write("config = config.replace(val_data=dataclasses.replace("
+                    "config.val_data, ann_file=_DATA_ROOT + "
+                    "'/subset.json'))\n")
+        t0 = time.perf_counter()
+        reset_launches()
+        tta, printed = run_cli([tta_cfg, '--aug', '--aug-scales',
+                                *TTA_SCALES, '--batch-size', '2',
+                                '--json-out', os.path.join(root, 'tta')])
+        tta_s = time.perf_counter() - t0
+        copypaste(printed, 'bbox', 12)
+        if sorted(tta['results']) != sorted(keep):
+            fail('TTA results do not hold every image of the subset once')
+        subset = DeepFashion2Dataset(load_config(tta_cfg).val_data,
+                                     train=False)
+        # each (long, short) pair of TTA_SCALES plain and flipped
+        variants = len(TTA_SCALES) // 2 * 2
+        tta_batches = variants * len(DataLoader(subset, 2, train=False))
+        want = {k: v * tta_batches for k, v in per_fwd.items()}
+        if read_launches() != want:
+            fail(f'TTA launches {read_launches()} != {want} for '
+                 f'{tta_batches} batches')
+        print(f'eval: TTA over {TTA_IMAGES} images, batch 2, at scales '
+              f'{" ".join(TTA_SCALES)} with flips: {tta_s:.1f} s, '
+              f'{tta_batches} batches, launches {read_launches()}',
+              flush=True)
+
+        t = out['timings']
+        n = t['images']
+        cli_ms = 1e3 * t['predict_s'] / n_batches
+        print(f'eval: {len(images)} images in {n_batches} batches '
+              f'({n} with the wrap-padding); host data '
+              f'{data_ms:.1f} ms a batch (read, resize, pad, collate; one '
+              f'thread, {image_io.BACKEND}; an image {img_ms:.1f} ms, '
+              f'{own_ms:.1f} with NumPy); predict '
+              f'{1e3 * timings["predict_s"] / timings["batches"]:.1f} ms a '
+              f'batch (warm; the CLI run {cli_ms:.1f} with the first '
+              f'calls), waiting for data '
+              f'{1e3 * t["data_s"] / n_batches:.1f} ms a batch; CLI wall '
+              f'{t["wall_s"]:.2f} s (setup '
+              f'{t["setup_s"]:.2f}, inference {t["infer_s"]:.2f}, '
+              f'evaluation {t["eval_s"]:.2f}): inference '
+              f'{len(images) / t["infer_s"]:.2f} img/s, evaluation '
+              f'{len(images) / t["eval_s"]:.2f} img/s, wall '
+              f'{len(images) / t["wall_s"]:.2f} img/s ({gpu})', flush=True)
+        return got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     # prove that nothing of JAX or of the JAX package is needed: any import
     # of them now fails
@@ -1523,6 +1915,12 @@ def main():
     model, cfg, optimizer, batch, launches['serial_training'] = \
         phase_serial_training(torch, gpu)
     phase_train_profile(torch, model, cfg, optimizer, batch, gpu)
+    del model, optimizer
+    torch.cuda.empty_cache()
+
+    # the evaluation path: dataset, loader, the CLI, TTA
+    launches['eval'] = phase_eval(
+        torch, gpu, launch_counts(deform_fused=12, **prefix))
 
     src = 'kgdet_tpu_torch/csrc/'
     ref = 'kgdet_tpu/ops/'

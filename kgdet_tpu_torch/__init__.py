@@ -5,7 +5,9 @@ A port of ``kgdet_tpu`` (the JAX/Pallas reference, which stays beside it).
 Each module sits at the same path as its JAX counterpart. The package imports
 ``torch`` and never ``jax``, ``flax`` or anything of ``kgdet_tpu``: it keeps
 its own copies of the config dataclasses, the DeepFashion2 metadata, the
-host-side image transforms and the .pth loader.
+host-side transforms, dataset and loader, the COCO evaluator and the .pth
+loader; images are read and resized with OpenCV where it imports and with
+the package's own NumPy code where it does not (data/image_io.py).
 
 Kernel wrappers (ops/deform_kernels.py, ops/stem_kernels.py, ops/resblock.py)
 run their plain PyTorch version on CPU tensors and their CUDA kernel on CUDA

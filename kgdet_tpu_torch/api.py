@@ -1,8 +1,10 @@
 """High-level API: build / init detectors, batch predict functions and
 trainers.
 
-Port of kgdet_tpu/api.py (build_model, init_detector, Detector,
-make_predict_fn) plus ``init_trainer``. ``predict(batch)`` returns the same
+Port of kgdet_tpu/api.py (build_model, init_detector, Detector with its
+multi-scale / flip ``aug_call``, inference_detector, make_predict_fn) plus
+``make_raw_predict_fn`` (the pre-NMS decode of test-time augmentation) and
+``init_trainer``. ``predict(batch)`` returns the same
 padded dict as the JAX package's ``eval_loop.make_predict_fns``: det_bboxes
 (B, M, 5), det_labels (B, M), det_kpts (B, M, K*3), valid (B, M).
 
@@ -55,14 +57,54 @@ def make_predict_fn(model: KGDetDetector, cfg: KGDetConfig, canvas_hw):
 
     @torch.inference_mode()
     def predict(batch):
-        dev = next(model.parameters()).device
-        feed = {k: torch.as_tensor(batch[k]).to(dev)
-                for k in ('image', 'img_hw', 'scale_factor')}
-        image = device_normalize(feed['image'], feed['img_hw'])
-        outs = model(image)
+        feed, outs = _forward(model, batch)
         return decode(outs, feed['img_hw'].float(),
                       feed['scale_factor'].float())
     return predict
+
+
+def _forward(model, batch):
+    """The batch's tensors on the model's device and the head outputs."""
+    dev = next(model.parameters()).device
+    feed = {k: torch.as_tensor(batch[k]).to(dev)
+            for k in ('image', 'img_hw', 'scale_factor')}
+    return feed, model(device_normalize(feed['image'], feed['img_hw']))
+
+
+def make_raw_predict_fn(model: KGDetDetector, cfg: KGDetConfig, canvas_hw):
+    """predict(batch) -> (bboxes (B, N, 4), scores (B, N, C), kpts
+    (B, N, K*3)): the decode before NMS, in original-image coordinates,
+    which test-time augmentation merges over its variants before one NMS
+    (core/postprocess.py::decode_raw)."""
+    from kgdet_tpu_torch.core.postprocess import decode_raw
+    from kgdet_tpu_torch.models.families import level_grids
+    grids = {}                      # the static level grids, once a device
+
+    @torch.inference_mode()
+    def predict(batch):
+        feed, outs = _forward(model, batch)
+        dev = feed['img_hw'].device
+        if dev not in grids:
+            grids[dev] = level_grids(cfg, tuple(canvas_hw), device=dev)
+        return decode_raw(outs, grids[dev], feed['img_hw'].float(),
+                          feed['scale_factor'].float(), cfg.test,
+                          num_keypts=cfg.head.num_keypts)
+    return predict
+
+
+def _canvas_for(data, rh: int, rw: int):
+    """The smallest configured canvas that holds a resized (rh, rw) image
+    (least padded area); a /size_divisor-rounded one where none does."""
+    fitting = [c for c in data.canvas_hw if c[0] >= rh and c[1] >= rw]
+    if fitting:
+        return tuple(min(fitting, key=lambda c: c[0] * c[1]))
+    div = data.size_divisor
+    return (-(-rh // div) * div, -(-rw // div) * div)
+
+
+def _read(img):
+    from kgdet_tpu_torch.data.image_io import imread
+    return imread(img) if isinstance(img, str) else img
 
 
 class Detector:
@@ -73,6 +115,7 @@ class Detector:
         self.cfg = cfg
         self.model = model
         self._predict_fns = {}
+        self._raw_predict_fns = {}
 
     def _predict_for(self, canvas):
         if canvas not in self._predict_fns:
@@ -84,26 +127,16 @@ class Detector:
         """img: BGR uint8 (H, W, 3) array or image path. Returns (dets (N, 5)
         xyxy+score, labels (N,), kpts (N, K, 3)) in original image
         coordinates."""
-        import cv2
-
         from kgdet_tpu_torch.data.transforms import (
             imnormalize, imrescale, pad_to_canvas)
 
-        if isinstance(img, str):
-            path, img = img, cv2.imread(img)
-            if img is None:
-                raise FileNotFoundError(path)
+        img = _read(img)
         data = self.cfg.val_data
         resized, sf = imrescale(img, data.img_scale)
         rh, rw = resized.shape[:2]
-        fitting = [c for c in data.canvas_hw if c[0] >= rh and c[1] >= rw]
-        if fitting:
-            canvas = min(fitting, key=lambda c: c[0] * c[1])
-        else:
-            div = data.size_divisor
-            canvas = (-(-rh // div) * div, -(-rw // div) * div)
+        canvas = _canvas_for(data, rh, rw)
         x = pad_to_canvas(imnormalize(resized).astype(np.float32), canvas)
-        dets = self._predict_for(tuple(canvas))({
+        dets = self._predict_for(canvas)({
             'image': x[None],
             'img_hw': np.asarray([[rh, rw]], np.float32),
             'scale_factor': np.asarray([sf], np.float32),
@@ -114,6 +147,63 @@ class Detector:
         kpts = dets['det_kpts'][0].cpu().numpy()[valid].reshape(
             -1, self.cfg.head.num_keypts, 3)
         return boxes, labels, kpts
+
+    def _raw_predict_for(self, canvas):
+        """The pre-NMS decode for one canvas (the TTA merge path)."""
+        if canvas not in self._raw_predict_fns:
+            self._raw_predict_fns[canvas] = make_raw_predict_fn(
+                self.model, self.cfg, canvas)
+        return self._raw_predict_fns[canvas]
+
+    def aug_call(self, img, scales=None, flip=True, score_thr=None):
+        """Multi-scale / flip test-time augmentation (boxes only).
+
+        Reference merge order (reppoints_detector_kp.py:93-148): the raw
+        pre-NMS boxes of every variant, mapped back to original
+        coordinates, are concatenated and suppressed by ONE multiclass NMS;
+        keypoints are dropped in aug mode. Returns (dets (N, 5), labels
+        (N,))."""
+        from kgdet_tpu_torch.data.transforms import (
+            imnormalize, imrescale, pad_to_canvas)
+        from kgdet_tpu_torch.ops.nms import multiclass_nms_kp
+
+        img = _read(img)
+        data = self.cfg.val_data
+        scales = [tuple(s) for s in (scales or [data.img_scale])]
+        all_boxes, all_scores = [], []
+        for scale in scales:
+            for do_flip in ([False, True] if flip else [False]):
+                resized, sf = imrescale(img, scale)
+                rh, rw = resized.shape[:2]
+                if do_flip:
+                    resized = resized[:, ::-1]
+                canvas = _canvas_for(data, rh, rw)
+                x = pad_to_canvas(
+                    imnormalize(np.ascontiguousarray(resized)).astype(
+                        np.float32), canvas)
+                bboxes, sc, _ = self._raw_predict_for(canvas)({
+                    'image': x[None],
+                    'img_hw': np.asarray([[rh, rw]], np.float32),
+                    'scale_factor': np.asarray([sf], np.float32),
+                })
+                b = bboxes[0].cpu().numpy()
+                if do_flip:
+                    lim = (rw - 1) / sf
+                    b = b.copy()
+                    b[:, [0, 2]] = lim - b[:, [2, 0]]
+                all_boxes.append(b)
+                all_scores.append(sc[0].cpu().numpy())
+        dev = next(self.model.parameters()).device
+        boxes = torch.from_numpy(np.concatenate(all_boxes)).to(dev)
+        scores = torch.from_numpy(np.concatenate(all_scores)).to(dev)
+        t = self.cfg.test
+        det_b, det_l, _, valid = multiclass_nms_kp(
+            boxes, scores, boxes.new_zeros((len(boxes), 3)),
+            score_thr if score_thr is not None else t.score_thr,
+            t.nms_iou_thr, max_per_class=t.max_per_class,
+            max_per_img=t.max_per_img)
+        v = valid.cpu().numpy()
+        return det_b.cpu().numpy()[v], det_l.cpu().numpy()[v]
 
 
 def init_detector(cfg_or_path, checkpoint=None, pth: Optional[str] = None,
@@ -139,6 +229,11 @@ def init_detector(cfg_or_path, checkpoint=None, pth: Optional[str] = None,
         model.load_state_dict(state_dict_from_jax(jax_variables),
                               strict=True)
     return Detector(cfg, model.to(device).eval())
+
+
+def inference_detector(detector: Detector, img):
+    """Functional alias matching the reference API name."""
+    return detector(img)
 
 
 def init_trainer(cfg_or_path, canvas_hw, steps_per_epoch: int, device=None):
