@@ -91,6 +91,24 @@ images (scales at, below and beyond the canvas buckets). Prints the
 image_io backend, host data and predict ms a batch, the CLI's setup,
 inference and evaluation seconds, and its img/s over the inference window,
 the evaluation and the whole run.
+Phase 10: the training loop at full width on the cascade config, train_data
+as shipped (batch 8, flip_ratio 0.5, both canvases), on 128 synthetic
+training PNGs (16 steps an epoch) and 64 validation PNGs: tools/train.py
+in-process for one epoch; again with --resume --max-epochs 1, which
+restores and trains nothing (step, epoch, model and momentum bit-equal to
+the save, the next learning rate schedule(16), epoch 2's first batch as an
+uninterrupted run draws it); again with --resume for epoch 2 and
+--validate (launches K2 2 / K3 2 / K4 1 / K5 3 a step and K1 12 / K4 1 /
+K5 3 an evaluation batch, finite log records, frozen parameters bit-equal,
+a free one moved); tools/test.py --checkpoint on the last step equal to the
+last --validate and bit-equal to the runner model's detections; the
+Function over K2+K3 on a step's tensors at batch 8 on both canvases.
+Prints the loop's img/s by log interval from the runner's own records (no
+synchronize but the interval's) over the second epoch of a run of its own
+on the training PNGs listed 4 times (64 steps an epoch), beside the
+loader's rate alone and the step's alone on a batch on the card, host data ms a batch on one thread,
+peak memory, the checkpoint's size and save / restore seconds, and the
+step of 8 by stage on each canvas.
 
 Prints the card's name and power limit, one line per check, a JSON line of
 the seven kernels (launches on each main path, the evaluation CLI's
@@ -229,8 +247,9 @@ def device_profile(fn, reps=10, names=None):
     recordings in quick succession now and then come back with device
     records missing, at a recording's edges more than inside it: the calls
     are bracketed by four short spin kernels on each side, which are not
-    counted, and a recording counts when it holds the port's kernels in a
-    multiple of ``reps``, else it is taken again."""
+    counted, and a recording counts when it holds the port's kernels and
+    all device activities each in a multiple of ``reps`` (every call puts
+    the same ones on the device), else it is taken again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -252,7 +271,7 @@ def device_profile(fn, reps=10, names=None):
                and 'spin_kernel' not in e.name]
         own = [e.time_range.end - e.time_range.start for e in dev
                if 'kgdet::' in e.name]
-        if own and len(own) % reps == 0:
+        if own and len(own) % reps == 0 and len(dev) % reps == 0:
             if names is not None:
                 names['own'] = sorted({short_name(e.name) for e in dev
                                        if 'kgdet::' in e.name})
@@ -386,8 +405,8 @@ def phase_kernels(torch, gen):
     def randn(*shape, std=1.0):
         return (torch.randn(shape, generator=gen) * std).to(dev)
 
-    def rand_pos(H, W, P, K):       # up to 2 cells outside the map
-        pos = torch.rand((B, P, K, 2), generator=gen).to(dev)
+    def rand_pos(H, W, P, K, b=B):  # up to 2 cells outside the map
+        pos = torch.rand((b, P, K, 2), generator=gen).to(dev)
         return pos * torch.tensor([H + 4.0, W + 4.0], device=dev) - 2.0
 
     def near_pos(H, W, K):          # every tap near its own pixel
@@ -520,6 +539,32 @@ def phase_kernels(torch, gen):
     print(f'K3 yardstick backward of F.grid_sample ({lib_dtype}): uniform '
           f'taps {lib_bwd_ms:.4f} ms, near taps {near_bwd_ms:.4f} ms',
           flush=True)
+
+    # K2 and K3 at the training loop's shapes on the portrait canvas: batch
+    # 8 (the shipped train_data.batch_size), the 1344x800 canvas's 42x25
+    # map at stride 32
+    B8, H8, W8 = 8, 42, 25
+    P8 = H8 * W8
+    cls8, pts8 = randn(B8, H8, W8, C), randn(B8, H8, W8, C)
+    pos8 = rand_pos(H8, W8, P8, K, b=B8)
+    name = f'K2 deform_sample_split batch {B8} map {H8}x{W8}'
+    m, a16 = check_pair(
+        name, dk.deform_sample_split, dk.deform_sample_split_ref,
+        [cls8, pts8, pos8, taps],
+        lambda a: [a[0].to(torch.bfloat16), a[1].to(torch.bfloat16), a[2],
+                   a[3]])
+    one_launch(name, m)
+    results['deform_sample_split']['b8_42x25'] = entry(m, *bound(
+        nbytes(*a16[:3]) + out_bytes(dk.deform_sample_split, a16),
+        7 * B8 * P8 * K * 2 * C, 'f32'))
+    del a16
+    cat8 = torch.cat([cls8, pts8], dim=-1)
+    del cls8, pts8
+    g8 = randn(B8, P8, K, 2 * C)
+    results['deform_sample_bwd']['b8_42x25'] = check_bwd(
+        f'batch {B8} map {H8}x{W8}, uniform taps', cat8, pos8, g8, None)
+    del cat8, pos8, g8
+    torch.cuda.empty_cache()
 
     # the serial family's five levels, 9 taps a pixel: K1 (serving: the cls
     # and the pts branch of a level), K6 (training forward) and K3 (its
@@ -692,7 +737,8 @@ def phase_kernels(torch, gen):
               f'(wrapper calls {r["ms"]:.4f} ms, kernel on the device '
               f'{r["device_ms"]:.4f} ms, per forward or step of batch {B})',
               flush=True)
-        for case in ('near', 'serial', 'serial_near', 'width128'):
+        for case in ('near', 'b8_42x25', 'serial', 'serial_near',
+                     'width128'):
             if case in r:
                 q = r[case]
                 print(f'bound {name}, {case}: {q["bound_ms"]:.4f} ms by '
@@ -874,7 +920,8 @@ def stage_times(prof, stages, span_device, steps):
     for s0, s1, name in spans:
         span_ms[name] += (s1 - s0) / 1e3 / steps
     for e in events:
-        if e.device_type != DeviceType.CUDA or e.name in stages:
+        if e.device_type != DeviceType.CUDA or e.name in stages \
+                or 'spin_kernel' in e.name:
             continue
         ms = (e.time_range.end - e.time_range.start) / 1e3 / steps
         mid = (e.time_range.start + e.time_range.end) / 2
@@ -1424,8 +1471,10 @@ TRAIN_STAGES = ('normalize', 'fwd_backbone', 'fwd_neck', 'fwd_head',
                 'loss_targets', 'backward', 'optimizer')
 
 
-def phase_train_profile(torch, model, cfg, optimizer, batch, gpu, steps=2):
-    """The train step by stage. Each stage ends in a synchronize inside its
+def phase_train_profile(torch, model, cfg, optimizer, batch, gpu, steps=2,
+                        canvas=CANVAS):
+    """The train step by stage, on ``batch`` padded to ``canvas``. Each
+    stage ends in a synchronize inside its
     labelled range, so every kernel falls into the host range of its stage
     (the backward's kernels are launched from the autograd thread): per
     stage the host span (launch overhead included) and the device busy time.
@@ -1439,7 +1488,7 @@ def phase_train_profile(torch, model, cfg, optimizer, batch, gpu, steps=2):
         BATCH_KEYS, batch_valid_flags, build_level_geometry, compute_loss)
 
     feed = {k: torch.as_tensor(batch[k]).cuda() for k in BATCH_KEYS}
-    grids = build_level_geometry(cfg, CANVAS, device='cuda')
+    grids = build_level_geometry(cfg, canvas, device='cuda')
 
     stage = record_function
 
@@ -1458,9 +1507,9 @@ def phase_train_profile(torch, model, cfg, optimizer, batch, gpu, steps=2):
             outs = model.bbox_head(feats)
             sync()
         with stage('loss_targets'):
-            valids = batch_valid_flags(cfg, CANVAS, feed['valid_hw'])
+            valids = batch_valid_flags(cfg, canvas, feed['valid_hw'])
             total, _ = compute_loss(outs, grids, valids, feed, cfg,
-                                    canvas_hw=CANVAS)
+                                    canvas_hw=canvas)
             sync()
         with stage('backward'):
             total.backward()
@@ -1478,14 +1527,22 @@ def phase_train_profile(torch, model, cfg, optimizer, batch, gpu, steps=2):
     wall = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # short spin kernels, not counted, at the recording's edges, where
+        # device records get lost (device_profile)
+        for _ in range(4):
+            torch.cuda._sleep(1000)
         for _ in range(steps):
             run(torch.cuda.synchronize)
+        for _ in range(4):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
     span_ms, busy_ms, kern = stage_times(prof, TRAIN_STAGES, DeviceType.CPU,
                                          steps)
     busy = sum(busy_ms.values())
     if busy <= 0:
         fail('the profiler saw no device time in the train step')
-    print(f'train profile: {steps} steps of {B}: {wall:.3f} ms per step '
+    print(f'train profile: {steps} steps of {len(feed["image"])} at '
+          f'{canvas[0]}x{canvas[1]}: {wall:.3f} ms per step '
           f'unprofiled, device busy {busy:.3f} ms, idle share '
           f'{1 - busy / wall:.3f} ({gpu})', flush=True)
     print('  stage host span (synchronized) / device busy ms per step: '
@@ -1512,41 +1569,10 @@ TTA_IMAGES = 4
 TTA_SCALES = ('1333', '800', '667', '400', '1600', '960')
 
 
-def write_png(path, bgr):
-    """(H, W, 3) uint8 BGR -> an 8-bit RGB PNG, rows filtered None / Sub /
-    Up in turn (NumPy and zlib, so that the phase needs no OpenCV)."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    rgb = np.ascontiguousarray(bgr[..., ::-1]).reshape(bgr.shape[0], -1)
-    rows, prev = [], np.zeros(rgb.shape[1], np.uint8)
-    for y, line in enumerate(rgb):
-        kind = y % 3
-        if kind == 1:
-            line_f = line - np.concatenate([np.zeros(3, np.uint8), line[:-3]])
-        elif kind == 2:
-            line_f = line - prev
-        else:
-            line_f = line
-        rows.append(bytes([kind]) + line_f.tobytes())
-        prev = line
-
-    def chunk(kind, body):
-        return (struct.pack('>I', len(body)) + kind + body +
-                struct.pack('>I', zlib.crc32(kind + body) & 0xFFFFFFFF))
-    with open(path, 'wb') as f:
-        f.write(b'\x89PNG\r\n\x1a\n' + chunk(b'IHDR', struct.pack(
-            '>IIBBBBB', bgr.shape[1], bgr.shape[0], 8, 2, 0, 0, 0)) +
-            chunk(b'IDAT', zlib.compress(b''.join(rows), 1)) +
-            chunk(b'IEND', b''))
-
-
-def make_eval_set(root, seed):
-    """A DeepFashion2-style validation set under ``root``:
-    validation-coco_style.json and validation/image/*.png, EVAL_IMAGES
-    images (half landscape, half portrait, EVAL_SIZES), 1 to 3 garments an
+def make_eval_set(root, seed, n_images=EVAL_IMAGES, split='validation'):
+    """A DeepFashion2-style set under ``root``: {split}-coco_style.json and
+    {split}/image/*.png, ``n_images`` images (half landscape, half
+    portrait, EVAL_SIZES), 1 to 3 garments an
     image with keypoints in their class's slice of the 294 and
     num_keypoints, and a crowd region in every fourth image. The images are
     smooth colour ramps with the garments as flat boxes and a little
@@ -1555,12 +1581,13 @@ def make_eval_set(root, seed):
 
     from kgdet_tpu_torch.data.deepfashion2_meta import (
         CLASS_KEYPOINT_RANGES, NUM_KEYPOINTS)
+    from kgdet_tpu_torch.data.image_io import write_png
 
     rng = np.random.RandomState(seed)
-    img_dir = os.path.join(root, 'validation', 'image')
+    img_dir = os.path.join(root, split, 'image')
     os.makedirs(img_dir)
     images, anns = [], []
-    for i in range(EVAL_IMAGES):
+    for i in range(n_images):
         h, w = EVAL_SIZES[i // 2 % len(EVAL_SIZES)]
         if i % 2:
             h, w = w, h
@@ -1596,7 +1623,7 @@ def make_eval_set(root, seed):
         write_png(os.path.join(img_dir, name),
                   np.clip(img, 0, 255).astype(np.uint8))
     cats = [{'id': c, 'name': f'cls{c}'} for c in range(1, 14)]
-    with open(os.path.join(root, 'validation-coco_style.json'), 'w') as f:
+    with open(os.path.join(root, f'{split}-coco_style.json'), 'w') as f:
         json.dump({'images': images, 'annotations': anns,
                    'categories': cats}, f)
     return images, anns
@@ -1855,6 +1882,428 @@ def phase_eval(torch, gpu, per_fwd):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------ phase 10: training
+# 64 landscape and 64 portrait images: 16 steps of the shipped batch of 8
+# an epoch, 8 on each canvas; 64 validation images: 8 batches of 8
+TRAIN_IMAGES = 128
+VAL_IMAGES = 64
+TRAIN_LOG_INTERVAL = 4
+# run 1 trains epoch 1; run 2 resumes, trains epoch 2 and validates
+TRAIN_EPOCHS = 2
+# the loop's rate: a run of its own on the training PNGs listed this many
+# times (64 steps an epoch), read over its second epoch after the first
+# interval. In a 16-step epoch no window is steady: the loader refills at
+# the epoch's start and has its queue full before the end (one run on an
+# H100 read 30.73, 55.71, 65.97, 93.37 img/s by interval of epoch 3)
+LOOP_REPEAT = 4
+# timed steps of the step alone on each canvas, after two warm ones
+STEP_ALONE = 8
+
+
+def run_train_cli(argv, eval_launches=None):
+    """tools/train.py's main in this process; returns the runner and what
+    it printed (echoed here). With ``eval_launches`` (a list), each
+    Runner.evaluate of the run appends the launches it made."""
+    import contextlib
+    import io
+
+    from kgdet_tpu_torch.runner import Runner
+    from kgdet_tpu_torch.tools import train as cli
+    evaluate = Runner.evaluate
+
+    def counted(self, *a, **kw):
+        before = read_launches()
+        out = evaluate(self, *a, **kw)
+        after = read_launches()
+        eval_launches.append({k: after[k] - before[k] for k in after})
+        return out
+    if eval_launches is not None:
+        Runner.evaluate = counted
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runner = cli.main(argv)
+    finally:
+        Runner.evaluate = evaluate
+        print(buf.getvalue(), end='', flush=True)
+    return runner, buf.getvalue()
+
+
+def repeat_train_set(root, times):
+    """A config on the training set under ``root`` with every image listed
+    ``times`` times (new image and annotation ids, the same files)."""
+    with open(os.path.join(root, 'train-coco_style.json')) as f:
+        coco = json.load(f)
+    n, m = len(coco['images']), len(coco['annotations'])
+    coco['images'] = [dict(im, id=r * n + im['id'])
+                      for r in range(times) for im in coco['images']]
+    coco['annotations'] = [dict(a, id=r * m + a['id'],
+                                image_id=r * n + a['image_id'])
+                           for r in range(times)
+                           for a in coco['annotations']]
+    with open(os.path.join(root, 'train_long-coco_style.json'), 'w') as f:
+        json.dump(coco, f)
+    path = eval_config(root, 'long_cfg.py')
+    with open(path, 'a') as f:
+        f.write("config = config.replace(train_data=dataclasses.replace("
+                "config.train_data, ann_file=_DATA_ROOT + "
+                "'/train_long-coco_style.json'))\n")
+    return path
+
+
+def loop_rates(recs, epoch, imgs):
+    """The img/s of each log interval of ``epoch`` (1-based) as the runner
+    recorded it (synchronized at the interval's end, nowhere else), the
+    rate over the whole epoch and over all its intervals but the first
+    (which holds the loader's refill)."""
+    rates = [r['imgs_per_sec'] for r in recs
+             if r['mode'] == 'train' and r['epoch'] == epoch]
+    secs = [imgs / r for r in rates]
+    return rates, len(rates) * imgs / sum(secs), \
+        (len(rates) - 1) * imgs / sum(secs[1:])
+
+
+def loader_rates(loader, epoch, skip):
+    """The training loader alone (its threads, no step) over ``epoch``:
+    img/s over the whole epoch and after its first ``skip`` batches."""
+    loader.set_epoch(epoch)
+    t = [time.perf_counter()]
+    for _ in loader:
+        t.append(time.perf_counter())
+    n, bs = len(t) - 1, loader.batch_size
+    return n * bs / (t[-1] - t[0]), (n - skip) * bs / (t[-1] - t[skip])
+
+
+def step_alone_ms(torch, model, cfg, optimizer, batch, canvas):
+    """ms a train step on a batch already on the card, over STEP_ALONE
+    steps after two warm ones, synchronized before and after the timed
+    steps only."""
+    from kgdet_tpu_torch.parallel.train import (
+        BATCH_KEYS, OPTIONAL_BATCH_KEYS, make_train_step)
+    step = make_train_step(model, cfg, canvas, optimizer)
+    feed = {k: torch.as_tensor(batch[k]).cuda()
+            for k in BATCH_KEYS + OPTIONAL_BATCH_KEYS if k in batch}
+    for _ in range(2):
+        step(feed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEP_ALONE):
+        step(feed)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / STEP_ALONE
+
+
+def stats_line(values):
+    return ' '.join(f'{v:.4f}' for v in values)
+
+
+def rates_line(values):
+    return ', '.join(f'{v:.2f}' for v in values)
+
+
+def phase_train_loop(torch, gpu, per_step, per_eval):
+    """The training loop at full width on the cascade config, train_data
+    as shipped (batch 8, flip_ratio 0.5, canvases 800x1344 and 1344x800):
+    tools/train.py for one epoch; again with --resume and --max-epochs 1,
+    which restores and trains nothing (the resume exact in state, step,
+    epoch, learning rate and batch order); again with --resume for epoch
+    2 and --validate; finite logs; launches per step and per
+    evaluation batch; the frozen prefix bit-equal and a free parameter
+    moved; tools/test.py --checkpoint equal to the runner's last
+    evaluation; K2+K3 against their plain versions on a step's tensors at
+    batch 8 on both canvases; the loop's rate over a long epoch against
+    the loader's and the step's alone; the step by stage at batch 8 on both canvases. Returns
+    (launches in training, launches in evaluation)."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from kgdet_tpu_torch.api import build_model, make_predict_fn
+    from kgdet_tpu_torch.config import load_config
+    from kgdet_tpu_torch.data.dataset import DeepFashion2Dataset
+    from kgdet_tpu_torch.data.loader import DataLoader, grouped_batch_indices
+    from kgdet_tpu_torch.parallel.train import (make_loss_fn,
+                                                make_lr_schedule)
+    from kgdet_tpu_torch.utils.checkpoint import FILE, load_params
+
+    root = tempfile.mkdtemp(prefix='kgdet_train_')
+    try:
+        t0 = time.perf_counter()
+        make_eval_set(root, SEED + 10, n_images=TRAIN_IMAGES, split='train')
+        make_eval_set(root, SEED + 11, n_images=VAL_IMAGES)
+        cfg_path = eval_config(root, 'train_cfg.py')
+        cfg = load_config(cfg_path)
+        data = cfg.train_data
+        print(f'train loop: {TRAIN_IMAGES} training and {VAL_IMAGES} '
+              f'validation PNGs written in {time.perf_counter() - t0:.1f} s; '
+              f'train_data batch {data.batch_size}, flip_ratio '
+              f'{data.flip_ratio}, canvases {data.canvas_hw}; '
+              f'{cfg.compute_dtype}; optimizer {cfg.optim.type} lr '
+              f'{cfg.optim.lr} warmup {cfg.optim.warmup_iters}', flush=True)
+        work = os.path.join(root, 'work')
+        args = [cfg_path, '--work-dir', work,
+                '--log-interval', str(TRAIN_LOG_INTERVAL)]
+
+        # run 1: one epoch
+        reset_launches()
+        runner1, _ = run_train_cli(args + ['--max-epochs', '1'])
+        train_launches = read_launches()
+        spe = runner1.steps_per_epoch
+        if spe != TRAIN_IMAGES // data.batch_size or runner1.step != spe:
+            fail(f'run 1: {runner1.step} steps, {spe} an epoch')
+        step1 = os.path.join(work, 'checkpoints', str(spe))
+        saved = load_params(step1)
+        saved_opt = torch.load(os.path.join(step1, FILE),
+                               weights_only=True)['optimizer']
+
+        # the resume alone: --resume --max-epochs 1 restores step 16 and
+        # trains nothing; its state, step, epoch, learning rate, batches
+        resumed, _ = run_train_cli(args + ['--resume', '--max-epochs', '1'])
+        if (resumed.step, resumed.epoch) != (spe, 1):
+            fail(f'the resume is at step {resumed.step}, epoch '
+                 f'{resumed.epoch}, not {spe}, 1')
+        live = runner1.model.state_dict()
+        restored = resumed.model.state_dict()
+        for k, v in restored.items():
+            if not (torch.equal(v.cpu(), saved[k])
+                    and torch.equal(v, live[k])):
+                fail(f'the resume restored {k} differently from what run 1 '
+                     'saved')
+        opt = resumed.optimizer.state_dict()
+        opt1 = runner1.optimizer.state_dict()
+        if opt['step_count'] != spe or saved_opt['step_count'] != spe:
+            fail(f'optimizer step_count {opt["step_count"]} after the '
+                 f'resume, {saved_opt["step_count"]} saved')
+        for k, v in opt['momentum'].items():
+            if not (torch.equal(v.cpu(), saved_opt['momentum'][k])
+                    and torch.equal(v, opt1['momentum'][k])):
+                fail(f'the resume restored the momentum of {k} differently')
+        want_lr = make_lr_schedule(cfg, spe)(spe)
+        first_lr = resumed.optimizer.schedule(opt['step_count'])
+        if first_lr != want_lr:
+            fail(f'the resumed optimizer steps at lr {first_lr}, not '
+                 f'schedule({spe}) = {want_lr}')
+        resumed.train_loader.set_epoch(resumed.epoch)
+        got = resumed.train_loader._epoch_batches()[0]
+        runner1.train_loader.set_epoch(1)
+        uninterrupted = runner1.train_loader._epoch_batches()[0]
+        drawn = grouped_batch_indices(resumed.train_dataset.flags,
+                                      data.batch_size, 1, cfg.seed)[0]
+        if not (np.array_equal(got, uninterrupted)
+                and np.array_equal(got, drawn)):
+            fail(f'the resume draws {got} first, an uninterrupted run '
+                 f'{uninterrupted}')
+        print(f'train loop: the resume is at step {resumed.step}, epoch '
+              f'{resumed.epoch}; {len(restored)} tensors of the model and '
+              f'{len(opt["momentum"])} momentum buffers bit-equal to what '
+              f'run 1 saved and held; first lr schedule({spe}) = '
+              f'{first_lr:g}; first batch of epoch 2 {got.tolist()}, as an '
+              f'uninterrupted run draws it', flush=True)
+        del resumed, restored, opt
+
+        # run 2: --resume, epochs 2 and 3, --validate after each
+        evals = []
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        runner2, printed = run_train_cli(
+            args + ['--resume', '--max-epochs', str(TRAIN_EPOCHS),
+                    '--validate'], evals)
+        peak = torch.cuda.max_memory_allocated()
+        total = read_launches()
+        if runner2.step != TRAIN_EPOCHS * spe or \
+                f'resumed from step {spe} (epoch 1)' not in printed:
+            fail(f'run 2 did not resume at step {spe} and end at '
+                 f'{TRAIN_EPOCHS * spe} (step {runner2.step})')
+        for k in total:
+            train_launches[k] += total[k] - sum(e[k] for e in evals)
+
+        # logs, launches, frozen and free parameters
+        with open(os.path.join(work, 'train_log.jsonl')) as f:
+            recs = [json.loads(line) for line in f]
+        train_recs = [r for r in recs if r['mode'] == 'train']
+        val_recs = [r for r in recs if r['mode'] == 'val']
+        if len(train_recs) != TRAIN_EPOCHS * spe // TRAIN_LOG_INTERVAL or \
+                len(val_recs) != TRAIN_EPOCHS - 1:
+            fail(f'{len(train_recs)} train and {len(val_recs)} val records')
+        for r in recs:
+            vals = [v for v in r.values() if not isinstance(v, str)]
+            if not all(math.isfinite(v) for v in vals):
+                fail(f'a non-finite log record: {r}')
+        first2 = train_recs[spe // TRAIN_LOG_INTERVAL]
+        want_lr2 = make_lr_schedule(cfg, spe)(spe + TRAIN_LOG_INTERVAL - 1)
+        if (first2['epoch'], first2['iter'], first2['lr']) != \
+                (2, TRAIN_LOG_INTERVAL, want_lr2):
+            fail(f'run 2 first logged {first2}, not epoch 2 iter '
+                 f'{TRAIN_LOG_INTERVAL} at lr {want_lr2}')
+        for r in train_recs:
+            print(f'  log epoch {r["epoch"]} iter {r["iter"]}: lr '
+                  f'{r["lr"]:.6f} loss {r["loss"]:.4f} grad_norm '
+                  f'{r["grad_norm"]:.4f} num_pos {r["num_pos"]:.1f} '
+                  f'img/s {r["imgs_per_sec"]:.2f}', flush=True)
+        n_val = len(DataLoader(DeepFashion2Dataset(cfg.val_data,
+                                                   train=False),
+                               cfg.val_data.batch_size, train=False))
+        want_train = {k: v * TRAIN_EPOCHS * spe for k, v in per_step.items()}
+        want_eval = {k: v * n_val for k, v in per_eval.items()}
+        print(f'train loop: launches {train_launches} over '
+              f'{TRAIN_EPOCHS * spe} steps, {evals} over the {n_val} '
+              f'batches of each --validate', flush=True)
+        if train_launches != want_train or len(evals) != TRAIN_EPOCHS - 1 \
+                or any(e != want_eval for e in evals):
+            fail(f'train loop launches {train_launches} / {evals} != '
+                 f'{want_train} / {want_eval} each')
+        init = build_model(cfg, device='cpu').init_weights(cfg.seed) \
+            .state_dict()
+        final = runner2.model.state_dict()
+        for k in ('backbone.conv1.weight', 'backbone.layer1.0.conv1.weight',
+                  'backbone.layer1.2.bn3.running_var'):
+            if not torch.equal(final[k].cpu(), init[k]):
+                fail(f'frozen {k} changed in training')
+        free = 'bbox_head.kp_rep_block_3.cls_out.weight'
+        if torch.equal(final[free].cpu(), init[free]):
+            fail(f'free parameter {free} did not move')
+
+        # tools/test.py --checkpoint: the runner's last evaluation, and the
+        # runner model's detections on the first batch, bit for bit
+        last = TRAIN_EPOCHS * spe
+        step_dir = os.path.join(work, 'checkpoints', str(last))
+        reset_launches()
+        out, cli_printed = run_cli([cfg_path, '--checkpoint', step_dir,
+                                    '--json-out',
+                                    os.path.join(root, 'ckpt_eval')])
+        cli_launches = read_launches()
+        if cli_launches != want_eval:
+            fail(f'--checkpoint launches {cli_launches} != {want_eval}')
+        eval_launches = {k: sum(e[k] for e in evals) + v
+                         for k, v in cli_launches.items()}
+        for iou_type, s in out['stats'].items():
+            rec = {k: val_recs[-1][f'{iou_type}_{k}'] for k in s}
+            if rec != {k: float(v) for k, v in s.items()}:
+                fail(f'--checkpoint {iou_type} stats {s} != the runner\'s '
+                     f'{rec}')
+            cli = copypaste(cli_printed, iou_type, len(s))
+            line = [ln for ln in printed.splitlines() if ln.startswith(
+                f'Epoch [{TRAIN_EPOCHS}] {iou_type}_mAP_copypaste: ')]
+            if len(line) != 1 or line[0].split(': ', 1)[1] != \
+                    stats_line(cli[:3]):
+                fail(f'{iou_type}: --validate printed {line}, --checkpoint '
+                     f'{stats_line(cli)}')
+        val_ds = DeepFashion2Dataset(cfg.val_data, train=False)
+        first_batch = next(iter(DataLoader(val_ds, cfg.val_data.batch_size,
+                                           train=False, num_workers=0)))
+        canvas = tuple(first_batch['image'].shape[1:3])
+        runner2.model.eval()
+        dets = make_predict_fn(runner2.model, cfg, canvas)(first_batch)
+        for i, img_id in enumerate(first_batch['img_id'].tolist()):
+            v = dets['valid'][i].cpu().numpy()
+            direct = [dets[k][i].cpu().numpy()[v]
+                      for k in ('det_bboxes', 'det_labels', 'det_kpts')]
+            for a, b in zip(out['results'][img_id], direct):
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    fail(f'--checkpoint detections differ from the runner '
+                         f'model\'s on image {img_id}')
+        print(f'train loop: tools/test.py --checkpoint {last}: the stats of '
+              f'the last --validate ({len(out["stats"]["bbox"])} bbox, '
+              f'{len(out["stats"]["keypoints"])} keypoints), its copypaste '
+              f'lines, and the runner model\'s detections on the '
+              f'{len(first_batch["img_id"])} images of the first batch bit '
+              f'for bit; launches {cli_launches}', flush=True)
+
+        # the checkpoint: its size, a save of the final state (the last
+        # step written again with the same state) and a restore of it
+        size = os.path.getsize(os.path.join(step_dir, FILE))
+        t0 = time.perf_counter()
+        runner2.save_checkpoint()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runner2.ckpt.restore(last)
+        restore_s = time.perf_counter() - t0
+
+        # host data alone on one thread, and the first batch of each canvas
+        train_ds = runner2.train_dataset
+        t0 = time.perf_counter()
+        firsts, n_host = {}, 0
+        for batch in DataLoader(train_ds, data.batch_size, train=True,
+                                seed=cfg.seed, num_workers=0):
+            firsts.setdefault(tuple(batch['image'].shape[1:3]), batch)
+            n_host += 1
+            if n_host >= 4 and len(firsts) == 2:
+                break
+        host_ms = 1e3 * (time.perf_counter() - t0) / n_host
+
+        # K2+K3 against their plain versions on a step's tensors, batch 8,
+        # each canvas
+        model = runner2.model.train()
+        for c, batch in sorted(firsts.items()):
+            phase_function(torch, model, make_loss_fn(model, cfg, c), batch)
+            model.dtype = torch.bfloat16
+
+        # the loop's rate over a long epoch: a run of its own on the
+        # training PNGs listed LOOP_REPEAT times, two epochs, no
+        # --validate, from the runner's own records over epoch 2 after its
+        # first interval (which holds the loader's refill); beside it the
+        # loader alone (its threads, no step) over the same epoch after as
+        # many batches, and the step alone after two warm ones
+        del runner1
+        reset_launches()
+        runner3, _ = run_train_cli([
+            repeat_train_set(root, LOOP_REPEAT), '--work-dir',
+            os.path.join(root, 'work_long'), '--log-interval',
+            str(TRAIN_LOG_INTERVAL), '--max-epochs', '2'])
+        spe3 = runner3.steps_per_epoch
+        want_long = {k: v * 2 * spe3 for k, v in per_step.items()}
+        if spe3 != LOOP_REPEAT * spe or read_launches() != want_long:
+            fail(f'the long run: {spe3} steps an epoch, launches '
+                 f'{read_launches()} != {want_long}')
+        with open(os.path.join(root, 'work_long', 'train_log.jsonl')) as f:
+            recs3 = [json.loads(line) for line in f]
+        imgs = TRAIN_LOG_INTERVAL * data.batch_size
+        rates, loop_all, loop = loop_rates(recs3, 2, imgs)
+        loader = DataLoader(runner3.train_dataset, data.batch_size,
+                            train=True, seed=cfg.seed)
+        loader_all, loader_steady = loader_rates(loader, 1,
+                                                 TRAIN_LOG_INTERVAL)
+        del runner3
+        step_ms = {c: step_alone_ms(torch, model, cfg, runner2.optimizer, b,
+                                    c) for c, b in sorted(firsts.items())}
+        step_rate = 1e3 * data.batch_size * len(step_ms) / \
+            sum(step_ms.values())
+        beyond = 1e3 * data.batch_size * (1 / loop - 1 / step_rate)
+        print(f'train loop: a run of {spe3} steps an epoch, img/s by log '
+              f'interval of epoch 2 (the runner synchronizing once an '
+              f'interval): {rates_line(rates)}; the epoch {loop_all:.2f}, '
+              f'after its first interval {loop:.2f} img/s '
+              f'({1e3 * data.batch_size / loop:.2f} ms a step)', flush=True)
+        print(f'train loop: the step alone on a batch on the card '
+              + ', '.join(f'{h}x{w} {ms:.2f} ms' for (h, w), ms in
+                          step_ms.items())
+              + f' ({step_rate:.2f} img/s; {STEP_ALONE} steps each, one '
+              f'synchronize); the loader alone ({loader.num_workers} '
+              f'threads, no step) over epoch 2 of the long run '
+              f'{loader_all:.2f} img/s, after its first '
+              f'{TRAIN_LOG_INTERVAL} batches {loader_steady:.2f}; the '
+              f'slower alone: '
+              f'{"loader" if loader_steady < step_rate else "step"}; the '
+              f'loop takes {beyond:.2f} ms a step beyond the step alone; '
+              f'host data a batch of {data.batch_size}, one thread, '
+              f'{host_ms:.1f} ms; peak device memory '
+              f'{peak / 2 ** 30:.3f} GiB; checkpoint {size / 2 ** 20:.1f} '
+              f'MiB, save {save_s:.3f} s, restore {restore_s:.3f} s '
+              f'({gpu})', flush=True)
+
+        # the step by stage
+        for c, batch in sorted(firsts.items()):
+            phase_train_profile(torch, model, cfg, runner2.optimizer, batch,
+                                gpu, canvas=c)
+        del runner2, model
+        torch.cuda.empty_cache()
+        return train_launches, eval_launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     # prove that nothing of JAX or of the JAX package is needed: any import
     # of them now fails
@@ -1921,6 +2370,12 @@ def main():
     # the evaluation path: dataset, loader, the CLI, TTA
     launches['eval'] = phase_eval(
         torch, gpu, launch_counts(deform_fused=12, **prefix))
+
+    # the training loop: tools/train.py, resume, --validate, --checkpoint
+    launches['train_loop'], launches['train_loop_eval'] = phase_train_loop(
+        torch, gpu, launch_counts(deform_sample_split=2, deform_sample_bwd=2,
+                                  **prefix),
+        launch_counts(deform_fused=12, **prefix))
 
     src = 'kgdet_tpu_torch/csrc/'
     ref = 'kgdet_tpu/ops/'

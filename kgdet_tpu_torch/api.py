@@ -209,14 +209,11 @@ class Detector:
 def init_detector(cfg_or_path, checkpoint=None, pth: Optional[str] = None,
                   jax_variables=None, device=None) -> Detector:
     """A ready-to-call Detector on ``device`` (None: the CUDA card): seeded
-    random weights (cfg.seed), or a reference .pth, or flax variables of the
-    JAX package's model. ``checkpoint`` is second, as in the JAX package,
-    and raises until the port has checkpoints of its own."""
-    if checkpoint is not None:
-        raise NotImplementedError(
-            'init_detector(checkpoint=...): the port has no checkpoints of '
-            'its own yet (ROADMAP Queue 1 item 3c); a reference .pth loads '
-            'with pth=')
+    random weights (cfg.seed), or, in this order of precedence, a reference
+    .pth, a checkpoint of the port (``checkpoint``, second as in the JAX
+    package: a train-state step such as ``work_dir/checkpoints/16`` or a
+    params-only save, utils/checkpoint.py::load_params), or flax variables
+    of the JAX package's model."""
     cfg = load_config(cfg_or_path) if isinstance(cfg_or_path, str) \
         else cfg_or_path
     device = resolve_device(device)
@@ -224,6 +221,9 @@ def init_detector(cfg_or_path, checkpoint=None, pth: Optional[str] = None,
     if pth is not None:
         from kgdet_tpu_torch.utils.convert import load_pth
         model.load_state_dict(load_pth(pth), strict=True)
+    elif checkpoint is not None:
+        from kgdet_tpu_torch.utils.checkpoint import load_params
+        model.load_state_dict(load_params(checkpoint), strict=True)
     elif jax_variables is not None:
         from kgdet_tpu_torch.utils.convert import state_dict_from_jax
         model.load_state_dict(state_dict_from_jax(jax_variables),

@@ -21,6 +21,9 @@ chosen once, at import, and named by ``BACKEND``:
     source positions; float64 the same lerp on float64 coefficients in
     extended precision.
 
+``write_png`` writes an 8-bit RGB PNG with NumPy and ``zlib`` whatever the
+backend (the synthetic sets of ``chip_smoke.py`` and the GPU tests).
+
 ``tests/test_torch_data.py`` holds the NumPy functions (``np_imread``,
 ``np_imresize``) against OpenCV.
 """
@@ -187,6 +190,35 @@ def _decode_pnm(data: bytes, path) -> np.ndarray:
     if channels == 1:
         return np.repeat(px, 3, axis=2)
     return np.ascontiguousarray(px[..., ::-1])
+
+
+# ------------------------------------------------------------------- write
+def write_png(path: str, bgr: np.ndarray):
+    """(H, W, 3) uint8 BGR -> an 8-bit RGB PNG, rows filtered None / Sub /
+    Up in turn, NumPy and ``zlib`` only (for synthetic sets on a host
+    without OpenCV; ``imread`` and ``cv2.imread`` read it back
+    unchanged)."""
+    rgb = np.ascontiguousarray(bgr[..., ::-1]).reshape(bgr.shape[0], -1)
+    rows, prev = [], np.zeros(rgb.shape[1], np.uint8)
+    for y, line in enumerate(rgb):
+        kind = y % 3
+        if kind == 1:
+            line_f = line - np.concatenate([np.zeros(3, np.uint8), line[:-3]])
+        elif kind == 2:
+            line_f = line - prev
+        else:
+            line_f = line
+        rows.append(bytes([kind]) + line_f.tobytes())
+        prev = line
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body +
+                struct.pack('>I', zlib.crc32(kind + body) & 0xFFFFFFFF))
+    with open(path, 'wb') as f:
+        f.write(b'\x89PNG\r\n\x1a\n' + chunk(b'IHDR', struct.pack(
+            '>IIBBBBB', bgr.shape[1], bgr.shape[0], 8, 2, 0, 0, 0)) +
+            chunk(b'IDAT', zlib.compress(b''.join(rows), 1)) +
+            chunk(b'IEND', b''))
 
 
 # ------------------------------------------------------------------ resize

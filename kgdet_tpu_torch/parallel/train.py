@@ -99,6 +99,7 @@ class SGDOptimizer:
         lr_mult, decay_mult = paramwise_multipliers(model, o)
         named = list(model.named_parameters())
         self.all_params = [p for _, p in named]
+        self.names = [n for n, _ in named if not frozen[n]]
         self.params = [p for n, p in named if not frozen[n]]
         self.lr_mult = [lr_mult[n] for n, _ in named if not frozen[n]]
         self.decay = [o.weight_decay * decay_mult[n]
@@ -137,6 +138,45 @@ class SGDOptimizer:
     def zero_grad(self):
         for p in self.all_params:
             p.grad = None
+
+    def state_dict(self):
+        """The optimizer's state: its type, ``step_count`` (the LR is
+        ``schedule(step_count)``) and its buffers keyed by parameter name
+        (the free parameters only; ``second_moment`` under ``adam``).
+        The buffers are the live tensors, as torch.optim's state_dict
+        gives them."""
+        state = {'type': self.o.type, 'step_count': self.step_count,
+                 'momentum': dict(zip(self.names, self.momentum))}
+        if self.second_moment is not None:
+            state['second_moment'] = dict(zip(self.names,
+                                              self.second_moment))
+        return state
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        """Copy a state_dict's buffers into this optimizer's (any device
+        to this one's) and take its ``step_count``: the next step is then
+        the one the saved optimizer would have taken."""
+        if state['type'] != self.o.type:
+            raise ValueError(f'a {state["type"]} optimizer state does not '
+                             f'load into a {self.o.type} optimizer')
+        keys = [('momentum', self.momentum)]
+        if self.second_moment is not None:
+            keys.append(('second_moment', self.second_moment))
+        for key, bufs in keys:
+            saved = state[key]
+            if sorted(saved) != sorted(self.names):
+                missing = sorted(set(self.names) - set(saved))
+                extra = sorted(set(saved) - set(self.names))
+                raise KeyError(f'optimizer {key}: missing {missing[:4]}, '
+                               f'unexpected {extra[:4]}')
+            for name, buf in zip(self.names, bufs):
+                if saved[name].shape != buf.shape:
+                    raise ValueError(
+                        f'optimizer {key} {name}: shape '
+                        f'{tuple(saved[name].shape)} != {tuple(buf.shape)}')
+                buf.copy_(saved[name])
+        self.step_count = int(state['step_count'])
 
 
 def make_optimizer(cfg: KGDetConfig, model, steps_per_epoch: int):

@@ -5,13 +5,15 @@ otherwise:
 
   python -m kgdet_tpu_torch.tools.test \
       configs/kgdet_moment_r50_fpn_1x_demo.py \
-      [--load-pth KGDet_epoch-12.pth] [--json-out results] \
+      [--checkpoint work_dirs/x/checkpoints/16 | --load-pth KGDet_epoch-12.pth] \
+      [--json-out results] \
       [--eval bbox keypoints] [--batch-size N] [--aug ...] [--device cpu]
 
 Emits {json_out}.bbox.json / {json_out}.keypoints.json in the reference's
 results2json format, scores them with the DeepFashion2 COCO evaluator and
 prints the ``bbox_mAP_copypaste:`` / ``keypoints_mAP_copypaste:`` lines.
-Without ``--load-pth`` the model has the config's seeded random weights.
+Without ``--checkpoint`` or ``--load-pth`` the model has the config's
+seeded random weights.
 ``main(argv)`` runs in-process and returns the stats, the JSON files, the
 per-image results and the timings (seconds of setup, inference and
 evaluation, and run_inference's own).
@@ -28,8 +30,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description='Test KGDet (PyTorch port)')
     p.add_argument('config')
     p.add_argument('--checkpoint', default=None,
-                   help='a checkpoint of the port (not ported yet: ROADMAP '
-                        'Queue 1 item 3c)')
+                   help='a checkpoint of the port: a step of tools/train.py '
+                        '(work_dir/checkpoints/<step>) or a params-only '
+                        'save (tools/publish_model.py)')
     p.add_argument('--load-pth', default=None,
                    help='PyTorch .pth checkpoint to evaluate')
     p.add_argument('--json-out', default=None)

@@ -495,9 +495,9 @@ def test_cli_tta_and_refusals(setup, tmp_path, capsys):
     assert len(vals) == 12 and np.isfinite(vals).all()
     assert sorted(out['results']) == sorted(r.img_id
                                             for r in setup['tds'].records)
-    with pytest.raises(NotImplementedError, match='item 3c'):
-        ttest.main([setup['cfg_path'], '--checkpoint', 'ckpt',
-                    '--device', 'cpu'])
+    with pytest.raises(FileNotFoundError, match='no_such_step'):
+        ttest.main([setup['cfg_path'], '--checkpoint',
+                    str(tmp_path / 'no_such_step'), '--device', 'cpu'])
     with pytest.raises(NotImplementedError, match='item 4'):
         ttest.main([setup['cfg_path'], '--distributed', '--device', 'cpu'])
     if not torch.cuda.is_available():
@@ -536,14 +536,15 @@ def test_cli_runs_without_jax_flax_cv2(setup):
 
 
 def test_chip_smoke_png_writer_round_trips_through_cv2(tmp_path):
-    sys.path.insert(0, ROOT)
-    try:
-        import chip_smoke
-    finally:
-        sys.path.remove(ROOT)
+    """The PNG writer of chip_smoke.py's synthetic sets
+    (image_io.write_png): cv2 and the port's own reader give the image
+    back bit for bit."""
+    from kgdet_tpu_torch.data import image_io
     rng = np.random.RandomState(0)
-    for shape in ((37, 53, 3), (8, 1, 3), (1, 8, 3)):
+    for shape in ((37, 53, 3), (8, 1, 3), (1, 8, 3), (1, 1, 3),
+                  (90, 130, 3)):
         img = rng.randint(0, 256, shape).astype(np.uint8)
         path = str(tmp_path / f'{shape[0]}x{shape[1]}.png')
-        chip_smoke.write_png(path, img)
+        image_io.write_png(path, img)
         assert_same(cv2.imread(path, cv2.IMREAD_COLOR), img)
+        assert_same(image_io.np_imread(path), img)

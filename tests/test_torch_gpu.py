@@ -839,3 +839,178 @@ def test_wrappers_raise_on_shapes_the_kernels_do_not_take(gen):
         dk.deform_sample_bwd(feat, pos, _randn(gen, 1, 5, 5, 32).bfloat16())
     with pytest.raises(TypeError):
         dk.deform_sample_split(feat.half(), feat.half(), pos, (2, 3))
+
+
+# ------------------------------------------------- checkpoints on the card
+# the tiny R-50 KGDet training config of tests/test_torch_runner.py, which
+# imports it from here; the port's load_config reads its kgdet_tpu.config
+# import as its own config module, so neither file needs JAX for it
+CONFIG_TEXT = '''
+import dataclasses
+
+from kgdet_tpu.config import (
+    BackboneConfig, DataConfig, HeadConfig, KGDetConfig, NeckConfig,
+    OptimConfig, TestConfig)
+
+_DATA = DataConfig(
+    ann_file={ann!r}, img_prefix={prefix!r}, img_scale=(96, 64),
+    max_gts=8, batch_size=2, flip_ratio=0.5, canvas_hw={canvases!r})
+
+config = KGDetConfig(
+    backbone=BackboneConfig(depth=50, frozen_stages=1),
+    neck=NeckConfig(in_channels=(256, 512, 1024, 2048), out_channels=64,
+                    select_out=(2,), gn_groups=32),
+    head=HeadConfig(num_classes=13, in_channels=64, feat_channels=64,
+                    point_feat_channels=64, stacked_convs=1,
+                    num_keypts=294, gn_groups=8),
+    test=TestConfig(nms_pre=50, max_per_class=10, max_per_img=20,
+                    score_thr=0.0),
+    optim=OptimConfig(lr=1e-3, warmup_iters=2, total_epochs=2),
+    train_data=_DATA, val_data=dataclasses.replace(_DATA, flip_ratio=0.0))
+'''
+
+
+def _tiny_cfg(root):
+    """CONFIG_TEXT in bf16 on 8 PNGs written under ``root`` without OpenCV
+    (landscape and portrait in turn, one garment each with its keypoints,
+    COCO style): 4 steps of 2 an epoch on both canvases."""
+    import json
+    import os
+
+    import numpy as np
+
+    from kgdet_tpu_torch.config import load_config
+    from kgdet_tpu_torch.data.deepfashion2_meta import (
+        CLASS_KEYPOINT_RANGES, NUM_KEYPOINTS)
+    from kgdet_tpu_torch.data.image_io import write_png
+    root = str(root)
+    rng = np.random.RandomState(0)
+    images, anns = [], []
+    for i in range(8):
+        h, w = (120, 160) if i % 2 == 0 else (160, 120)
+        write_png(os.path.join(root, f'{i}.png'),
+                  rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+        images.append({'id': i + 1, 'file_name': f'{i}.png', 'height': h,
+                       'width': w})
+        cat = int(rng.randint(1, 14))
+        s, e = CLASS_KEYPOINT_RANGES[cat]
+        kp = np.zeros((NUM_KEYPOINTS, 3))
+        kp[s:e] = [30.0, 40.0, 2.0]
+        anns.append({'id': i + 1, 'image_id': i + 1, 'category_id': cat,
+                     'iscrowd': 0, 'bbox': [10.0, 20.0, 60.0, 50.0],
+                     'area': 3000.0, 'keypoints': kp.reshape(-1).tolist(),
+                     'num_keypoints': e - s})
+    ann = os.path.join(root, 'ann.json')
+    with open(ann, 'w') as f:
+        json.dump({'images': images, 'annotations': anns, 'categories': [
+            {'id': c, 'name': f'cls{c}'} for c in range(1, 14)]}, f)
+    path = os.path.join(root, 'cfg.py')
+    with open(path, 'w') as f:
+        f.write(CONFIG_TEXT.format(ann=ann, prefix=root,
+                                   canvases=((64, 96), (96, 64))))
+    return load_config(path).replace(compute_dtype='bfloat16')
+
+
+def test_checkpoint_from_the_card_loads_on_the_cpu_and_back(gen, tmp_path):
+    """A train state saved from the card holds CPU tensors only, loads
+    with weights_only=True into a model and an optimizer on the CPU, and
+    from there back onto the card, every tensor unchanged."""
+    from kgdet_tpu_torch.api import build_model
+    from kgdet_tpu_torch.parallel.train import make_optimizer
+    from kgdet_tpu_torch.utils.checkpoint import FILE, CheckpointManager
+    cfg = _tiny_cfg(tmp_path)
+    model = build_model(cfg).init_weights(0)
+    opt, _ = make_optimizer(cfg, model, 10)
+    for p in model.parameters():
+        p.grad = torch.randn(p.shape, generator=gen).cuda()
+    opt.step()
+    mgr = CheckpointManager(str(tmp_path / 'card'))
+    mgr.save(1, {'model': model.state_dict(), 'optimizer': opt.state_dict(),
+                 'step': 1, 'epoch': 0})
+    state = torch.load(str(tmp_path / 'card' / '1' / FILE),
+                       weights_only=True)
+    assert all(t.device.type == 'cpu' for t in state['model'].values())
+    cpu = build_model(cfg, device='cpu')
+    cpu.load_state_dict(state['model'])
+    cpu_opt, _ = make_optimizer(cfg, cpu, 10)
+    cpu_opt.load_state_dict(state['optimizer'])
+    back_mgr = CheckpointManager(str(tmp_path / 'cpu'))
+    back_mgr.save(1, {'model': cpu.state_dict(),
+                      'optimizer': cpu_opt.state_dict()})
+    back = back_mgr.restore(1)
+    card = build_model(cfg)
+    card.load_state_dict(back['model'])
+    card_opt, _ = make_optimizer(cfg, card, 10)
+    card_opt.load_state_dict(back['optimizer'])
+    for (n, a), b in zip(model.state_dict().items(),
+                         card.state_dict().values()):
+        assert b.is_cuda and torch.equal(a, b), n
+    for n, a in opt.state_dict()['momentum'].items():
+        b = card_opt.state_dict()['momentum'][n]
+        assert b.is_cuda and torch.equal(a, b), n
+
+
+def test_loaded_model_serves_what_the_saved_model_served(gen, tmp_path):
+    """init_detector(cfg, checkpoint) on the card, and a model that served
+    other weights before load_state_dict (its kept frozen-prefix weights,
+    ResNet.prefix_weights, then stale), serve the saved model's
+    detections bit for bit through K4, K5 and K1."""
+    from kgdet_tpu_torch.api import build_model, init_detector, \
+        make_predict_fn
+    from kgdet_tpu_torch.utils.checkpoint import save_params
+    cfg = _tiny_cfg(tmp_path)
+    canvas = (64, 96)
+    batch = {'image': torch.randint(0, 256, (2, *canvas, 3),
+                                    generator=gen).to(torch.uint8),
+             'img_hw': torch.tensor([[64.0, 85.0], [60.0, 96.0]]),
+             'scale_factor': torch.tensor([0.5333, 0.5])}
+    saved = build_model(cfg).init_weights(3).eval()
+    want = make_predict_fn(saved, cfg, canvas)(batch)
+    save_params(str(tmp_path / 'p'), saved.state_dict())
+    other = build_model(cfg).init_weights(4).eval()
+    stale = make_predict_fn(other, cfg, canvas)
+    before = stale(batch)
+    k4, k5, k1 = (sk.stem_pool.launches, sk.frozen_bottleneck.launches,
+                  dk.deform_conv_fused.launches)
+    other.load_state_dict(saved.state_dict())
+    loaded = init_detector(cfg, str(tmp_path / 'p')).model
+    for got in (stale(batch), make_predict_fn(loaded, cfg, canvas)(batch)):
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert not torch.equal(before['det_bboxes'], want['det_bboxes'])
+    assert sk.stem_pool.launches == k4 + 2
+    assert sk.frozen_bottleneck.launches == k5 + 6
+    assert dk.deform_conv_fused.launches == k1 + 24
+
+
+def test_runner_epoch_on_the_card(gen, tmp_path):
+    """One Runner epoch at tiny size on the card: both canvases, one step
+    function each on one optimizer, K2 2 / K3 2 / K4 1 / K5 3 a step,
+    finite log records, a checkpoint that loads on the CPU."""
+    import json
+
+    from kgdet_tpu_torch.runner import Runner
+    from kgdet_tpu_torch.utils.checkpoint import load_params
+    runner = Runner(_tiny_cfg(tmp_path), work_dir=str(tmp_path / 'w'),
+                    log_interval=2)
+    runner.setup()
+    assert runner.device.type == 'cuda'
+    counts = [dk.deform_sample_split.launches, dk.deform_sample_bwd.launches,
+              sk.stem_pool.launches, sk.frozen_bottleneck.launches]
+    runner.train_epoch()
+    steps = runner.steps_per_epoch
+    assert runner.step == steps == 4
+    assert sorted(runner._step_fns) == [(64, 96), (96, 64)]
+    assert [dk.deform_sample_split.launches, dk.deform_sample_bwd.launches,
+            sk.stem_pool.launches, sk.frozen_bottleneck.launches] == \
+        [c + n * steps for c, n in zip(counts, (2, 2, 1, 3))]
+    with open(tmp_path / 'w' / 'train_log.jsonl') as f:
+        recs = [json.loads(line) for line in f]
+    assert len(recs) == 2
+    for r in recs:
+        assert all(v == v and abs(v) != float('inf')
+                   for v in r.values() if not isinstance(v, str))
+    runner.save_checkpoint()
+    state = load_params(str(tmp_path / 'w' / 'checkpoints' / '4'))
+    for k, v in runner.model.state_dict().items():
+        assert not state[k].is_cuda and torch.equal(state[k], v.cpu()), k

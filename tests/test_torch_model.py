@@ -399,19 +399,22 @@ def test_init_detector_loads_reference_style_pth(models, tmp_path):
 
 
 def test_init_detector_takes_a_checkpoint_second(tmp_path):
-    """The second positional argument is a checkpoint, as in the JAX
-    package's init_detector(config, checkpoint, pth): a .pth given there is
-    not loaded as one, the call raises until the port has checkpoints."""
+    """The second positional argument is a checkpoint of the port, as in
+    the JAX package's init_detector(config, checkpoint, pth): a .pth given
+    there is not loaded as one (it holds no ``model`` entry), a params-only
+    save of the port is."""
+    from kgdet_tpu_torch.utils.checkpoint import save_params
     cfg = tiny_r50_cfg()
     path = tmp_path / 'model.pth'
-    torch.save(build_model(cfg, device='cpu').init_weights(1).state_dict(),
-               path)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 3c'):
-        init_detector(cfg, str(path), device='cpu')
-    det = init_detector(cfg, pth=str(path), device='cpu')
     want = build_model(cfg, device='cpu').init_weights(1).state_dict()
-    for k, v in det.model.state_dict().items():
-        assert torch.equal(v, want[k])
+    torch.save(want, path)
+    with pytest.raises(KeyError, match='no model state_dict'):
+        init_detector(cfg, str(path), device='cpu')
+    save_params(str(tmp_path / 'ckpt'), want)
+    for det in (init_detector(cfg, pth=str(path), device='cpu'),
+                init_detector(cfg, str(tmp_path / 'ckpt'), device='cpu')):
+        for k, v in det.model.state_dict().items():
+            assert torch.equal(v, want[k])
 
 
 def test_init_detector_defaults_to_the_card():
