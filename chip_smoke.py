@@ -109,6 +109,30 @@ on the training PNGs listed 4 times (64 steps an epoch), beside the
 loader's rate alone and the step's alone on a batch on the card, host data ms a batch on one thread,
 peak memory, the checkpoint's size and save / restore seconds, and the
 step of 8 by stage on each canvas.
+Phase 11: data parallel on the cascade config at full width. (a) Two ranks
+over gloo sharing the card (kgdet_tpu_torch/tools/dp_step.py under
+torchrun, TF32 off) take 4 each of a global batch
+of 8 synthetic images (16 boxes an image) from the same seeded weights,
+one step in f32 and one in bf16, against one process on all 8: launches a
+rank a step K2 2 / K3 2 / K4 1 / K5 3 / K1 0, the ranks' parameters and
+momentum bit-equal, the f32 loss terms within 1e-4 relative, grad_norm
+the norm of the summed gradients and no further from one process's than
+they are, the f32 gradients by the whole-model rule (against one process
+on all 8 every element but in layer2-4, whose cuDNN rounding the batch
+size changes; against one process summing the ranks' shards at their
+batch, every element), the bf16 2-rank error against the f32 one-process
+step at most BF16_RATIO times the bf16 one-process error; then the same
+ranks infer phase 9's first 32 PNGs in f32, sharded and gathered (every
+image once, within F32_TOL of one process, K1 12 / K4 1 / K5 3 a batch).
+(b) One rank over NCCL under torchrun: tools/train.py --distributed for
+an epoch on phase 10's first 32 training PNGs (finite records, one
+checkpoint), then tools/test.py --distributed --checkpoint, its JSON equal
+to the same CLI without --distributed. (c) The learning proof of
+tests/test_torch_train.py in bf16 through K2 / K3 / K4 / K5: the tiny
+cascade, adam at 2e-3, up to 300 steps on two fixed images, loss under a
+quarter of its start, bbox AP@0.5 >= 0.5 and 0.3 over the untrained model,
+keypoint error < 4 px. Prints each part's seconds and the 2-rank step ms
+beside one process's (two ranks sharing one card: no scaling figure).
 
 Prints the card's name and power limit, one line per check, a JSON line of
 the seven kernels (launches on each main path, the evaluation CLI's
@@ -1008,26 +1032,28 @@ def phase_profile(torch, model, cfg, req, gpu, steps=2):
     print_own_kernels(kern, steps, 'batch')
 
 
-def make_train_batches(n, seed, num_keypts):
-    """Seeded synthetic training batches: uint8 images, 16 boxes an image
-    with every keypoint visible, extents inside the canvas."""
+def make_train_batches(n, seed, num_keypts, b=B):
+    """Seeded synthetic training batches of ``b`` images: uint8 images, 16
+    boxes an image with every keypoint visible, extents inside the
+    canvas."""
     import numpy as np
     rng = np.random.RandomState(seed)
     G = 16
     batches = []
     for _ in range(n):
-        boxes = np.zeros((B, G, 4), np.float32)
-        boxes[..., :2] = rng.uniform(0, 300, (B, G, 2))
-        boxes[..., 2:] = boxes[..., :2] + rng.uniform(64, 400, (B, G, 2))
-        kpts = rng.uniform(0, 700, (B, G, num_keypts, 3)).astype(np.float32)
+        boxes = np.zeros((b, G, 4), np.float32)
+        boxes[..., :2] = rng.uniform(0, 300, (b, G, 2))
+        boxes[..., 2:] = boxes[..., :2] + rng.uniform(64, 400, (b, G, 2))
+        kpts = rng.uniform(0, 700, (b, G, num_keypts, 3)).astype(np.float32)
         kpts[..., 2] = 1
         batches.append({
-            'image': rng.randint(0, 256, (B, *CANVAS, 3)).astype(np.uint8),
-            'valid_hw': np.array([[800, 1333], [800, 1067]], np.int32),
+            'image': rng.randint(0, 256, (b, *CANVAS, 3)).astype(np.uint8),
+            'valid_hw': np.tile(np.array([[800, 1333], [800, 1067]],
+                                         np.int32), (b // 2, 1)),
             'gt_bboxes': boxes,
-            'gt_labels': rng.randint(1, 14, (B, G)).astype(np.int32),
+            'gt_labels': rng.randint(1, 14, (b, G)).astype(np.int32),
             'gt_kpts': kpts,
-            'gt_mask': np.ones((B, G), bool),
+            'gt_mask': np.ones((b, G), bool),
         })
     return batches
 
@@ -1207,18 +1233,20 @@ def check_same_prefix_grads(what, kern32, head32):
              'plain versions')
 
 
-def check_bf16_grads(ref_loss, ref, kern16, plain16, groups):
+def check_bf16_grads(ref_loss, ref, kern16, plain16, groups,
+                     labels=('kernels', 'plain')):
     """bf16 against the f32 plain model: the kernel model's loss error and,
     per parameter group, relative L2 gradient error at most BF16_RATIO x the
-    plain model's."""
+    plain model's (``labels`` name the two runs)."""
     (k16_loss, k16), (p16_loss, p16) = kern16, plain16
     # one bf16 rounding of the loss is the least either can be held to
     loss_floor = 2.0 ** -8 * abs(ref_loss)
     ek, ep = abs(k16_loss - ref_loss), abs(p16_loss - ref_loss)
-    print(f'loss bf16 vs f32 plain {ref_loss:.4f}: kernels {ek:.3e}, plain '
-          f'{ep:.3e}', flush=True)
+    print(f'loss bf16 vs f32 {labels[1]} {ref_loss:.4f}: {labels[0]} '
+          f'{ek:.3e}, {labels[1]} {ep:.3e}', flush=True)
     if not ek <= max(BF16_RATIO * ep, loss_floor):
-        fail(f'bf16 kernel model: loss err {ek:.3e} > {BF16_RATIO} x {ep:.3e}')
+        fail(f'bf16 {labels[0]}: loss err {ek:.3e} > {BF16_RATIO} x '
+             f'{ep:.3e}')
     for group in groups:
         names = [n for n in ref if n.startswith(group)]
 
@@ -1227,12 +1255,13 @@ def check_bf16_grads(ref_loss, ref, kern16, plain16, groups):
             return (num / sum(ref[n].square().sum() for n in names)) \
                 .sqrt().item()
         ek, ep = rel_err(k16), rel_err(p16)
-        print(f'gradients bf16 vs f32 plain, {group}* ({len(names)} '
-              f'parameters), relative L2 error: kernels {ek:.3e}, plain '
-              f'{ep:.3e} (bound {BF16_RATIO} x plain)', flush=True)
+        print(f'gradients bf16 vs f32 {labels[1]}, {group}* ({len(names)} '
+              f'parameters), relative L2 error: {labels[0]} {ek:.3e}, '
+              f'{labels[1]} {ep:.3e} (bound {BF16_RATIO} x {labels[1]})',
+              flush=True)
         if not ek <= BF16_RATIO * ep:
-            fail(f'bf16 kernel model: gradients of {group}* err {ek:.3e} > '
-                 f'{BF16_RATIO} x plain {ep:.3e}')
+            fail(f'bf16 {labels[0]}: gradients of {group}* err {ek:.3e} > '
+                 f'{BF16_RATIO} x {labels[1]} {ep:.3e}')
 
 
 def phase_training(torch, gpu):
@@ -2304,6 +2333,490 @@ def phase_train_loop(torch, gpu, per_step, per_eval):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------- phase 11: data parallel
+# a global batch of 8, 4 images a rank
+DP_RANKS = 2
+DP_BATCH = 8
+# phase 9's first 32 validation PNGs (4 batches of 8, 2 on each canvas)
+# and phase 10's first 32 training PNGs (4 steps of 8)
+DP_IMAGES = 32
+# seconds a group of processes may take before all are killed
+DP_TIMEOUT = 300
+
+
+# the trainable backbone: cuDNN rounds its f32 convolutions differently at
+# batch 4 and at batch 8 (the frozen prefix's K4 and K5 do not:
+# backbone_batch_rounding prints both), and a ReLU pre-activation within
+# that of zero falls on either side, which moves single elements of
+# layer2-4's small gradients (BN biases) far more than the rounding
+BATCH_ROUNDED = ('backbone.layer2.', 'backbone.layer3.', 'backbone.layer4.')
+
+
+def grads_close(what, got, want, elementwise_except=()):
+    """f32 gradients of a run against a reference's, by the rule of a
+    whole model's gradients: all but MODEL_FLIP_SHARE of the elements
+    within MODEL_F32_REL of their parameter's scale, and every element
+    within MODEL_GRAD_REL of it, but in the parameters under
+    ``elementwise_except`` (printed, not held)."""
+    worst, worst_out, beyond, total = (0.0, ''), (0.0, ''), 0, 0
+    for n, w in want.items():
+        scale = w.abs().max().item()
+        if scale == 0:
+            continue
+        diff = (got[n].float() - w).abs() / scale
+        beyond += (diff > MODEL_F32_REL).sum().item()
+        total += diff.numel()
+        if n.startswith(elementwise_except) and elementwise_except:
+            worst_out = max(worst_out, (diff.max().item(), n))
+        else:
+            worst = max(worst, (diff.max().item(), n))
+    print(f'gradients f32, {what}: share of the elements beyond '
+          f'{MODEL_F32_REL}: {beyond / total:.3e} (bound {MODEL_FLIP_SHARE});'
+          f' worst element {worst[0]:.3e} of its scale ({worst[1]}; bound '
+          f'{MODEL_GRAD_REL})' + (
+              f'; in layer2-4 (not held) {worst_out[0]:.3e} ({worst_out[1]})'
+              if elementwise_except else ''), flush=True)
+    if not beyond <= MODEL_FLIP_SHARE * total or \
+            not worst[0] <= MODEL_GRAD_REL:
+        fail(f'f32 gradients of {what} differ beyond the bounds')
+
+
+def backbone_batch_rounding(torch, cfg, state, batch):
+    """The backbone's f32 outputs on the global batch at once against on
+    the ranks' shards apart: the frozen prefix (K4, K5) must compute each
+    image alike at either batch; cuDNN's layer2-4 need not (printed)."""
+    from kgdet_tpu_torch.ops.image import device_normalize
+    from kgdet_tpu_torch.tools.dp_step import load_model
+
+    model = load_model(cfg, state, torch.device('cuda'), torch.float32)
+    x = device_normalize(torch.as_tensor(batch['image']).cuda(),
+                         torch.as_tensor(batch['valid_hw']).cuda())
+    per = DP_BATCH // DP_RANKS
+    with torch.no_grad():
+        whole = model.backbone(x)
+        parts = [model.backbone(x[i:i + per])
+                 for i in range(0, DP_BATCH, per)]
+    diffs = [((w - torch.cat([p[i] for p in parts])).abs().max()
+              / w.abs().max()).item() for i, w in enumerate(whole)]
+    print(f'backbone f32 at batch {DP_BATCH} against {DP_RANKS} shards of '
+          f'{per}, largest difference by output (C2 from K4 and K5, then '
+          f'cuDNN\'s layer2-4) relative to its scale: '
+          + ', '.join(f'{d:.3e}' for d in diffs), flush=True)
+    if diffs[0] != 0:
+        fail('the frozen prefix computes an image differently at another '
+             'batch')
+
+
+def shard_sum_grads(torch, cfg, state, batch):
+    """The reference of the ranks' summed gradients with their rounding:
+    one process takes the forward and backward of each rank's shard alone,
+    at the ranks' batch, its loss divided by the global batch's positive
+    count (the cascade's count comes from the point targets, not from the
+    model), and sums the gradients."""
+    from kgdet_tpu_torch.core import loss as loss_mod
+    from kgdet_tpu_torch.parallel.dist import shard_batch
+    from kgdet_tpu_torch.parallel.train import make_loss_fn
+    from kgdet_tpu_torch.tools.dp_step import load_model
+
+    model = load_model(cfg, state, torch.device('cuda'), torch.float32)
+    loss_fn = make_loss_fn(model.train(), cfg,
+                           tuple(batch['image'].shape[1:3]))
+    shards = [shard_batch(batch, r, DP_RANKS) for r in range(DP_RANKS)]
+    with torch.no_grad():
+        counts = [loss_fn(sh)[1]['num_pos'] for sh in shards]
+    count = sum(counts)
+    # the loss's one sum over processes, given the global count: each
+    # shard's loss must call it once, on that shard's own count, or the
+    # reference would divide another term by the count
+    calls = []
+
+    def global_count(t):
+        calls.append(t.detach().clone())
+        return count
+    own = loss_mod.global_sum
+    loss_mod.global_sum = global_count
+    try:
+        for sh in shards:
+            loss_fn(sh)[0].backward()
+    finally:
+        loss_mod.global_sum = own
+    if len(calls) != len(shards) or not all(
+            torch.equal(c, n) for c, n in zip(calls, counts)):
+        fail(f'the cascade loss summed {len(calls)} values over processes '
+             f'for {len(shards)} shards, not each shard\'s positive count')
+    return {n: p.grad.detach().cpu().clone()
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def dets_close(what, got, want):
+    """Detections by image: the same images, each with as many detections,
+    within F32_TOL."""
+    import numpy as np
+    if sorted(got) != sorted(want):
+        fail(f'{what}: images {len(got)} != {len(want)}')
+    for img, dets in want.items():
+        for a, b in zip(got[img], dets):
+            if a.shape != b.shape or not np.allclose(a, b, **F32_TOL):
+                fail(f'{what}: the detections of image {img} differ')
+
+
+def dp_two_ranks(torch, gpu, root, per_step, per_fwd):
+    """(a): two ranks over gloo sharing the card against one process on the
+    global batch, from the same seeded weights: one step in f32 and one in
+    bf16 (kgdet_tpu_torch/tools/dp_step.py), then sharded, gathered
+    inference on the validation PNGs. Returns the ranks' launches in
+    training and in inference."""
+    import numpy as np
+
+    from kgdet_tpu_torch.api import build_model
+    from kgdet_tpu_torch.config import load_config
+    from kgdet_tpu_torch.tools import dp_step
+
+    cfg = load_config(CONFIG)
+    state = build_model(cfg, device='cpu').init_weights(cfg.seed).state_dict()
+    batch = make_train_batches(1, SEED + 20, cfg.head.num_keypts,
+                               b=DP_BATCH)[0]
+    torch.save(state, os.path.join(root, 'state.pt'))
+    np.savez(os.path.join(root, 'batch.npz'), **batch)
+    eval_cfg = eval_config(root, 'dp_cfg.py')
+
+    # one process: the reference
+    one = {name: dp_step.take_step(cfg, state, batch, 'cuda',
+                                   getattr(torch, name))
+           for name in ('float32', 'bfloat16')}
+    one_infer = dp_step.infer(load_config(eval_cfg), state, 'cuda')
+    backbone_batch_rounding(torch, cfg, state, batch)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, 'dp_out')
+    run_torchrun(['kgdet_tpu_torch.tools.dp_step', CONFIG, '--state',
+                  os.path.join(root, 'state.pt'), '--batch',
+                  os.path.join(root, 'batch.npz'), '--out', out, '--dtype',
+                  'float32', 'bfloat16', '--infer-config', eval_cfg,
+                  '--device', 'cuda:0', '--backend', 'gloo'],
+                 os.path.join(root, 'dp_step.log'), nproc=DP_RANKS)
+    ranks = [torch.load(os.path.join(out, f'rank{r}.pt'), weights_only=False)
+             for r in range(DP_RANKS)]
+    secs = time.perf_counter() - t0
+    if [r['world'] for r in ranks] != [DP_RANKS] * DP_RANKS:
+        fail(f'the ranks ran in worlds of {[r["world"] for r in ranks]}')
+
+    train_launches = {k: 0 for k in per_step}
+    for name in ('float32', 'bfloat16'):
+        steps = [r['steps'][name] for r in ranks]
+        for r, st in enumerate(steps):
+            if st['launches'] != per_step:
+                fail(f'rank {r} {name} step launches {st["launches"]} != '
+                     f'{per_step}')
+            for k, v in st['launches'].items():
+                train_launches[k] += v
+        a, b = steps
+        for part in ('params', 'momentum'):
+            for k in a[part]:
+                if not torch.equal(a[part][k], b[part][k]):
+                    fail(f'{name}: the ranks\' {part} of {k} differ')
+        print(f'data parallel, {name}: {DP_RANKS} ranks x '
+              f'{DP_BATCH // DP_RANKS} images, parameters and momentum of '
+              f'the {len(a["params"])} tensors bit-equal across the ranks; '
+              f'step ms by rank {rates_line(st["ms"] for st in steps)} '
+              f'(two ranks sharing one card over gloo: no scaling figure) '
+              f'against one process on all {DP_BATCH} '
+              f'{one[name]["ms"]:.2f} ms ({gpu})', flush=True)
+    got32, want32 = ranks[0]['steps']['float32'], one['float32']
+    # the loss terms are the forward's: 1e-4. grad_norm is the norm of the
+    # gradients, which differ as grads_close allows (K3's atomics, the
+    # ReLUs): it must be the norm of the summed gradients the optimizer
+    # took, and differ from one process's by no more than they do
+    # (|a| - |b| <= |a - b|)
+    def norm(grads, names):
+        return torch.stack([grads[n].double().norm()
+                            for n in names]).norm().item()
+    names = sorted(want32['grads'])
+    own = norm(got32['grads'], sorted(got32['grads']))
+    apart = torch.stack([(got32['grads'][n].double()
+                          - want32['grads'][n].double()).norm()
+                         for n in names]).norm().item()
+    g2, g1 = got32['logs']['grad_norm'], want32['logs']['grad_norm']
+    print(f'data parallel, f32 logs of {DP_RANKS} ranks against one process: '
+          + ', '.join(f'{k} {got32["logs"][k]:.6f} / {v:.6f}'
+                      for k, v in want32['logs'].items()
+                      if k in ('loss', 'loss_cls_3', 'num_pos', 'grad_norm'))
+          + f'; the ranks\' summed gradients have norm {own:.6f}, '
+          f'{apart:.3e} apart from one process\'s', flush=True)
+    for k, v in want32['logs'].items():
+        if k != 'grad_norm' and not abs(got32['logs'][k] - v) <= \
+                1e-4 * abs(v):
+            fail(f'f32 log {k}: {DP_RANKS} ranks {got32["logs"][k]} != one '
+                 f'process {v}')
+    if not abs(g2 - own) <= 1e-5 * own or \
+            not abs(g2 - g1) <= apart + 1e-5 * g1:
+        fail(f'f32 grad_norm {g2} of {DP_RANKS} ranks: not the norm {own} '
+             f'of their gradients, or further than {apart} from one '
+             f'process\'s {g1}')
+    grads_close(f'{DP_RANKS} ranks vs one process on all {DP_BATCH}',
+                got32['grads'], want32['grads'],
+                elementwise_except=BATCH_ROUNDED)
+    grads_close(f'{DP_RANKS} ranks vs one process summing their shards',
+                got32['grads'], shard_sum_grads(torch, cfg, state, batch))
+    groups = GRAD_GROUPS
+    ref = {n: g for n, g in want32['grads'].items() if n.startswith(groups)}
+
+    def run(st):
+        return st['logs']['loss'], {n: st['grads'][n].float() for n in ref}
+    check_bf16_grads(want32['logs']['loss'], ref,
+                     run(ranks[0]['steps']['bfloat16']),
+                     run(one['bfloat16']), groups,
+                     labels=(f'{DP_RANKS} ranks', 'one process'))
+
+    # sharded, gathered inference
+    eval_launches = {k: 0 for k in per_fwd}
+    batches = 0
+    for r, rk in enumerate(ranks):
+        inf = rk['infer']
+        want = {k: v * inf['batches'] for k, v in per_fwd.items()}
+        if inf['launches'] != want:
+            fail(f'rank {r} inference launches {inf["launches"]} != {want}')
+        for k, v in inf['launches'].items():
+            eval_launches[k] += v
+        batches += inf['batches']
+        dets_close(f'rank {r} gathered detections vs one process',
+                   inf['results'], one_infer['results'])
+    if batches != one_infer['batches']:
+        fail(f'the ranks inferred {batches} batches, one process '
+             f'{one_infer["batches"]}')
+    print(f'data parallel inference: {DP_IMAGES} PNGs in '
+          f'{[rk["infer"]["batches"] for rk in ranks]} batches by rank, '
+          f'every image once in the gathered detections on both ranks, '
+          f'within {F32_TOL} of one process; launches {eval_launches}; '
+          f'the ranks\' part {secs:.1f} s', flush=True)
+    return train_launches, eval_launches
+
+
+def run_torchrun(args, log, nproc=1, timeout=DP_TIMEOUT):
+    """``torchrun --standalone --nproc_per_node=<nproc> -m <args>`` in a
+    session of its own, killed at ``timeout``; its output, echoed. Fails
+    unless it exits 0 (torchrun stops every rank when one fails)."""
+    import signal
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           f'--nproc_per_node={nproc}', '-m', *args]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    with open(log, 'w') as f:
+        p = subprocess.Popen(cmd, env=env, stdout=f, stderr=subprocess.STDOUT,
+                             start_new_session=True)
+        try:
+            p.wait(timeout=timeout)
+        finally:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    with open(log) as f:
+        out = f.read()
+    print(out[-3000:], end='', flush=True)
+    if p.returncode != 0:
+        fail(f'torchrun {" ".join(args[:2])} exited {p.returncode}')
+    return out
+
+
+def dp_nccl_one_rank(torch, gpu, root):
+    """(b): tools/train.py --distributed under torchrun, one rank over
+    NCCL, one epoch of the training PNGs; then tools/test.py --distributed
+    --checkpoint under torchrun against the same CLI in this process."""
+    import math
+
+    cfg_path = eval_config(root, 'nccl_cfg.py')
+    work = os.path.join(root, 'nccl_work')
+    t0 = time.perf_counter()
+    out = run_torchrun(['kgdet_tpu_torch.tools.train', cfg_path,
+                        '--distributed', '--work-dir', work, '--max-epochs',
+                        '1', '--log-interval', '2'],
+                       os.path.join(root, 'nccl_train.log'))
+    train_s = time.perf_counter() - t0
+    steps = DP_IMAGES // DP_BATCH
+    if '[dist] process group: nccl, 1 process(es)' not in out:
+        fail('tools/train.py --distributed did not run over nccl')
+    with open(os.path.join(work, 'train_log.jsonl')) as f:
+        recs = [json.loads(line) for line in f]
+    if len(recs) != steps // 2 or not all(
+            math.isfinite(v) for r in recs for v in r.values()
+            if not isinstance(v, str)):
+        fail(f'the nccl run logged {recs}')
+    ckpts = sorted(os.listdir(os.path.join(work, 'checkpoints')))
+    if ckpts != [str(steps)]:
+        fail(f'the nccl run saved {ckpts}, not step {steps}')
+    step_dir = os.path.join(work, 'checkpoints', str(steps))
+    t0 = time.perf_counter()
+    printed = run_torchrun(['kgdet_tpu_torch.tools.test', cfg_path,
+                            '--distributed', '--checkpoint', step_dir,
+                            '--json-out', os.path.join(root, 'nccl_test')],
+                           os.path.join(root, 'nccl_test.log'))
+    test_s = time.perf_counter() - t0
+    run_cli([cfg_path, '--checkpoint', step_dir, '--json-out',
+             os.path.join(root, 'plain_test')])
+    for kind in ('bbox', 'keypoints'):
+        copypaste(printed, kind, 12 if kind == 'bbox' else 10)
+        with open(os.path.join(root, f'nccl_test.{kind}.json')) as f:
+            got = json.load(f)
+        with open(os.path.join(root, f'plain_test.{kind}.json')) as f:
+            want = json.load(f)
+        if got != want:
+            fail(f'tools/test.py --distributed {kind} detections differ from '
+                 'the same checkpoint without it')
+    print(f'data parallel over nccl: tools/train.py --distributed, one rank, '
+          f'{steps} steps of {DP_BATCH}, {len(recs)} finite records, '
+          f'checkpoint {ckpts[0]}, {train_s:.1f} s; tools/test.py '
+          f'--distributed --checkpoint {steps}, its detections bit-equal to '
+          f'the run without --distributed, {test_s:.1f} s ({gpu})',
+          flush=True)
+
+
+# tests/test_overfit.py's two fixed images: two garments each
+OVERFIT_CANVAS = (64, 96)
+OVERFIT_KPTS = 12
+OVERFIT_GT = [[(10, 8, 44, 40, 3), (56, 30, 90, 60, 7)],
+              [(16, 20, 52, 56, 3), (60, 6, 88, 30, 11)]]
+
+
+def overfit_batch():
+    """tests/test_overfit.py::overfit_batch."""
+    import numpy as np
+    (H, W), K = OVERFIT_CANVAS, OVERFIT_KPTS
+    rng = np.random.RandomState(7)
+    B, G = 2, 4
+    img = rng.randn(B, H, W, 3).astype(np.float32)
+    boxes = np.zeros((B, G, 4), np.float32)
+    labels = np.zeros((B, G), np.int32)
+    mask = np.zeros((B, G), bool)
+    kpts = np.zeros((B, G, K, 3), np.float32)
+    for b, lst in enumerate(OVERFIT_GT):
+        for g, (x1, y1, x2, y2, c) in enumerate(lst):
+            boxes[b, g] = (x1, y1, x2, y2)
+            labels[b, g] = c
+            mask[b, g] = True
+            kpts[b, g, :, 0] = np.linspace(x1 + 2, x2 - 2, K)
+            kpts[b, g, :, 1] = np.linspace(y1 + 2, y2 - 2, K)[::-1]
+            kpts[b, g, :, 2] = 1
+    return {'image': img,
+            'valid_hw': np.tile(np.asarray((H, W), np.int32), (B, 1)),
+            'gt_bboxes': boxes, 'gt_labels': labels, 'gt_kpts': kpts,
+            'gt_mask': mask}
+
+
+def learning_proof(torch, gpu, per_step):
+    """(c): tests/test_torch_train.py::test_overfit_reaches_high_ap_and_kpt
+    _accuracy on the card in bf16 through K2, K3, K4 and K5: the tiny R-50
+    cascade (64 channels, 12 keypoints) trained with adam at 2e-3 after 10
+    warmup steps on the two fixed images, up to 300 steps, stopping at a
+    check every 50 steps from step 150 once AP >= 0.99 and the keypoint
+    error < 4 px; the test's bounds. Returns the launches of its steps."""
+    import numpy as np
+
+    from kgdet_tpu_torch.api import init_trainer, make_predict_fn
+    from kgdet_tpu_torch.config import (BackboneConfig, DataConfig,
+                                        HeadConfig, KGDetConfig, NeckConfig,
+                                        OptimConfig, TestConfig)
+    from kgdet_tpu_torch.core.postprocess import detections_to_per_class
+    from kgdet_tpu_torch.eval.mean_ap import eval_map
+
+    (H, W), K = OVERFIT_CANVAS, OVERFIT_KPTS
+    cfg = KGDetConfig(
+        backbone=BackboneConfig(depth=50, frozen_stages=1),
+        neck=NeckConfig(in_channels=(256, 512, 1024, 2048), out_channels=64,
+                        select_out=(2,), gn_groups=32),
+        head=HeadConfig(num_classes=13, in_channels=64, feat_channels=64,
+                        point_feat_channels=64, stacked_convs=1,
+                        num_keypts=K, gn_groups=8),
+        test=TestConfig(nms_pre=50, max_per_class=10, max_per_img=20,
+                        score_thr=0.0),
+        val_data=DataConfig(img_scale=(96, 64), canvas_hw=((H, W),)),
+        optim=OptimConfig(type='adam', lr=2e-3, warmup_iters=10,
+                          lr_step_epochs=(1000,), total_epochs=1),
+        compute_dtype='bfloat16')
+    model, _, step = init_trainer(cfg, (H, W), 10 ** 6)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             overfit_batch().items()}
+    predict = make_predict_fn(model, cfg, (H, W))
+    feed = {'image': batch['image'],
+            'img_hw': torch.tensor([[H, W]] * 2, dtype=torch.float32),
+            'scale_factor': torch.ones(2)}
+    host = {k: v.cpu().numpy() for k, v in batch.items()}
+    gt_b = [host['gt_bboxes'][b][host['gt_mask'][b]] for b in range(2)]
+    gt_l = [host['gt_labels'][b][host['gt_mask'][b]] for b in range(2)]
+
+    def evaluate():
+        model.eval()
+        dets = predict(feed)
+        model.train()
+        per = detections_to_per_class(dets, num_classes=13)
+        m, _ = eval_map([r[0] for r in per], gt_b, gt_l, iou_thr=0.5)
+        b0 = dets['det_bboxes'][0].float().cpu().numpy()
+        v0 = dets['valid'][0].cpu().numpy()
+        kerr = float('inf')
+        if v0.any():
+            i = int(np.argmax(np.where(v0, b0[:, 4], -1)))
+            kp = dets['det_kpts'][0][i].float().cpu().numpy().reshape(K, 3)
+            kerr = float(np.linalg.norm(
+                kp[:, :2] - host['gt_kpts'][0, 0, :, :2], axis=-1).mean())
+        return m, kerr
+
+    ap0, _ = evaluate()
+    losses, ap, kerr = [], 0.0, float('inf')
+    step_launches = {k: 0 for k in per_step}
+    t0 = time.perf_counter()
+    for i in range(300):
+        before = read_launches()
+        losses.append(step(batch)['loss'])
+        after = read_launches()
+        for k in step_launches:
+            step_launches[k] += after[k] - before[k]
+        if i >= 149 and (i + 1) % 50 == 0:
+            ap, kerr = evaluate()
+            if ap >= 0.99 and kerr < 4.0:
+                break
+    losses = torch.stack(losses).float().cpu().numpy()
+    secs = time.perf_counter() - t0
+    n = len(losses)
+    want = {k: v * n for k, v in per_step.items()}
+    print(f'learning proof, bf16 on the card: {n} steps, loss '
+          f'{losses[0]:.4f} -> {losses[-1]:.4f}, bbox AP@0.5 {ap0:.3f} -> '
+          f'{ap:.3f}, keypoint error {kerr:.2f} px, launches {step_launches} '
+          f'over the steps, {secs:.1f} s ({gpu})', flush=True)
+    if step_launches != want:
+        fail(f'learning proof launches {step_launches} != {want}')
+    if not np.isfinite(losses).all() or not losses[-1] < 0.25 * losses[0] \
+            or not ap >= 0.5 or not ap > ap0 + 0.3 or not kerr < 4.0:
+        fail('the learning proof missed tests/test_overfit.py\'s bounds')
+    return step_launches
+
+
+def phase_data_parallel(torch, gpu, per_step, per_fwd):
+    """Phase 11, data parallel on the cascade config: (a) two ranks over
+    gloo on the one card against one process, (b) one rank over NCCL
+    through the CLIs under torchrun, (c) the learning proof in bf16.
+    Returns the launches of (a)'s steps, (a)'s inference and (c)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix='kgdet_dp_')
+    try:
+        t0 = time.perf_counter()
+        make_eval_set(root, SEED, n_images=DP_IMAGES)
+        make_eval_set(root, SEED + 10, n_images=DP_IMAGES, split='train')
+        t1 = time.perf_counter()
+        dp_train, dp_eval = dp_two_ranks(torch, gpu, root, per_step, per_fwd)
+        t2 = time.perf_counter()
+        dp_nccl_one_rank(torch, gpu, root)
+        t3 = time.perf_counter()
+        proof = learning_proof(torch, gpu, per_step)
+        t4 = time.perf_counter()
+        print(f'phase 11 seconds: PNGs {t1 - t0:.1f}, (a) two ranks '
+              f'{t2 - t1:.1f}, (b) nccl {t3 - t2:.1f}, (c) learning proof '
+              f'{t4 - t3:.1f} ({gpu})', flush=True)
+        return dp_train, dp_eval, proof
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     # prove that nothing of JAX or of the JAX package is needed: any import
     # of them now fails
@@ -2376,6 +2889,13 @@ def main():
         torch, gpu, launch_counts(deform_sample_split=2, deform_sample_bwd=2,
                                   **prefix),
         launch_counts(deform_fused=12, **prefix))
+
+    # data parallel: two ranks on the card, one over NCCL, the learning proof
+    launches['dp_train'], launches['dp_eval'], launches['learning_proof'] = \
+        phase_data_parallel(
+            torch, gpu, launch_counts(deform_sample_split=2,
+                                      deform_sample_bwd=2, **prefix),
+            launch_counts(deform_fused=12, **prefix))
 
     src = 'kgdet_tpu_torch/csrc/'
     ref = 'kgdet_tpu/ops/'

@@ -210,17 +210,20 @@ def init_detector(cfg_or_path, checkpoint=None, pth: Optional[str] = None,
                   jax_variables=None, device=None) -> Detector:
     """A ready-to-call Detector on ``device`` (None: the CUDA card): seeded
     random weights (cfg.seed), or, in this order of precedence, a reference
-    .pth, a checkpoint of the port (``checkpoint``, second as in the JAX
-    package: a train-state step such as ``work_dir/checkpoints/16`` or a
-    params-only save, utils/checkpoint.py::load_params), or flax variables
-    of the JAX package's model."""
+    .pth (utils/convert.py::load_reference_state: keys the JAX package's
+    converter skips are dropped, model keys the .pth lacks keep their
+    seeded values), a checkpoint of the port (``checkpoint``, second as in
+    the JAX package: a train-state step such as ``work_dir/checkpoints/16``
+    or a params-only save, utils/checkpoint.py::load_params), or flax
+    variables of the JAX package's model."""
     cfg = load_config(cfg_or_path) if isinstance(cfg_or_path, str) \
         else cfg_or_path
     device = resolve_device(device)
     model = build_model(cfg, device='cpu').init_weights(cfg.seed)
     if pth is not None:
-        from kgdet_tpu_torch.utils.convert import load_pth
-        model.load_state_dict(load_pth(pth), strict=True)
+        from kgdet_tpu_torch.utils.convert import (load_pth,
+                                                   load_reference_state)
+        load_reference_state(model, load_pth(pth))
     elif checkpoint is not None:
         from kgdet_tpu_torch.utils.checkpoint import load_params
         model.load_state_dict(load_params(checkpoint), strict=True)

@@ -8,7 +8,11 @@ coordinates before the loss and normalized by point_base_scale * stride;
 keypoint weights are normalized per instance by the visible-coordinate count
 and scaled by 4. ``serial_loss``: 5 terms a level, the init stage on the
 point targets and the refine stage on the MaxIoU targets, each with its own
-average factor. Every term is computed in f32.
+average factor. Every term is computed in f32. In a process group the
+average factors (positive counts) are summed over the processes, so that
+each process's terms are its share of the global batch's, as the JAX single
+program takes them over the global batch; the per-instance keypoint
+normalization stays local.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from kgdet_tpu_torch.config import HeadConfig
 from kgdet_tpu_torch.core.targets import PointTargets
 from kgdet_tpu_torch.ops.losses import sigmoid_focal_loss, smooth_l1_loss
 from kgdet_tpu_torch.ops.points import offsets_to_coords
+from kgdet_tpu_torch.parallel.dist import global_sum
 
 
 def kgdet_loss(level_outs: List[Dict], level_points: Sequence,
@@ -36,7 +41,9 @@ def kgdet_loss(level_outs: List[Dict], level_points: Sequence,
     logs = {}
     total = 0.0
     # num_total_pos sums the per-image clamped counts over images and levels
-    avg = sum(t.num_pos.sum() for t in targets_per_level).to(torch.float32)
+    # (and processes)
+    avg = global_sum(sum(t.num_pos.sum() for t in targets_per_level)
+                     .to(torch.float32))
 
     for lvl, (outs, points, tgt) in enumerate(
             zip(level_outs, level_points, targets_per_level)):
@@ -105,9 +112,9 @@ def serial_loss(level_outs, level_points, init_targets, refine_targets,
     num_classes = head_cfg.num_classes
     logs = {}
     total = 0.0
-    avg_init = sum(t.num_pos.sum() for t in init_targets).to(torch.float32)
-    avg_refine = sum(t.num_pos.sum()
-                     for t in refine_targets).to(torch.float32)
+    avg_init, avg_refine = global_sum(torch.stack([
+        sum(t.num_pos.sum() for t in targets)
+        for targets in (init_targets, refine_targets)]).to(torch.float32))
 
     def norm_kpt_weights(w):
         pos = w.sum(dim=1, keepdim=True)

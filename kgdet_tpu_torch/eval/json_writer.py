@@ -52,14 +52,17 @@ def detections_to_json(results, img_ids, cat_ids, num_digits=4):
     return bbox_json, kpt_json
 
 
+def write_results(dets, files):
+    """Each result list of ``dets`` (by COCO type) as JSON to its path in
+    ``files``."""
+    for kind, path in files.items():
+        with open(path, 'w') as f:
+            json.dump(dets[kind], f)
+
+
 def dump_results(results, img_ids, cat_ids, out_prefix):
     bbox_json, kpt_json = detections_to_json(results, img_ids, cat_ids)
-    files = {
-        'bbox': f'{out_prefix}.bbox.json',
-        'keypoints': f'{out_prefix}.keypoints.json',
-    }
-    with open(files['bbox'], 'w') as f:
-        json.dump(bbox_json, f)
-    with open(files['keypoints'], 'w') as f:
-        json.dump(kpt_json, f)
+    dets = {'bbox': bbox_json, 'keypoints': kpt_json}
+    files = {k: f'{out_prefix}.{k}.json' for k in dets}
+    write_results(dets, files)
     return files

@@ -6,7 +6,10 @@ unpadded by ``valid`` and deduped by image id (the grouped loader wrap-pads
 partial batches), converted to COCO JSON and scored by the NumPy
 DeepFashion2 evaluator (294-sigma OKS). The loader's threads do host NumPy
 work only; every tensor op runs in the caller's thread on the model's
-device.
+device. In a process group each process infers its stride of the batches,
+the results are gathered onto every process and every process scores them,
+as the JAX package's run_eval does, so that none waits in a collective
+while another scores; process 0 alone writes the JSON files.
 """
 from __future__ import annotations
 
@@ -22,15 +25,9 @@ from kgdet_tpu_torch.api import make_predict_fn, make_raw_predict_fn
 from kgdet_tpu_torch.config import KGDetConfig
 from kgdet_tpu_torch.data.loader import DataLoader
 from kgdet_tpu_torch.eval.cocoeval import CocoEvaluator
-from kgdet_tpu_torch.eval.json_writer import dump_results
-
-
-def _world():
-    """(rank, world size) of torch.distributed, (0, 1) outside it."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+from kgdet_tpu_torch.eval.json_writer import (detections_to_json,
+                                              write_results)
+from kgdet_tpu_torch.parallel.dist import world
 
 
 def make_predict_fns(model, cfg: KGDetConfig, canvases):
@@ -77,7 +74,7 @@ def run_inference_tta(model, cfg: KGDetConfig, dataset, scales=None,
     on first use."""
     from kgdet_tpu_torch.core.postprocess import nms_detections
 
-    rank, world = _world()
+    rank, world_size = world()
     scales = [tuple(s) for s in scales] if scales \
         else [tuple(cfg.val_data.img_scale)]
     variants = [(s, f) for s in scales
@@ -90,7 +87,7 @@ def run_inference_tta(model, cfg: KGDetConfig, dataset, scales=None,
         view = TTAVariant(dataset, img_scale=scale, flip=f)
         loader = DataLoader(
             view, batch_size or max(cfg.val_data.batch_size, 1),
-            train=False, num_workers=2, num_shards=world, shard_id=rank)
+            train=False, num_workers=2, num_shards=world_size, shard_id=rank)
         seen = set()
         for batch in loader:
             canvas = tuple(batch['image'].shape[1:3])
@@ -188,36 +185,51 @@ def run_inference(model, cfg: KGDetConfig, loader: DataLoader,
 
 
 def gather_results_across_processes(results: Dict[int, tuple]):
-    """The results of every process; the identity for one process. Several
-    processes wait for multi-GPU evaluation (ROADMAP Queue 1 item 4)."""
-    if _world()[1] > 1:
-        raise NotImplementedError(
-            'evaluation across processes is not ported yet (ROADMAP Queue 1 '
-            'item 4)')
-    return results
+    """The results of every process merged into one dict on every process
+    (``dist.all_gather_object``; an image inferred by two processes, as a
+    wrap-padded batch's repeat, keeps the later process's detections, as
+    kgdet_tpu/eval_loop.py:232-258 merges them); the identity for one
+    process."""
+    if world()[1] == 1:
+        return results
+    import torch.distributed as dist
+    gathered = [None] * world()[1]
+    dist.all_gather_object(gathered, results)
+    merged: Dict[int, tuple] = {}
+    for part in gathered:
+        merged.update(part)
+    return merged
 
 
 def evaluate_results(results: Dict[int, tuple], dataset,
                      out_prefix: Optional[str] = None,
-                     iou_types=('bbox', 'keypoints'), verbose: bool = True):
+                     iou_types=('bbox', 'keypoints'), verbose: bool = True,
+                     write: bool = True):
     """results -> COCO JSON -> AP stats dict (parity: coco_utils.coco_eval).
     The JSON files go to ``out_prefix``.{bbox,keypoints}.json, by default
-    under the temporary directory."""
+    under the temporary directory, where ``write`` (process 0 of a group);
+    the scores are taken from the same lists in memory, so a process that
+    writes nothing returns the same (stats, files)."""
     img_ids = sorted(results.keys())
     per_img = [results[i][:3] for i in img_ids]
     if out_prefix is None:
         out_prefix = os.path.join(tempfile.gettempdir(), 'kgdet_eval')
-    os.makedirs(os.path.dirname(os.path.abspath(out_prefix)), exist_ok=True)
-    files = dump_results(per_img, img_ids, dataset.cat_ids, out_prefix)
+    dets = dict(zip(('bbox', 'keypoints'),
+                    detections_to_json(per_img, img_ids, dataset.cat_ids)))
+    files = {k: f'{out_prefix}.{k}.json' for k in dets}
+    if write:
+        os.makedirs(os.path.dirname(os.path.abspath(out_prefix)),
+                    exist_ok=True)
+        write_results(dets, files)
 
     if 'segm' in iou_types:
-        files['segm'] = f'{out_prefix}.segm.json'
+        files['segm'] = dets['segm'] = f'{out_prefix}.segm.json'
         _write_segm_json(results, img_ids, dataset, files['segm'])
 
     stats = {}
     for iou_type in iou_types:
-        res_file = files[iou_type if iou_type in files else 'keypoints']
-        dt = dataset.coco.load_results(res_file)
+        dt = dataset.coco.load_results(
+            dets[iou_type if iou_type in dets else 'keypoints'])
         ev = CocoEvaluator(dataset.coco, dt, iou_type)
         ev.params.img_ids = img_ids
         ev.evaluate()
@@ -249,10 +261,10 @@ def infer_dataset(model, cfg: KGDetConfig, dataset,
             batch_size=batch_size, verbose=verbose)
         iou_types = ('bbox',)
     else:
-        rank, world = _world()
+        rank, world_size = world()
         loader = DataLoader(
             dataset, batch_size or max(cfg.val_data.batch_size, 1),
-            train=False, num_workers=num_workers, num_shards=world,
+            train=False, num_workers=num_workers, num_shards=world_size,
             shard_id=rank)
         results = run_inference(model, cfg, loader, verbose=verbose,
                                 timings=timings)
@@ -264,9 +276,12 @@ def run_eval(model, cfg: KGDetConfig, dataset,
              batch_size: Optional[int] = None, out_prefix=None,
              num_workers: int = 2, verbose: bool = True,
              tta: bool = False, tta_scales=None, tta_flip: bool = True):
-    """Full inference + evaluation pipeline; returns (AP stats, files)."""
+    """Full inference + evaluation pipeline; returns (AP stats, files),
+    the same on every process (process 0 alone prints and writes)."""
+    lead = world()[0] == 0
+    verbose = verbose and lead
     results, iou_types = infer_dataset(
         model, cfg, dataset, batch_size=batch_size, num_workers=num_workers,
         verbose=verbose, tta=tta, tta_scales=tta_scales, tta_flip=tta_flip)
     return evaluate_results(results, dataset, out_prefix,
-                            iou_types=iou_types, verbose=verbose)
+                            iou_types=iou_types, verbose=verbose, write=lead)

@@ -1,13 +1,13 @@
-"""Training step, optimizer and LR schedule, on one device.
+"""Training step, optimizer and LR schedule.
 
 Port of kgdet_tpu/parallel/train.py for the single-stage families:
 ``make_lr_schedule``, ``frozen_param_mask``, ``paramwise_multipliers``,
 ``make_optimizer``, ``build_level_geometry``, ``batch_valid_flags``,
 ``compute_loss`` and ``make_train_step``. Parameters are addressed by their
 ``named_parameters()`` names (the reference's torch names). The step updates
-the model in place and returns the logs. The JAX package's mesh helpers
-(``make_mesh``, ``shard_batch``, ``replicate``) have no counterpart until the
-data-parallel slice.
+the model in place and returns the logs. In a process group it is the
+data-parallel step of parallel/dist.py, which holds the counterparts of the
+JAX module's ``make_mesh``, ``shard_batch`` and ``replicate``.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import torch
 from kgdet_tpu_torch.config import KGDetConfig
 from kgdet_tpu_torch.ops.image import device_normalize
 from kgdet_tpu_torch.ops.points import grid_points, valid_flags
+from kgdet_tpu_torch.parallel.dist import all_reduce_grads, global_sum, world
 
 
 # --------------------------------------------------------------- LR schedule
@@ -257,7 +258,14 @@ def make_train_step(model, cfg: KGDetConfig, canvas_hw, optimizer):
     counts (nine terms and ``num_pos`` for the KGDet cascade; five terms a
     level, ``num_pos_init`` and ``num_pos_refine`` for the serial family),
     ``loss`` and ``grad_norm`` (the global norm before clipping) as detached
-    0-d tensors on the model's device."""
+    0-d tensors on the model's device.
+
+    In a process group the step takes this process's share of the global
+    batch; it sums the gradients over the processes before the update and
+    the loss terms before it returns them, so that the update and the logs
+    are those of one process on the global batch (``num_pos*`` are summed
+    inside the loss already).
+    """
     loss_fn = make_loss_fn(model, cfg, canvas_hw)
 
     def train_step(batch):
@@ -266,7 +274,13 @@ def make_train_step(model, cfg: KGDetConfig, canvas_hw, optimizer):
         total.backward()
         logs = {k: v.detach() for k, v in logs.items()}
         logs['loss'] = total.detach()
+        if world()[1] > 1:
+            all_reduce_grads(optimizer.all_params)
+            terms = [k for k in logs if not k.startswith('num_pos')]
+            summed = global_sum(torch.stack([logs[k] for k in terms]))
+            logs.update(zip(terms, summed.unbind()))
         logs['grad_norm'] = optimizer.step()
         return logs
 
     return train_step
+

@@ -1,16 +1,23 @@
 """Training runner: epoch loop, logging, checkpointing, evaluation hook.
 
 Port of kgdet_tpu/runner.py (the counterpart of mmcv's Runner and mmdet's
-train_detector, reference mmdet/apis/train.py:137-221) on one device: the
-model, its optimizer (parallel/train.py::SGDOptimizer) and the progress
-counters, one train step per canvas bucket sharing that optimizer,
-checkpoints of the port's own (utils/checkpoint.py), JSONL + text logs with
-the JAX package's records, and a COCO evaluation after each epoch.
-Deterministic given (seed, data); on the CPU a resumed run continues bit
-for bit.
+train_detector, reference mmdet/apis/train.py:137-221): the model, its
+optimizer (parallel/train.py::SGDOptimizer) and the progress counters, one
+train step per canvas bucket sharing that optimizer, checkpoints of the
+port's own (utils/checkpoint.py), JSONL + text logs with the JAX package's
+records, and a COCO evaluation after each epoch. Deterministic given (seed,
+data); on the CPU a resumed run continues bit for bit.
+
+In a process group (parallel/dist.py::init_distributed, one process a
+GPU) each process drives one device: it takes ``batch_size // world``
+images a step from its stride of the loader's batches, the parameters and
+optimizer state are sent from process 0 after setup, process 0 alone
+writes checkpoints and logs, and the evaluation is sharded, gathered and
+scored on every process (eval_loop.py).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import time
@@ -23,8 +30,9 @@ import torch
 from kgdet_tpu_torch.api import build_model, resolve_device
 from kgdet_tpu_torch.config import KGDetConfig
 from kgdet_tpu_torch.data.dataset import DeepFashion2Dataset
-from kgdet_tpu_torch.data.loader import DataLoader
-from kgdet_tpu_torch.eval_loop import _world, run_eval
+from kgdet_tpu_torch.data.loader import DataLoader, grouped_batch_indices
+from kgdet_tpu_torch.eval_loop import run_eval
+from kgdet_tpu_torch.parallel.dist import replicate, world
 from kgdet_tpu_torch.parallel.train import make_optimizer, make_train_step
 from kgdet_tpu_torch.utils.checkpoint import CheckpointManager
 
@@ -34,7 +42,7 @@ class TrainLogger:
 
     def __init__(self, work_dir: str, interval: int = 50, enabled=True):
         self.interval = interval
-        self.enabled = enabled and _world()[0] == 0
+        self.enabled = enabled and world()[0] == 0
         self.buffer: deque = deque(maxlen=interval)
         self.jsonl_path = os.path.join(work_dir, 'train_log.jsonl')
         if self.enabled:
@@ -83,15 +91,19 @@ class TrainLogger:
 
 class Runner:
     """Owns model, optimizer and checkpoint state and the epoch loop, on
-    ``device`` (None: the CUDA card, an error where there is none)."""
+    ``device`` (None: the CUDA card, an error where there is none).
+    ``n_devices`` is the number of processes (None: the process group's
+    size, 1 outside one): a process drives one device, so any other count
+    raises; start several processes with torchrun instead."""
 
     def __init__(self, cfg: KGDetConfig, work_dir: Optional[str] = None,
                  n_devices: Optional[int] = None, log_interval: int = 50,
                  val_dataset=None, device=None):
-        if n_devices not in (None, 1):
-            raise NotImplementedError(
-                f'n_devices={n_devices}: training on several GPUs is not '
-                'ported yet (ROADMAP Queue 1 item 4)')
+        if n_devices not in (None, world()[1]):
+            raise ValueError(
+                f'n_devices={n_devices} in a world of {world()[1]} '
+                'process(es): a process drives one device; start one '
+                'process a GPU with torchrun (tools/dist_train.sh)')
         self.cfg = cfg
         self.work_dir = work_dir or cfg.work_dir
         self.device = resolve_device(device)
@@ -121,11 +133,20 @@ class Runner:
         if train_dataset is None:
             train_dataset = DeepFashion2Dataset(cfg.train_data, train=True)
         self.train_dataset = train_dataset
-        rank, world = _world()
+        rank, world_size = world()
+        per_process = cfg.train_data.batch_size // world_size
+        if per_process * world_size != cfg.train_data.batch_size:
+            raise ValueError(
+                f'train_data.batch_size {cfg.train_data.batch_size} not '
+                f'divisible by {world_size} processes')
         self.train_loader = DataLoader(
-            train_dataset, max(cfg.train_data.batch_size // world, 1),
-            train=True, seed=cfg.seed, num_shards=world, shard_id=rank)
-        self.steps_per_epoch = len(self.train_loader)
+            train_dataset, per_process, train=True, seed=cfg.seed,
+            num_shards=world_size, shard_id=rank)
+        # every process takes the same steps: an epoch's batches beyond a
+        # multiple of the world are dropped (the count is the same every
+        # epoch)
+        self.steps_per_epoch = len(grouped_batch_indices(
+            train_dataset.flags, per_process, 0, cfg.seed)) // world_size
 
         if init_state_dict is None:
             self.model.init_weights(cfg.seed)
@@ -143,6 +164,10 @@ class Runner:
                 if self.logger.enabled:
                     print(f'[runner] resumed from step {latest} '
                           f'(epoch {self.epoch})', flush=True)
+        # every process from process 0's weights and optimizer state
+        opt = self.optimizer
+        replicate([*self.model.parameters(), *self.model.buffers(),
+                   *opt.momentum, *(opt.second_moment or [])])
 
     def _state_dict(self):
         return {
@@ -206,8 +231,8 @@ class Runner:
         self.train_loader.set_epoch(self.epoch)
         t_last = time.time()
         n_imgs = 0
-        for it, batch in enumerate(
-                self._device_prefetch(iter(self.train_loader))):
+        batches = itertools.islice(self.train_loader, self.steps_per_epoch)
+        for it, batch in enumerate(self._device_prefetch(batches)):
             canvas = tuple(batch['image'].shape[1:3])
             logs = self._get_step_fn(canvas)(batch)
             self.step += 1
@@ -215,7 +240,7 @@ class Runner:
             if (it + 1) % self.logger.interval == 0:
                 self._sync()
                 dt = time.time() - t_last
-                ips = n_imgs * _world()[1] / max(dt, 1e-9)
+                ips = n_imgs * world()[1] / max(dt, 1e-9)
                 lr = float(self.schedule(self.step - 1))
                 self.logger.log_iter(self.epoch, it, self.steps_per_epoch,
                                      logs, lr, ips)
@@ -227,8 +252,13 @@ class Runner:
         self.epoch += 1
 
     def save_checkpoint(self, wait: bool = False):
-        if _world()[0] == 0:
+        """Process 0 writes the step; in a process group every process
+        then waits for it, so that a resume finds the step complete."""
+        if world()[0] == 0:
             self.ckpt.save(self.step, self._state_dict(), wait=wait)
+        if world()[1] > 1:
+            import torch.distributed as dist
+            dist.barrier()
 
     def evaluate(self, verbose: bool = True):
         if self.val_dataset is None:

@@ -7,7 +7,8 @@ otherwise:
       configs/kgdet_moment_r50_fpn_1x_demo.py \
       [--checkpoint work_dirs/x/checkpoints/16 | --load-pth KGDet_epoch-12.pth] \
       [--json-out results] \
-      [--eval bbox keypoints] [--batch-size N] [--aug ...] [--device cpu]
+      [--eval bbox keypoints] [--batch-size N] [--aug ...] \
+      [--device cpu] [--distributed]
 
 Emits {json_out}.bbox.json / {json_out}.keypoints.json in the reference's
 results2json format, scores them with the DeepFashion2 COCO evaluator and
@@ -17,6 +18,14 @@ seeded random weights.
 ``main(argv)`` runs in-process and returns the stats, the JSON files, the
 per-image results and the timings (seconds of setup, inference and
 evaluation, and run_inference's own).
+
+``--distributed`` runs one process a GPU under torchrun
+(``tools/dist_test.sh CONFIG GPUS --checkpoint STEP``): each process infers
+its stride of the batches, the results are gathered onto every process
+(eval_loop.py::gather_results_across_processes, as the reference mmdet
+does; the JAX package's CLI scores each process's share alone), every
+process scores them and returns the same stats, and process 0 alone writes
+the JSON files and prints.
 """
 from __future__ import annotations
 
@@ -49,33 +58,41 @@ def parse_args(argv=None):
     p.add_argument('--aug-scales', type=int, nargs='*', default=None,
                    help='flat (long short) pairs, e.g. 1333 800 667 400')
     p.add_argument('--no-aug-flip', action='store_true')
-    p.add_argument('--distributed', action='store_true')
+    p.add_argument('--distributed', action='store_true',
+                   help='one process a GPU under torchrun')
     p.add_argument('--device', default=None,
-                   help='torch device; default the CUDA card (an error '
-                        'where there is none)')
+                   help='torch device; default the CUDA card (under '
+                        '--distributed the card numbered LOCAL_RANK), an '
+                        'error where there is none')
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            '--distributed: multi-GPU evaluation is not ported yet (ROADMAP '
-            'Queue 1 item 4)')
+    t_start = time.perf_counter()
+    if not args.distributed:
+        return test(args, args.device, t_start)
+    from kgdet_tpu_torch.parallel.dist import process_group
+    with process_group(args.device) as device:
+        return test(args, device, t_start)
 
+
+def test(args, device, t_start):
     from kgdet_tpu_torch.api import init_detector, resolve_device
     from kgdet_tpu_torch.config import load_config
     from kgdet_tpu_torch.data.dataset import DeepFashion2Dataset
     from kgdet_tpu_torch.eval_loop import evaluate_results, infer_dataset
+    from kgdet_tpu_torch.parallel.dist import world
 
-    t_start = time.perf_counter()
-    device = resolve_device(args.device)
+    lead = world()[0] == 0
+    device = resolve_device(device)
     cfg = load_config(args.config)
     model = init_detector(cfg, args.checkpoint, pth=args.load_pth,
                           device=device).model
 
     dataset = DeepFashion2Dataset(cfg.val_data, train=False)
-    print(f'[test] {len(dataset)} images on {device}', flush=True)
+    if lead:
+        print(f'[test] {len(dataset)} images on {device}', flush=True)
     timings = {'setup_s': time.perf_counter() - t_start}
     scales = None
     if args.aug_scales:
@@ -84,8 +101,8 @@ def main(argv=None):
     # four loader threads, the loader's default, as the JAX package's CLI
     results, eval_types = infer_dataset(
         model, cfg, dataset, batch_size=args.batch_size, num_workers=4,
-        tta=args.aug, tta_scales=scales, tta_flip=not args.no_aug_flip,
-        timings=timings)
+        verbose=lead, tta=args.aug, tta_scales=scales,
+        tta_flip=not args.no_aug_flip, timings=timings)
     if not args.aug:
         eval_types = tuple(args.eval)
     out = {'results': results, 'timings': timings}
@@ -97,7 +114,8 @@ def main(argv=None):
                                       proposal_nums=args.proposal_nums)
         line = ' '.join(f'{rstats[f"AR@{n}"]:.4f}'
                         for n in args.proposal_nums)
-        print(f'proposal_AR_copypaste: {line}')
+        if lead:
+            print(f'proposal_AR_copypaste: {line}')
         return {**out, 'stats': {'proposal_fast': rstats}, 'files': {}}
     t_eval = time.perf_counter()
     timings['infer_s'] = t_eval - t_start - timings['setup_s']
@@ -105,13 +123,14 @@ def main(argv=None):
         results, dataset,
         out_prefix=args.json_out or os.path.join(tempfile.gettempdir(),
                                                  'kgdet_test'),
-        iou_types=eval_types)
+        iou_types=eval_types, verbose=lead, write=lead)
     timings['eval_s'] = time.perf_counter() - t_eval
     timings['wall_s'] = time.perf_counter() - t_start
-    for iou_type, s in stats.items():
-        line = ' '.join(f'{v:.4f}' for k, v in s.items())
-        print(f'{iou_type}_mAP_copypaste: {line}')
-    print(f'[test] wrote {files}')
+    if lead:
+        for iou_type, s in stats.items():
+            line = ' '.join(f'{v:.4f}' for k, v in s.items())
+            print(f'{iou_type}_mAP_copypaste: {line}')
+        print(f'[test] wrote {files}')
     return {**out, 'stats': stats, 'files': files}
 
 

@@ -146,3 +146,147 @@ def load_pth(path: str) -> Dict[str, torch.Tensor]:
     state = ckpt.get('state_dict', ckpt)
     return {k[len('module.'):] if k.startswith('module.') else k: v
             for k, v in state.items()}
+
+
+# ------------------------------------------------------ the converter's skips
+# The JAX package's converter (kgdet_tpu/utils/torch_convert.py,
+# convert_state_dict) maps a reference key onto its model or lists it as
+# skipped. Its layout maps are not needed here (the port's modules carry the
+# reference names), but which keys it skips is: a .pth loads into the port
+# exactly as it loads there. The branches below are its 22 skip sites, in
+# its order.
+_GA_MODS = ('conv_loc', 'conv_shape', 'conv_cls', 'conv_reg', 'retina_cls',
+            'retina_reg')
+
+
+def _ga_maps(p):
+    if p[0] in _GA_MODS:
+        return True
+    if p[0] in ('feature_adaption', 'feature_adaption_cls',
+                'feature_adaption_reg'):
+        return p[1] in ('conv_offset', 'conv_adaption') and p[2] == 'weight'
+    return False
+
+
+def _block_sub_maps(sub):
+    return sub.startswith(('conv', 'bn')) or sub == 'downsample'
+
+
+def _backbone_skips(p):
+    if p[0] in ('features', 'extra', 'l2_norm') or \
+            re.match(r'transition\d$', p[0]):
+        return False
+    if re.match(r'stage\d$', p[0]):
+        if p[2] == 'branches':
+            return not _block_sub_maps(p[5])
+        return p[2] != 'fuse_layers'
+    if p[0] in ('conv1', 'conv2', 'bn1', 'bn2'):
+        return False
+    if re.match(r'layer\d$', p[0]):
+        sub = p[2]
+        if sub == 'gen_attention_block':
+            return p[3] not in (
+                'query_conv', 'key_conv', 'value_conv', 'proj_conv',
+                'appr_geom_fc_x', 'appr_geom_fc_y', 'appr_bias',
+                'geom_bias', 'gamma')
+        if sub == 'context_block':
+            if p[3] == 'conv_mask':
+                return False
+            if p[3] in ('channel_add_conv', 'channel_mul_conv'):
+                return p[4] not in ('0', '1', '3')
+            return True
+        return not (sub == 'conv2_offset' or _block_sub_maps(sub))
+    return True
+
+
+def _neck_skips(p, is_hrfpn):
+    if p[0] in ('0', '1'):
+        return _neck_skips(p[1:], is_hrfpn)
+    if p[0] in ('reduction_conv', 'refine') or \
+            (is_hrfpn and p[0] == 'fpn_convs'):
+        return False
+    if not re.match(r'(lateral|fpn)_convs$', p[0]):
+        return True
+    return p[2] not in ('conv', 'gn')
+
+
+def _head_skips(p):
+    convfc = ('shared_fcs', 'fc_cls', 'fc_reg')
+    if p[0].isdigit():
+        return p[1] not in convfc
+    if p[0] in convfc + ('res_block', 'fc_branch', 'moment_transfer',
+                         'keypts_init_conv', 'reppts_init_conv', 'fcos_cls',
+                         'fcos_reg', 'fcos_centerness', 'scales') \
+            or _ga_maps(p):
+        return False
+    if p[0] == 'conv_branch':
+        return not p[2].startswith(('conv', 'gn'))
+    if re.match(r'(cls|reg)_convs$', p[0]):
+        return p[2] not in ('weight', 'bias', 'conv', 'gn')
+    if re.match(r'(cls|keypts|reppts)_(init|refine)_(dfmconv|out)$', p[0]):
+        return False
+    if re.match(r'kp_rep_block_\d$', p[0]):
+        return not (re.match(r'(cls|keypts)_dfmconv(_\d)?$', p[1]) or p[1] in
+                    ('cls_out', 'keypts_out', 'reppts_out', 'cls_conv',
+                     'keypts_conv'))
+    return True
+
+
+def converter_skips(key: str, is_hrfpn: bool = False) -> bool:
+    """Whether the JAX package's converter lists reference key ``key`` as
+    skipped (maps it onto no parameter). ``is_hrfpn``: the state_dict has
+    an HRFPN neck (a ``neck.reduction_conv.`` key), whose ``fpn_convs``
+    it maps however they are named."""
+    top, *p = key.split('.')
+    if top == 'backbone':
+        return _backbone_skips(p)
+    if top == 'neck':
+        return _neck_skips(p, is_hrfpn)
+    if top == 'bbox_head':
+        return _head_skips(p)
+    if top == 'rpn_head':
+        return not (p[0] in ('rpn_conv', 'rpn_cls', 'rpn_reg')
+                    or _ga_maps(p))
+    if top == 'mask_head':
+        p = p[1:] if p[0].isdigit() else p
+        return p[0] not in ('convs', 'conv_res', 'upsample', 'conv_logits')
+    if top == 'grid_head':
+        return p[0] not in ('convs', 'forder_trans', 'sorder_trans',
+                            'deconv1', 'norm1', 'deconv2')
+    if top == 'shared_head':
+        return not (re.match(r'layer\d$', p[0]) and _block_sub_maps(p[2]))
+    if top == 'mask_iou_head':
+        return p[0] not in ('convs', 'fcs', 'fc_mask_iou')
+    if top == 'semantic_head':
+        return p[0] not in ('lateral_convs', 'convs', 'conv_embedding',
+                            'conv_logits')
+    return True
+
+
+def load_reference_state(model, state: Dict[str, torch.Tensor]):
+    """Load a reference state_dict (``load_pth``) into ``model`` in place,
+    accepting and refusing what the JAX package's ``.pth`` routes do
+    (convert_state_dict, then merge_into_variables(strict=True)): keys its
+    converter skips are dropped and returned; a key it maps that the model
+    lacks raises KeyError; a shape that differs from the model's raises
+    ValueError; model keys the state lacks keep their values. BatchNorm's
+    ``num_batches_tracked``, which no layer reads, is not loaded. Nothing
+    is loaded unless every key passes. Returns the skipped keys."""
+    is_hrfpn = any(k.startswith('neck.reduction_conv.') for k in state)
+    own = model.state_dict()
+    skipped, take = [], {}
+    for key, value in state.items():
+        if converter_skips(key, is_hrfpn):
+            skipped.append(key)
+        elif key.endswith('.num_batches_tracked'):
+            continue
+        elif key not in own:
+            raise KeyError(f'{key} is mapped by the converter but not a '
+                           'key of the model')
+        elif tuple(value.shape) != tuple(own[key].shape):
+            raise ValueError(f'{key}: shape {tuple(value.shape)} != the '
+                             f"model's {tuple(own[key].shape)}")
+        else:
+            take[key] = value
+    model.load_state_dict(take, strict=False)
+    return skipped

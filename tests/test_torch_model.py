@@ -158,8 +158,9 @@ def test_other_families_raise():
 def test_port_runs_without_jax_flax_cv2():
     """The port imports, loads every config file, serves a batch and takes
     a train step (the KGDet cascade, then each of the serial, parallel,
-    plain RepPoints and single-column families) with jax, flax, cv2 and
-    kgdet_tpu unavailable, as on the GPU machine."""
+    plain RepPoints and single-column families, then the cascade in a
+    process group of one) with jax, flax, cv2 and kgdet_tpu unavailable,
+    as on the GPU machine."""
     code = '\n'.join([
         'import glob, sys',
         "for m in ('jax', 'flax', 'cv2', 'kgdet_tpu'):",
@@ -216,6 +217,21 @@ def test_port_runs_without_jax_flax_cv2():
         ", head_type",
         "    fdets = make_predict_fn(fmodel.eval(), fcfg, (64, 96))(batch)",
         "    assert fdets['det_bboxes'].shape == (1, 20, 5), head_type",
+        # the data-parallel code: a group of one process over gloo
+        'import os, socket',
+        'from kgdet_tpu_torch.parallel.dist import (init_distributed, '
+        'replicate, shard_batch, world)',
+        'from kgdet_tpu_torch.tools import dp_step',
+        "port = socket.create_server(('127.0.0.1', 0))",
+        "os.environ.update(RANK='0', WORLD_SIZE='1', MASTER_ADDR="
+        "'127.0.0.1', MASTER_PORT=str(port.getsockname()[1]))",
+        'port.close()',
+        "assert init_distributed('cpu') == torch.device('cpu')",
+        'assert world() == (0, 1)',
+        'replicate(model)',
+        'logs = step(shard_batch(train_batch, 0, 1))',
+        "assert torch.isfinite(logs['loss'])",
+        "assert dp_step.kernel_launches()['deform_fused'] == 0",
         "print('ok', sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'flax', 'cv2', 'kgdet_tpu') "
         "and sys.modules[k] is not None))",
@@ -396,6 +412,63 @@ def test_init_detector_loads_reference_style_pth(models, tmp_path):
     got = det._predict_for(CANVAS)(batch)
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), want[k].numpy())
+
+
+# one key for each of the JAX converter's 22 skip sites, in its order, and
+# keys beside them that it maps (with values its layout maps take)
+SKIPPED_KEYS = (
+    'backbone.stage2.0.branches.0.0.relu.weight',
+    'backbone.stage2.0.foo.weight', 'backbone.layer1.0.relu.weight',
+    'backbone.fc.weight', 'neck.extra_conv.weight',
+    'neck.lateral_convs.0.bn.weight', 'neck.0.lateral_convs.0.bn.weight',
+    'backbone.layer2.0.gen_attention_block.foo.weight',
+    'backbone.layer2.0.context_block.channel_add_conv.2.weight',
+    'backbone.layer2.0.context_block.foo.weight', 'rpn_head.foo.weight',
+    'rpn_head.feature_adaption.conv_offset.bias', 'mask_head.foo.weight',
+    'mask_head.0.foo.weight', 'grid_head.foo.weight',
+    'shared_head.foo.weight', 'shared_head.layer4.0.relu.weight',
+    'mask_iou_head.foo.weight', 'semantic_head.foo.weight',
+    'bbox_head.0.foo.weight', 'bbox_head.conv_branch.0.relu.weight',
+    'bbox_head.cls_convs.0.bn.weight', 'bbox_head.kp_rep_block_1.foo.weight',
+    'bbox_head.feature_adaption.conv_offset.bias', 'bbox_head.foo.weight',
+    'roi_head.bbox_head.fc_cls.weight', 'num_batches_tracked')
+MAPPED_KEYS = (
+    'backbone.features.0.weight', 'backbone.layer2.0.conv2_offset.weight',
+    'backbone.layer2.0.gen_attention_block.gamma',
+    'backbone.layer2.0.context_block.channel_add_conv.3.weight',
+    'backbone.stage2.0.fuse_layers.0.1.0.weight', 'rpn_head.rpn_conv.weight',
+    'rpn_head.conv_loc.weight', 'mask_head.convs.0.conv.weight',
+    'mask_head.1.conv_res.conv.weight', 'grid_head.convs.0.conv.weight',
+    'shared_head.layer4.0.conv1.weight', 'mask_iou_head.convs.0.weight',
+    'semantic_head.convs.0.conv.weight',
+    'neck.1.refine.conv.weight', 'bbox_head.fcos_cls.weight',
+    'bbox_head.cls_init_dfmconv.weight', 'bbox_head.reg_convs.0.weight',
+    'bbox_head.res_block.conv1.conv.weight')
+
+
+def test_pth_skip_rule_matches_the_jax_converter():
+    """utils/convert.py::converter_skips against convert_state_dict's
+    skipped list, key by key: every key of every ported family's model
+    (mapped), a key at each of the converter's 22 skip sites and mapped
+    keys of modules the port lacks."""
+    from kgdet_tpu_torch.utils.convert import converter_skips
+    from tests.test_torch_serial import family_cfg
+    state = dict(build_model(tiny_r50_cfg(), device='cpu').state_dict())
+    for head_type in ('SerialKpHead', 'ParallelKpHead', 'RepPointsHead',
+                      'KGDetHead1Rep'):
+        state.update(build_model(family_cfg(head_type), device='cpu')
+                     .state_dict())
+    for key in SKIPPED_KEYS + MAPPED_KEYS:
+        state.setdefault(key, torch.zeros(4, 4, 3, 3))
+    _, _, skipped = convert_state_dict(state)
+    assert sorted(skipped) == sorted(SKIPPED_KEYS)
+    assert [k for k in state if converter_skips(k)] == skipped
+    # an HRFPN neck (a reduction_conv key) maps fpn_convs however named
+    hrfpn = {'neck.reduction_conv.conv.weight': torch.zeros(4, 4, 1, 1),
+             'neck.fpn_convs.0.foo.weight': torch.zeros(4, 4, 3, 3)}
+    assert convert_state_dict(hrfpn)[2] == []
+    assert not converter_skips('neck.fpn_convs.0.foo.weight', is_hrfpn=True)
+    assert converter_skips('neck.fpn_convs.0.foo.weight')
 
 
 def test_init_detector_takes_a_checkpoint_second(tmp_path):

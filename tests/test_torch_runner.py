@@ -353,8 +353,9 @@ def test_test_cli_checkpoint_serves_the_runner_model(runs, tmp_path,
 
 
 def test_train_cli_runs_without_jax_flax_cv2(runs, tmp_path):
-    """tools/train.py in a process where jax, flax, cv2 and kgdet_tpu
-    cannot be imported, reading PNGs: an epoch, its log, its checkpoint."""
+    """tools/train.py --distributed (a group of one process over gloo) in a
+    process where jax, flax, cv2 and kgdet_tpu cannot be imported, reading
+    PNGs: an epoch, its log, its checkpoint."""
     work = str(tmp_path / 'w')
     code = '\n'.join([
         'import sys',
@@ -362,9 +363,16 @@ def test_train_cli_runs_without_jax_flax_cv2(runs, tmp_path):
         '    sys.modules[m] = None',
         'import torch',
         'torch.set_num_threads(1)',
+        'import os, socket',
+        'from kgdet_tpu_torch.tools import dp_step',
         'from kgdet_tpu_torch.tools.train import main',
+        "port = socket.create_server(('127.0.0.1', 0))",
+        "os.environ.update(RANK='0', WORLD_SIZE='1', MASTER_ADDR="
+        "'127.0.0.1', MASTER_PORT=str(port.getsockname()[1]))",
+        'port.close()',
         f"r = main([{runs['cfg_path']!r}, '--device', 'cpu', '--work-dir', "
-        f"{work!r}, '--max-epochs', '1', '--log-interval', '2'])",
+        f"{work!r}, '--max-epochs', '1', '--log-interval', '2', "
+        "'--distributed'])",
         "print('steps', r.step)",
         "print('ok', sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'flax', 'cv2', 'kgdet_tpu') "
@@ -403,6 +411,86 @@ def test_train_cli_initializes_from_a_checkpoint_or_pth(runs, tmp_path,
             assert torch.equal(got[k], want[k]), (flag, k)
         assert r.cfg.optim.lr == pytest.approx(runs['cfg'].optim.lr * 2 / 16)
         assert r.step == 0
+
+
+@pytest.fixture(scope='module')
+def jax_template(runs):
+    """The JAX package's initialized variables of the runner's config."""
+    jcfg = jload_config(runs['cfg_path'])
+    return init_variables(jbuild_model(jcfg), jcfg)
+
+
+# (name, keys added, key left out, key given a wrong shape, what both
+# packages raise)
+PTH_CASES = {
+    'unmapped': ({'roi_head.bbox_head.fc_cls.weight': (14, 8),
+                  'backbone.layer1.0.relu.weight': (2,)}, None, None, None),
+    'serial_head_key': ({'bbox_head.cls_init_dfmconv.weight':
+                         (64, 64, 3, 3)}, None, None, KeyError),
+    'rpn_head_key': ({'rpn_head.rpn_conv.weight': (64, 64, 3, 3)}, None,
+                     None, KeyError),
+    'model_key_left_out': ({}, 'bbox_head.kp_rep_block_3.cls_out.weight',
+                           None, None),
+    'wrong_shape': ({}, None, 'neck.lateral_convs.0.conv.weight',
+                    ValueError),
+}
+
+
+@pytest.mark.parametrize('case', sorted(PTH_CASES))
+def test_pth_routes_accept_and_refuse_as_the_jax_package(
+        runs, jax_template, case, tmp_path, monkeypatch, capsys):
+    """A .pth with (a) keys no converter maps, (b) a mapped key of another
+    family, (c) a model key left out, (d) a wrong shape, through the port's
+    init_detector(pth=) and tools/train.py --load-pth and through the JAX
+    package's convert_pth + merge_into_variables(strict=True), which both
+    of its routes call: accepted or refused alike, the same keys skipped,
+    the model's keys the .pth lacks keeping their seeded values."""
+    from kgdet_tpu.utils.torch_convert import convert_pth, \
+        merge_into_variables
+    from kgdet_tpu_torch.utils.convert import load_pth, load_reference_state
+    added, left_out, reshaped, error = PTH_CASES[case]
+    cfg = runs['cfg']
+    seeded = build_model(cfg, device='cpu').init_weights(cfg.seed)
+    state = build_model(cfg, device='cpu').init_weights(cfg.seed + 1) \
+        .state_dict()
+    state.update({k: torch.ones(shape) for k, shape in added.items()})
+    if left_out:
+        del state[left_out]
+    if reshaped:
+        state[reshaped] = torch.ones(state[reshaped].shape[0], 8, 1, 1)
+    path = str(tmp_path / 'ref.pth')
+    torch.save({'state_dict': {f'module.{k}': v for k, v in state.items()}},
+               path)
+
+    monkeypatch.setattr(Runner, 'run', lambda self, **kw: None)
+    argv = [runs['cfg_path'], '--device', 'cpu', '--work-dir',
+            str(tmp_path / 'w'), '--load-pth', path]
+    routes = (lambda: convert_pth(path),
+              lambda: merge_into_variables(jax_template,
+                                           *convert_pth(path)[:2]),
+              lambda: init_detector(cfg, pth=path, device='cpu').model,
+              lambda: ttrain.main(argv).model,
+              lambda: load_reference_state(build_model(cfg, device='cpu'),
+                                           load_pth(path)))
+    if error is not None:
+        convert_pth(path)       # the JAX converter maps the key
+        for route in routes[1:]:
+            with pytest.raises(error):
+                route()
+        return
+    _, _, want_skipped = convert_pth(path)
+    merge_into_variables(jax_template, *convert_pth(path)[:2])
+    assert routes[4]() == want_skipped
+    assert sorted(want_skipped) == sorted(added)
+    capsys.readouterr()
+    for model in (routes[2](), routes[3]()):
+        got = model.state_dict()
+        for k, v in got.items():
+            want = seeded.state_dict()[k] if k == left_out else state[k]
+            assert torch.equal(v, want), (case, k)
+    printed = capsys.readouterr().out
+    assert (f'[convert] skipped {len(added)} keys: {want_skipped}...'
+            in printed) == bool(added)
 
 
 @pytest.mark.parametrize('task', ['cal_train_time', 'plot_curve'])
@@ -445,9 +533,12 @@ def test_publish_model_drops_the_optimizer(runs, tmp_path):
 
 
 def test_several_devices_raise_naming_item_4(runs):
-    with pytest.raises(NotImplementedError, match='item 4'):
+    """Several devices are several processes (tests/test_torch_dist.py
+    trains in two): in one process, n_devices=2 is refused naming torchrun,
+    and --distributed outside torchrun names what it needs."""
+    with pytest.raises(ValueError, match='torchrun'):
         Runner(runs['cfg'], work_dir=runs['d'], n_devices=2, device='cpu')
-    with pytest.raises(NotImplementedError, match='item 4'):
+    with pytest.raises(RuntimeError, match='runs under torchrun'):
         ttrain.main([runs['cfg_path'], '--distributed', '--device', 'cpu'])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA'):

@@ -348,3 +348,66 @@ def test_training_entry_points_default_to_the_card():
                                     device='cpu')
     assert next(model.parameters()).device.type == 'cpu'
     assert opt.step_count == 0
+
+
+def test_overfit_reaches_high_ap_and_kpt_accuracy():
+    """The port's learning proof, tests/test_overfit.py's on the port:
+    the tiny R-50 cascade (tests/test_overfit.py's R-18 has no port)
+    trained by the port's make_train_step with ``adam`` at 2e-3 after 10
+    warmup steps on that test's two fixed images, up to 300 steps (from
+    step 150 on, stopping at a check every 50 steps once AP >= 0.99 and the
+    keypoint error < 4 px), then held to that test's bounds: the loss below
+    a quarter of its start, bbox AP@0.5 on the training images (the port's
+    make_predict_fn, detections_to_per_class and eval_map) at least 0.5 and
+    0.3 over the untrained model's, and the best detection's keypoints of
+    image 0 within 4 px of its first ground truth's on average."""
+    from kgdet_tpu_torch.api import make_predict_fn
+    from kgdet_tpu_torch.core.postprocess import detections_to_per_class
+    from kgdet_tpu_torch.eval.mean_ap import eval_map
+    from tests.test_overfit import H, K, W, overfit_batch
+
+    cfg = tiny_r50_cfg().replace(optim=OptimConfig(
+        type='adam', lr=2e-3, warmup_iters=10, lr_step_epochs=(1000,),
+        total_epochs=1))
+    assert cfg.head.num_keypts == K
+    model, _, step = init_trainer(cfg, (H, W), 10 ** 6, device='cpu')
+    batch = overfit_batch()
+    predict = make_predict_fn(model, cfg, (H, W))
+    feed = {'image': batch['image'],
+            'img_hw': np.asarray([[H, W]] * 2, np.float32),
+            'scale_factor': np.ones((2,), np.float32)}
+    gt_b = [batch['gt_bboxes'][b][batch['gt_mask'][b]] for b in range(2)]
+    gt_l = [batch['gt_labels'][b][batch['gt_mask'][b]] for b in range(2)]
+
+    def evaluate():
+        model.eval()
+        dets = predict(feed)
+        model.train()
+        per = detections_to_per_class(dets, num_classes=13)
+        m, _ = eval_map([r[0] for r in per], gt_b, gt_l, iou_thr=0.5)
+        b0 = dets['det_bboxes'][0].numpy()
+        v0 = dets['valid'][0].numpy()
+        kerr = np.inf
+        if v0.any():
+            i = int(np.argmax(np.where(v0, b0[:, 4], -1)))
+            kp = dets['det_kpts'][0][i].numpy().reshape(K, 3)
+            kerr = float(np.linalg.norm(
+                kp[:, :2] - batch['gt_kpts'][0, 0, :, :2], axis=-1).mean())
+        return m, kerr
+
+    ap0, _ = evaluate()
+    losses = []
+    ap, kerr = 0.0, np.inf
+    for i in range(300):
+        losses.append(step(batch)['loss'].item())
+        if i >= 149 and (i + 1) % 50 == 0:
+            ap, kerr = evaluate()
+            if ap >= 0.99 and kerr < 4.0:
+                break
+    print(f'steps {len(losses)}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, '
+          f'AP@0.5 {ap0:.3f} -> {ap:.3f}, keypoint error {kerr:.2f} px')
+    assert np.isfinite(losses).all()
+    assert losses[-1] < losses[0] * 0.25, (losses[0], losses[-1])
+    assert ap >= 0.5, f'train-set AP@0.5 {ap} (untrained {ap0})'
+    assert ap > ap0 + 0.3
+    assert kerr < 4.0, f'mean keypoint error {kerr}px'
