@@ -31,7 +31,11 @@ is called through its prepared entry too (one kernel a call), held against
 K5 on the same inputs (f32: within the tolerance, each on its FMA body;
 bf16: bit for bit, one tensor-core body), shown by the kernel's name to run
 the 16x16 tensor-core body, and checked and timed once more at width 128
-(layer2's stride-1 block at layer1's map size, the 8x16 tile). After the
+(layer2's stride-1 block at layer1's map size, the 8x16 tile). K6 and K3
+also at the DCN backbone's stride-2 shapes (phase 12 (c)): layer2.0, map
+200x336x128 with 100x168 outputs, and layer4.0, map 50x84x512 with 25x42
+outputs, 9 taps around each output pixel's centre, with their
+F.grid_sample yardsticks. After the
 build, ptxas's registers and spills a kernel and, by cuobjdump, the bf16
 tensor-core instructions and local-memory accesses in the SASS of the
 bottleneck bodies of K5 and K8 (fails if a tensor-core instance has none).
@@ -134,12 +138,45 @@ quarter of its start, bbox AP@0.5 >= 0.5 and 0.3 over the untrained model,
 keypoint error < 4 px. Prints each part's seconds and the 2-rank step ms
 beside one process's (two ranks sharing one card: no scaling figure).
 
+Phase 12: the anchor families and the DCN backbone at full width, seeded
+random weights, test.score_thr 0. (a) RetinaNet (the recipe of mmdetection
+v1.x's retinanet_r50_fpn_1x, built from the cascade config: 5-level FPN
+without norm, RetinaHead with 4 stacked convs, 9 anchors a location),
+bf16: 2 requests of 2 served at 800x1344 (K4 1 / K5 3 a forward, nothing
+else), the head outputs against the plain kernels as phase 2 holds them,
+2 train steps through init_trainer (K4 1 / K5 3 a step, finite logs, a
+frozen parameter bit-equal, retina_cls moved). (b)
+configs/ssd300_vgg16_deepfashion2.py as shipped (f32, batch 32, 300x300;
+no TPU kernel on its path in either package): 2 batches served and 2
+train steps with every counter at 0, then tools/train.py --validate for
+one epoch of 2 steps on 64 synthetic training PNGs and 32 validation PNGs
+with the config's photometric distortion, expand and min-IoU crop
+(finite records, one checkpoint, the bbox copypaste line). (c) The
+cascade config with backbone.dcn_stages=(1, 2, 3) (DCN v1 in c3-c5, as
+mmdetection v1.x's dconv_c3-c5 configs), bf16: the offset convs given
+seeded weights so that the taps leave the pixel grid (about 0.25 cell),
+2 requests of 2 served (K1 12 / K4 1 / K5 3 / K6 13 a forward), C3-C5 and
+the last-stage head outputs against the plain kernels (f32 within F32_TOL
+with atol scaled by each map's largest value, the prefix the same on both
+sides; bf16 within BF16_RATIO x the plain model's error), 2 train steps
+(K2 2 / K3 15 / K4 1 / K5 3 / K6 13 a step), the DCN's deform_conv (the
+Function over K6+K3 and the contraction) against its plain version on
+the step's own tensors of layer2.0 (stride 2) and layer4.1 (stride 1),
+and the model's gradients against the plain kernels' with the prefix the
+same on both sides (the whole-model rule) and in bf16. (d)
+kgdet_tpu_torch/tools/benchmark.py --synthetic as its own process on the
+cascade config (batch 2, 32 images) and on SSD300 (batch 32, 256 images):
+exit 0 and its Overall fps line, echoed. (a) to (c) also print the served
+batch's and the train step's profile by stage, as phases 3 and 5 do.
+
 Prints the card's name and power limit, one line per check, a JSON line of
 the seven kernels (launches on each main path, the evaluation CLI's
-included, error, wrapper and device times, bound), and as
+and phase 12's included, error, wrapper and device times, bound), and as
 its last line {"ok": true, "device": {...}}. Exits
 nonzero, with no result line, when a check fails or no CUDA device is
 present. Imports nothing of JAX and nothing of the JAX package.
+``--phases`` runs a subset of the phase groups while developing and then
+prints no result line; the check runs them all, with no argument.
 """
 from __future__ import annotations
 
@@ -443,6 +480,17 @@ def phase_kernels(torch, gen):
     def out_bytes(fn, args):
         return nbytes(*tensors(fn(*args)))
 
+    def dcn_pos(Ho, Wo, stride):    # a DCN's taps: its 3x3 grid around
+        # the output pixel's centre (stride x its index), moved by N(0, 0.5)
+        ys, xs = torch.meshgrid(torch.arange(Ho), torch.arange(Wo),
+                                indexing='ij')
+        centre = stride * torch.stack([ys, xs], dim=-1).reshape(
+            1, Ho * Wo, 1, 2)
+        grid = torch.tensor([(dy, dx) for dy in (-1, 0, 1)
+                             for dx in (-1, 0, 1)]).reshape(1, 1, 9, 2)
+        noise = 0.5 * torch.randn((B, Ho * Wo, 9, 2), generator=gen)
+        return (centre + grid + noise).to(dev)
+
     def cast(args):                 # K1's (feat, pos, weight) in bf16
         f, p, wt = args
         return [f.to(bf16), p, wt.to(bf16)]
@@ -645,6 +693,36 @@ def phase_kernels(torch, gen):
         k1_ops(H * W, K, C, 2 * C), 'bf16'))
     del feat, pos, w, g, a16
 
+    # the DCN backbone's stride-2 blocks (phase 12 (c)), 9 taps around each
+    # output pixel's centre: K6 (its forward, served and trained) and K3
+    # (its backward) at layer2.0 (map 200x336x128, outputs 100x168) and
+    # layer4.0 (map 50x84x512, outputs 25x42)
+    for label, (H, W, C_dcn) in (('layer2_0', (200, 336, 128)),
+                                 ('layer4_0', (50, 84, 512))):
+        Ho, Wo = -(-H // 2), -(-W // 2)
+        P = Ho * Wo
+        feat, pos = randn(B, H, W, C_dcn), dcn_pos(Ho, Wo, 2)
+        g = randn(B, P, K, C_dcn)
+        lib_fwd, lib_bwd, lib_err, lib_dtype = library_sampling(feat, pos, g)
+        name = f'K6 deform_sample_cols DCN {label} map {H}x{W}x{C_dcn} ' \
+            f'stride 2'
+        m, a16 = check_pair(name, dk.deform_sample_cols,
+                            dk.deform_sample_cols_ref, [feat, pos],
+                            lambda a: [a[0].to(bf16), a[1]])
+        one_launch(name, m)
+        results['deform_sample_cols'][f'dcn_{label}'] = entry(m, *bound(
+            nbytes(*a16) + out_bytes(dk.deform_sample_cols, a16),
+            7 * B * P * K * C_dcn, 'f32'), library_ms=lib_fwd)
+        results['deform_sample_bwd'][f'dcn_{label}'] = check_bwd(
+            f'DCN {label} map {H}x{W}x{C_dcn} stride 2, taps near their '
+            f'centre', feat, pos, g, lib_bwd)
+        print(f'K6 / K3 yardstick F.grid_sample and its backward '
+              f'({lib_dtype}, NCHW) DCN {label}: {lib_fwd:.4f} / '
+              f'{lib_bwd:.4f} ms, f32 max err vs plain {lib_err:.3e}',
+              flush=True)
+        del feat, pos, g, a16
+    torch.cuda.empty_cache()
+
     def keeping(prepare, run):
         """K4, K5 or K8 through its prepared entry, the prepared weights kept
         per dtype as ResNet.prefix_weights keeps them on the main path: a
@@ -762,7 +840,7 @@ def phase_kernels(torch, gen):
               f'{r["device_ms"]:.4f} ms, per forward or step of batch {B})',
               flush=True)
         for case in ('near', 'b8_42x25', 'serial', 'serial_near',
-                     'width128'):
+                     'width128', 'dcn_layer2_0', 'dcn_layer4_0'):
             if case in r:
                 q = r[case]
                 print(f'bound {name}, {case}: {q["bound_ms"]:.4f} ms by '
@@ -823,9 +901,10 @@ def serve(torch, predict, reqs):
 
 
 def last_stage(outs):
-    """The last stage's cls, kpt and bbox maps of every level."""
+    """The last stage's maps of every level: cls, kpt and bbox of the
+    point families, cls and bbox of the anchor families."""
     return {f'{k} level {lvl}': o[k][-1] for lvl, o in enumerate(outs)
-            for k in ('cls', 'kpt', 'bbox')}
+            for k in ('cls', 'kpt', 'bbox') if k in o}
 
 
 def hold_against_plain(torch, model, batch, where=''):
@@ -867,25 +946,42 @@ def hold_against_plain(torch, model, batch, where=''):
                  f'{BF16_RATIO} x plain {ep:.3e}')
 
 
-def phase_serving(torch, gpu, config, per_fwd, n_reqs=SERVED, compare=True):
+def config_of(config):
+    """(config, its name): a config file's, or a config built here with
+    the name given beside it as (name, config)."""
+    from kgdet_tpu_torch.api import load_config
+    if isinstance(config, str):
+        return load_config(config), os.path.relpath(config, ROOT)
+    return config[1], config[0]
+
+
+def phase_serving(torch, gpu, config, per_fwd, n_reqs=SERVED, compare=True,
+                  prepare=None):
     """Serve ``n_reqs`` requests through make_predict_fn on the config's
     model at full width; check the launch counts per forward and the
     detections; with ``compare``, hold the last-stage head outputs of the
-    model on its kernels against the model on their plain versions."""
-    from kgdet_tpu_torch.api import build_model, load_config, make_predict_fn
+    model on its kernels against the model on their plain versions.
+    ``prepare(model, request)``, where given, sets weights before the
+    first request."""
+    from kgdet_tpu_torch.api import build_model, make_predict_fn
+    from kgdet_tpu_torch.models.families import ANCHOR_FAMILIES
 
-    cfg = load_config(config)
+    cfg, name = config_of(config)
     cfg = cfg.replace(test=dataclasses.replace(cfg.test, score_thr=0.0))
-    print(f'serving: {os.path.relpath(config, ROOT)} ({cfg.head.type}, '
+    print(f'serving: {name} ({cfg.head.type}, '
           f'strides {cfg.head.point_strides}), {cfg.compute_dtype}, canvas '
           f'{CANVAS[0]}x{CANVAS[1]}, batch {B}, random weights (seed {SEED}); '
           f'test.score_thr set to 0.0 so NMS has work under random weights',
           flush=True)
     model = build_model(cfg).init_weights(SEED).eval()
+    kpt_width = 3 if cfg.head.type in ANCHOR_FAMILIES \
+        else 3 * cfg.head.num_keypts
     if next(model.parameters()).device.type != 'cuda':
         fail('build_model did not place the model on the card')
     predict = make_predict_fn(model, cfg, CANVAS)
     reqs = make_requests(n_reqs, SEED)
+    if prepare is not None:
+        prepare(model, reqs[0])
 
     predict(reqs[0])                      # warm-up: cuDNN plans, allocator
     reset_launches()
@@ -902,7 +998,7 @@ def phase_serving(torch, gpu, config, per_fwd, n_reqs=SERVED, compare=True):
                 fail(f'non-finite {k} in the served detections')
         if tuple(d['det_bboxes'].shape) != (B, cfg.test.max_per_img, 5) or \
                 tuple(d['det_kpts'].shape) != \
-                (B, cfg.test.max_per_img, 3 * cfg.head.num_keypts):
+                (B, cfg.test.max_per_img, kpt_width):
             fail(f'detection shapes {[tuple(v.shape) for v in d.values()]}')
         n_valid += int(d['valid'].sum())
     if n_valid == 0:
@@ -1003,7 +1099,8 @@ def phase_profile(torch, model, cfg, req, gpu, steps=2):
         with record_function('backbone'):
             feats = model.backbone(x.to(model.dtype))
         with record_function('neck'):
-            feats = model.neck(feats)
+            if model.neck is not None:      # SSD300: the Identity neck
+                feats = model.neck(feats)
         with record_function('head'):
             outs = model.bbox_head(feats)
         with record_function('decode'):
@@ -1021,7 +1118,8 @@ def phase_profile(torch, model, cfg, req, gpu, steps=2):
     span_ms, busy_ms, kern = stage_times(prof, STAGES, DeviceType.CUDA,
                                          steps)
     busy = sum(busy_ms.values())
-    kind = 'plain versions' if model.backbone.plain_prefix else 'kernels'
+    kind = 'plain versions' if getattr(model.backbone, 'plain_prefix',
+                                       False) else 'kernels'
     print(f'profile ({kind}): {steps} batches of {len(img)} at '
           f'{canvas[0]}x{canvas[1]} under torch.profiler: '
           f'{wall:.3f} ms per batch, device busy {busy:.3f} ms, idle share '
@@ -1131,10 +1229,10 @@ def take_train_steps(torch, gpu, config, per_step, n_logs, free_name):
     per step, finite logs (``n_logs`` of them), a frozen parameter bit-equal
     and ``free_name`` moved. Returns (model, cfg, optimizer, batches,
     launches)."""
-    from kgdet_tpu_torch.api import init_trainer, load_config
+    from kgdet_tpu_torch.api import init_trainer
     from kgdet_tpu_torch.parallel.train import frozen_param_mask
 
-    cfg = load_config(config)
+    cfg, name = config_of(config)
     model, optimizer, train_step = init_trainer(cfg, CANVAS,
                                                 steps_per_epoch=1000)
     params = dict(model.named_parameters())
@@ -1175,7 +1273,7 @@ def take_train_steps(torch, gpu, config, per_step, n_logs, free_name):
     if torch.equal(params[free_name].detach(), start[free_name]):
         fail(f'free parameter {free_name} did not move')
     ms = secs / TRAIN_STEPS * 1e3
-    print(f'training: {os.path.relpath(config, ROOT)}, {TRAIN_STEPS} steps x '
+    print(f'training: {name}, {TRAIN_STEPS} steps x '
           f'{B} images, {cfg.compute_dtype}, canvas {CANVAS[0]}x{CANVAS[1]}, '
           f'launches {got}; {ms:.2f} ms per step, '
           f'{B * TRAIN_STEPS / secs:.2f} img/s, peak memory '
@@ -1530,7 +1628,8 @@ def phase_train_profile(torch, model, cfg, optimizer, batch, gpu, steps=2,
             feats = model.backbone(x.to(model.dtype))
             sync()
         with stage('fwd_neck'):
-            feats = model.neck(feats)
+            if model.neck is not None:      # SSD300: the Identity neck
+                feats = model.neck(feats)
             sync()
         with stage('fwd_head'):
             outs = model.bbox_head(feats)
@@ -1598,10 +1697,11 @@ TTA_IMAGES = 4
 TTA_SCALES = ('1333', '800', '667', '400', '1600', '960')
 
 
-def make_eval_set(root, seed, n_images=EVAL_IMAGES, split='validation'):
+def make_eval_set(root, seed, n_images=EVAL_IMAGES, split='validation',
+                  sizes=EVAL_SIZES):
     """A DeepFashion2-style set under ``root``: {split}-coco_style.json and
     {split}/image/*.png, ``n_images`` images (half landscape, half
-    portrait, EVAL_SIZES), 1 to 3 garments an
+    portrait, ``sizes``), 1 to 3 garments an
     image with keypoints in their class's slice of the 294 and
     num_keypoints, and a crowd region in every fourth image. The images are
     smooth colour ramps with the garments as flat boxes and a little
@@ -1617,7 +1717,7 @@ def make_eval_set(root, seed, n_images=EVAL_IMAGES, split='validation'):
     os.makedirs(img_dir)
     images, anns = [], []
     for i in range(n_images):
-        h, w = EVAL_SIZES[i // 2 % len(EVAL_SIZES)]
+        h, w = sizes[i // 2 % len(sizes)]
         if i % 2:
             h, w = w, h
         yy, xx = np.mgrid[0:h, 0:w]
@@ -2817,7 +2917,502 @@ def phase_data_parallel(torch, gpu, per_step, per_fwd):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def main():
+# ------------------------------- phase 12: RetinaNet, SSD300, the DCN backbone
+SSD_CONFIG = os.path.join(ROOT, 'configs', 'ssd300_vgg16_deepfashion2.py')
+SSD_CANVAS = (300, 300)
+# the shipped train_data / val_data batch (32): 2 training steps an epoch
+SSD_TRAIN_IMAGES = 64
+SSD_VAL_IMAGES = 32
+# small square images, resized to 300x300: one aspect group, so that the
+# grouped loader makes full batches of 32 of 64 and 32 images
+SSD_SIZES = ((300, 300), (240, 240), (360, 360), (420, 420))
+# mmdetection v1.x configs/dcn/*_dconv_c3-c5_r50_fpn_1x.py: DCN (v1, one
+# group) in stages c3 to c5, 0-based stages 1 to 3
+DCN_STAGES = (1, 2, 3)
+# the Function over K6+K3 on the step's tensors of these blocks: stride 2
+# and stride 1
+DCN_FUNCTION_BLOCKS = ('backbone.layer2.0.conv2', 'backbone.layer4.1.conv2')
+DCN_GRAD_GROUPS = ('backbone.layer2.', 'backbone.layer3.', 'backbone.layer4.',
+                   'neck.', 'bbox_head.kp_rep_block_3.')
+BENCH_RUNS = (('cascade', CONFIG, 2, 32), ('ssd300', SSD_CONFIG, 32, 256))
+
+
+def retina_config():
+    """RetinaNet with the recipe of mmdetection v1.x's
+    configs/retinanet_r50_fpn_1x.py at the cascade config's width: ResNet-50
+    (frozen_stages 1), FPN of 256 channels on C3-C5 with two stride-2 extra
+    convs (P3-P7), no norm; 4 stacked convs of 256 a branch, octave base
+    scale 4, 3 scales an octave, ratios 0.5 / 1 / 2; MaxIoU 0.5 / 0.4 / 0;
+    test nms_pre 1000, IoU 0.5, 100 a image. Built here from the cascade
+    config (no config file holds it)."""
+    from kgdet_tpu_torch.config import (AssignConfig, HeadConfig,
+                                        NeckConfig, TestConfig, load_config)
+    cfg = load_config(CONFIG)
+    return 'RetinaNet R-50 FPN (retinanet_r50_fpn_1x recipe)', cfg.replace(
+        neck=NeckConfig(in_channels=(256, 512, 1024, 2048), out_channels=256,
+                        start_level=1, num_outs=5, add_extra_convs=True,
+                        select_out=None, norm=None),
+        head=HeadConfig(type='RetinaHead', num_classes=13, in_channels=256,
+                        feat_channels=256, stacked_convs=4, norm=None,
+                        octave_base_scale=4, scales_per_octave=3,
+                        anchor_ratios=(0.5, 1.0, 2.0),
+                        point_strides=(8, 16, 32, 64, 128)),
+        assigner=AssignConfig(type='MaxIoUAssigner', pos_iou_thr=0.5,
+                              neg_iou_thr=0.4, min_pos_iou=0.0),
+        refine_assigner=None,
+        test=TestConfig(nms_pre=1000, nms_iou_thr=0.5, max_per_img=100))
+
+
+def dcn_config():
+    """The cascade config with backbone.dcn_stages=DCN_STAGES."""
+    from kgdet_tpu_torch.config import load_config
+    cfg = load_config(CONFIG)
+    return 'the cascade with DCN c3-c5', cfg.replace(
+        backbone=dataclasses.replace(cfg.backbone, dcn_stages=DCN_STAGES))
+
+
+def phase_retina(torch, gpu):
+    """(a) RetinaNet at full width: 2 requests of 2 served (K4 1, K5 3 a
+    forward, nothing else), the head outputs against the model on its
+    plain kernels (phase 2's bounds), 2 train steps through init_trainer.
+    Returns the launches served and trained."""
+    prefix = launch_counts(stem_pool=1, frozen_bottleneck=3)
+    config = retina_config()
+    model, cfg, req, served = phase_serving(torch, gpu, config, prefix)
+    phase_profile(torch, model, cfg, req, gpu)
+    del model
+    torch.cuda.empty_cache()
+    model, cfg, optimizer, batches, trained = take_train_steps(
+        torch, gpu, config, prefix, n_logs=5,
+        free_name='bbox_head.retina_cls.weight')
+    phase_train_profile(torch, model, cfg, optimizer, batches[0], gpu)
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return served, trained
+
+
+def ssd_requests(n, seed, b):
+    """Seeded serving batches at 300x300: uint8 images, extents of the
+    resized images (every other one letterboxed to 300x225)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    hw = np.tile(np.array([[300, 300], [225, 300]], np.float32), (b // 2, 1))
+    return [{'image': rng.randint(0, 256, (b, *SSD_CANVAS, 3))
+             .astype(np.uint8), 'img_hw': hw,
+             'scale_factor': np.full((b,), 0.5, np.float32)}
+            for _ in range(n)]
+
+
+def ssd_train_batches(n, seed, b, num_keypts):
+    """Seeded training batches at 300x300: 8 boxes an image of 30 to 200
+    pixels a side."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    G = 8
+    out = []
+    for _ in range(n):
+        boxes = np.zeros((b, G, 4), np.float32)
+        boxes[..., :2] = rng.uniform(0, 150, (b, G, 2))
+        boxes[..., 2:] = boxes[..., :2] + rng.uniform(30, 150, (b, G, 2))
+        kpts = rng.uniform(0, 300, (b, G, num_keypts, 3)).astype(np.float32)
+        kpts[..., 2] = 1
+        out.append({
+            'image': rng.randint(0, 256, (b, *SSD_CANVAS, 3)).astype(
+                np.uint8),
+            'valid_hw': np.tile(np.array([[300, 300]], np.int32), (b, 1)),
+            'gt_bboxes': boxes,
+            'gt_labels': rng.randint(1, 14, (b, G)).astype(np.int32),
+            'gt_kpts': kpts, 'gt_mask': np.ones((b, G), bool)})
+    return out
+
+
+def ssd_cli_config(root):
+    """The shipped SSD300 config with its data under ``root`` and
+    test.score_thr 0.0, as a config file that runs the shipped one."""
+    path = os.path.join(root, 'ssd_cfg.py')
+    with open(path, 'w') as f:
+        f.write(
+            'import dataclasses\nimport runpy\n'
+            f'config = runpy.run_path({SSD_CONFIG!r})["config"]\n'
+            'config = config.replace(\n'
+            '    train_data=dataclasses.replace(\n'
+            '        config.train_data,\n'
+            f'        ann_file={root!r} + "/train-coco_style.json",\n'
+            f'        img_prefix={root!r} + "/train/image"),\n'
+            '    val_data=dataclasses.replace(\n'
+            '        config.val_data,\n'
+            f'        ann_file={root!r} + "/validation-coco_style.json",\n'
+            f'        img_prefix={root!r} + "/validation/image"),\n'
+            '    test=dataclasses.replace(config.test, score_thr=0.0))\n')
+    return path
+
+
+def phase_ssd(torch, gpu):
+    """(b) configs/ssd300_vgg16_deepfashion2.py as shipped (batch 32,
+    300x300; no TPU kernel on this path in either package): 2 batches of
+    32 served and 2 train steps at batch 32 with every kernel counter at 0;
+    then tools/train.py --validate for one epoch of 2 steps on synthetic
+    PNGs with the config's photometric distortion, expand and min-IoU crop.
+    Returns the launches served and trained."""
+    import math
+    import shutil
+    import tempfile
+
+    from kgdet_tpu_torch.api import build_model, init_trainer, load_config, \
+        make_predict_fn
+    from kgdet_tpu_torch.parallel.train import frozen_param_mask
+
+    cfg = load_config(SSD_CONFIG)
+    cfg = cfg.replace(test=dataclasses.replace(cfg.test, score_thr=0.0))
+    b = cfg.val_data.batch_size
+    zero = launch_counts()
+    model = build_model(cfg).init_weights(SEED).eval()
+    predict = make_predict_fn(model, cfg, SSD_CANVAS)
+    reqs = ssd_requests(SERVED, SEED, b)
+    predict(reqs[0])
+    reset_launches()
+    dets, secs = serve(torch, predict, reqs)
+    served = read_launches()
+    if served != zero:
+        fail(f'SSD300 served with kernel launches {served}')
+    n_valid = 0
+    for d in dets:
+        if not all(torch.isfinite(v).all() for v in d.values()
+                   if v.is_floating_point()) or \
+                tuple(d['det_bboxes'].shape) != (b, cfg.test.max_per_img, 5) \
+                or tuple(d['det_kpts'].shape) != (b, cfg.test.max_per_img, 3):
+            fail(f'SSD300 detections {[tuple(v.shape) for v in d.values()]}')
+        n_valid += int(d['valid'].sum())
+    if n_valid == 0:
+        fail('SSD300: no detection survived NMS at score_thr 0')
+    print(f'SSD300 serving: {SERVED} batches x {b} images at 300x300, '
+          f'{cfg.compute_dtype}, {n_valid} valid detections, no kernel '
+          f'launched; {b * SERVED / secs:.2f} img/s ({gpu})', flush=True)
+    phase_profile(torch, model, cfg, reqs[0], gpu)
+    del model, predict
+    torch.cuda.empty_cache()
+
+    model, optimizer, step = init_trainer(cfg, SSD_CANVAS,
+                                          steps_per_epoch=1000)
+    frozen = frozen_param_mask(model, cfg.backbone.frozen_stages)
+    free_name = 'bbox_head.cls_convs.0.weight'
+    params = dict(model.named_parameters())
+    if any(frozen.values()) or frozen[free_name]:
+        fail('SSD300 (frozen_stages -1) froze parameters')
+    start = params[free_name].detach().clone()
+    batches = ssd_train_batches(1 + TRAIN_STEPS, SEED + 1, b,
+                                cfg.head.num_keypts)
+    step(batches[0])
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = [step(x) for x in batches[1:]]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    trained = read_launches()
+    if trained != zero:
+        fail(f'SSD300 trained with kernel launches {trained}')
+    for lg in logs:
+        vals = {k: v.item() for k, v in lg.items()}
+        if len(vals) != 5 or not all(math.isfinite(v)
+                                     for v in vals.values()):
+            fail(f'SSD300 train step logs {vals}')
+    if torch.equal(params[free_name].detach(), start):
+        fail(f'SSD300: {free_name} did not move')
+    print(f'SSD300 training: {TRAIN_STEPS} steps x {b} images, loss '
+          f'{logs[-1]["loss"].item():.4f}, num_pos '
+          f'{logs[-1]["num_pos"].item():.0f}, no kernel launched; '
+          f'{secs / TRAIN_STEPS * 1e3:.2f} ms a step ({gpu})', flush=True)
+    phase_train_profile(torch, model, cfg, optimizer, batches[0], gpu,
+                        canvas=SSD_CANVAS)
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix='kgdet_ssd_')
+    try:
+        t0 = time.perf_counter()
+        make_eval_set(root, SEED + 20, n_images=SSD_TRAIN_IMAGES,
+                      split='train', sizes=SSD_SIZES)
+        make_eval_set(root, SEED + 21, n_images=SSD_VAL_IMAGES,
+                      sizes=SSD_SIZES)
+        cfg_path = ssd_cli_config(root)
+        data = load_config(cfg_path).train_data
+        if not (data.photo_metric_distortion and data.expand
+                and data.random_crop):
+            fail('the SSD300 config no longer turns its augmentations on')
+        work = os.path.join(root, 'work')
+        runner, printed = run_train_cli([cfg_path, '--work-dir', work,
+                                         '--max-epochs', '1', '--validate',
+                                         '--log-interval', '1'])
+        steps = SSD_TRAIN_IMAGES // data.batch_size
+        with open(os.path.join(work, 'train_log.jsonl')) as f:
+            recs = [json.loads(line) for line in f]
+        train_recs = [r for r in recs if r['mode'] == 'train']
+        if runner.step != steps or len(train_recs) != steps or not all(
+                math.isfinite(v) for r in recs for v in r.values()
+                if not isinstance(v, str)):
+            fail(f'SSD300 tools/train.py: step {runner.step}, records {recs}')
+        ckpts = sorted(os.listdir(os.path.join(work, 'checkpoints')))
+        if ckpts != [str(steps)]:
+            fail(f'SSD300 tools/train.py saved {ckpts}, not step {steps}')
+        lines = [ln for ln in printed.splitlines()
+                 if 'bbox_mAP_copypaste: ' in ln]
+        if len(lines) != 1:
+            fail(f'SSD300 tools/train.py --validate printed {lines}')
+        print(f'SSD300 tools/train.py --validate: {SSD_TRAIN_IMAGES} '
+              f'training and {SSD_VAL_IMAGES} validation PNGs, photometric '
+              f'distortion, expand and min-IoU crop on, {steps} steps, '
+              f'{len(recs)} finite records, checkpoint {ckpts[0]}, '
+              f'{time.perf_counter() - t0:.1f} s ({gpu})', flush=True)
+        del runner
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return served, trained
+
+
+def calibrate_offsets(torch, model, req, cells=0.25):
+    """Seeded offset convs in place of their zero init, so that the DCN
+    blocks sample off the pixel grid: each block's conv2_offset gets
+    N(0, sd) weights, sd set from the block's input so that its offsets
+    have a standard deviation of about ``cells`` grid cells."""
+    from kgdet_tpu_torch.models.resnet import Bottleneck
+    from kgdet_tpu_torch.ops.image import device_normalize
+
+    blocks = [m for m in model.modules()
+              if isinstance(m, Bottleneck) and m.use_dcn]
+    rms = {}
+    hooks = [blk.bn1.register_forward_hook(
+        lambda mod, args, out, blk=blk: rms.__setitem__(
+            blk, torch.relu(out.float()).square().mean().sqrt().item()))
+        for blk in blocks]
+    image = device_normalize(torch.as_tensor(req['image']).cuda(),
+                             torch.as_tensor(req['img_hw']).cuda())
+    with torch.inference_mode():
+        model(image)
+    for h in hooks:
+        h.remove()
+    gen = torch.Generator().manual_seed(SEED + 5)
+    with torch.no_grad():
+        for blk in blocks:
+            w = blk.conv2_offset.weight
+            sd = cells / (w[0].numel() ** 0.5 * max(rms[blk], 1e-6))
+            w.copy_(torch.randn(w.shape, generator=gen) * sd)
+    print(f'DCN: {len(blocks)} offset convs given N(0, sd) weights for '
+          f'offsets of about {cells} cell', flush=True)
+
+
+def dcn_levels(torch, model, image):
+    """C3 to C5 and the last-stage head outputs of one forward."""
+    with torch.inference_mode():
+        feats = model.backbone(image.to(model.dtype))
+        outs = model.bbox_head(model.neck(feats))
+    return {**{f'C{i + 2}': f for i, f in enumerate(feats) if i > 0},
+            **last_stage(outs)}
+
+
+def hold_dcn_against_plain(torch, model, req):
+    """The DCN cascade's C3-C5 and last-stage head outputs on its kernels
+    against on their plain versions: f32 within F32_TOL with its atol
+    scaled by the map's largest value (check_pair's ``scaled`` form: C4
+    and C5 reach about 100, and the DCN blocks carry each other's f32
+    rounding into their sampling positions), the frozen prefix on K4+K5 on
+    both sides (with it plain too, printed beside); bf16 error against the
+    f32 plain model within BF16_RATIO x the plain bf16 model's."""
+    from kgdet_tpu_torch.ops.image import device_normalize
+
+    image = device_normalize(torch.as_tensor(req['image']).cuda(),
+                             torch.as_tensor(req['img_hw']).cuda())
+    dtype0 = model.dtype
+    runs = {}
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            model.dtype = dtype
+            for plain in (False, True):
+                model.use_plain_kernels(plain)
+                runs[dtype, plain] = dcn_levels(torch, model, image)
+            model.use_plain_kernels(True)
+            model.backbone.plain_prefix = False
+            runs[dtype, 'head'] = dcn_levels(torch, model, image)
+    finally:
+        model.dtype = dtype0
+        model.use_plain_kernels(False)
+    f32 = torch.float32
+    ref = runs[f32, True]
+    for k in ref:
+        got, same = runs[f32, False][k].float(), runs[f32, 'head'][k].float()
+        e32, e_all = max_err(got, same), max_err(got, ref[k])
+        ek = max_err(runs[torch.bfloat16, False][k], ref[k])
+        ep = max_err(runs[torch.bfloat16, True][k], ref[k])
+        atol = F32_TOL['atol'] * max(1.0, same.abs().max().item())
+        print(f'DCN {k}: f32 kernels vs plain on the same prefix {e32:.3e} '
+              f'(rtol {F32_TOL["rtol"]}, atol {atol:.3e}), with the prefix '
+              f'plain too {e_all:.3e}; bf16 vs f32 plain: kernels {ek:.3e}, '
+              f'plain {ep:.3e} (bound {BF16_RATIO} x plain)', flush=True)
+        if not torch.allclose(got, same, rtol=F32_TOL['rtol'], atol=atol):
+            fail(f'DCN {k}: the f32 kernel model differs from the plain one '
+                 f'by {e32:.3e}')
+        if not ek <= BF16_RATIO * ep:
+            fail(f'DCN {k}: bf16 kernel model err {ek:.3e} > {BF16_RATIO} x '
+                 f'plain {ep:.3e}')
+
+
+def dcn_function(torch, model, loss_fn, batch):
+    """ops/deform.py::deform_conv (the Function over K6 and K3, then the
+    contraction) against the same over their plain versions, f32, on the
+    tensors that the train step's forward hands DCN_FUNCTION_BLOCKS (map,
+    offsets, tap-major weight) and a seeded cotangent: the output and every
+    gradient within MODEL_F32_REL of its scale (no ReLU between)."""
+    from kgdet_tpu_torch.ops.deform import deform_conv
+
+    modules = dict(model.named_modules())
+    caught = {}
+    hooks = [modules[n].register_forward_hook(
+        lambda mod, args, out, n=n: caught.__setitem__(
+            n, [a.detach() for a in args])) for n in DCN_FUNCTION_BLOCKS]
+    model.dtype = torch.float32
+    model.use_plain_kernels(False)
+    try:
+        with torch.no_grad():
+            loss_fn(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 6)
+    names = ('output', 'grad map', 'grad offsets', 'grad weight')
+    for n in DCN_FUNCTION_BLOCKS:
+        conv = modules[n]
+        x, offsets = caught[n]
+        Bn, _, Ho, Wo = offsets.shape
+        rel = offsets.permute(0, 2, 3, 1).reshape(Bn, Ho, Wo, 9, 2) \
+            + conv.tap_grid
+        feat = x.permute(0, 2, 3, 1).contiguous()
+        w = conv.tap_major(torch.float32).detach()
+        ct = torch.randn((Bn, Ho, Wo, w.shape[-1]), device='cuda',
+                         generator=gen)
+
+        def run(plain):
+            leaves = [t.clone().requires_grad_() for t in (feat, rel, w)]
+            out = deform_conv(*leaves, stride=conv.stride, plain=plain)
+            return [out, *torch.autograd.grad(out, leaves, ct)]
+        got, want = run(False), run(True)
+        errs = [max_err(g, v) / v.abs().max().item()
+                for g, v in zip(got, want)]
+        worst = max(zip(errs, names))
+        print(f'Function over K6+K3 vs plain on the train step\'s tensors, '
+              f'f32, {n} (map {feat.shape[1]}x{feat.shape[2]}x'
+              f'{feat.shape[3]}, stride {conv.stride}, offsets rms '
+              f'{offsets.float().square().mean().sqrt().item():.3e}): worst '
+              f'{worst[0]:.3e} of its scale ({worst[1]}; bound '
+              f'{MODEL_F32_REL}; grad map by f32 atomics)', flush=True)
+        if not all(e <= MODEL_F32_REL for e in errs):
+            fail(f'f32: the Function over K6 and K3 differs from the plain '
+                 f'one at {n}: ' + ', '.join(f'{lb} {e:.3e}'
+                                             for e, lb in zip(errs, names)))
+
+
+def phase_dcn(torch, gpu):
+    """(c) The cascade on the DCN backbone: served (K1 12, K4 1, K5 3, K6
+    13 a forward) with offset convs moved off zero, C3-C5 and the head
+    outputs against the plain kernels; 2 train steps (K2 2, K3 15, K4 1,
+    K5 3, K6 13 a step); the Function over K6+K3 on a step's tensors; the
+    model gradients on its kernels against their plain versions with the
+    prefix the same on both sides, by the whole-model rule, and in bf16.
+    Returns the launches served and trained."""
+    from kgdet_tpu_torch.parallel.train import make_loss_fn
+
+    prefix = dict(stem_pool=1, frozen_bottleneck=3)
+    n_dcn = sum((4, 6, 3)[s - 1] for s in DCN_STAGES)
+    config = dcn_config()
+    model, cfg, req, served = phase_serving(
+        torch, gpu, config, launch_counts(deform_fused=12,
+                                          deform_sample_cols=n_dcn, **prefix),
+        compare=False,
+        prepare=lambda m, r: calibrate_offsets(torch, m, r))
+    hold_dcn_against_plain(torch, model, req)
+    phase_profile(torch, model, cfg, req, gpu)
+    del model
+    torch.cuda.empty_cache()
+    model, cfg, optimizer, batches, trained = take_train_steps(
+        torch, gpu, config, launch_counts(
+            deform_sample_split=2, deform_sample_bwd=2 + n_dcn,
+            deform_sample_cols=n_dcn, **prefix),
+        n_logs=12, free_name='backbone.layer2.0.conv2_offset.weight')
+    loss_fn = make_loss_fn(model, cfg, CANVAS)
+    dcn_function(torch, model, loss_fn, batches[0])
+
+    def run(dtype, plain):
+        return loss_and_grads(model, optimizer, loss_fn, DCN_GRAD_GROUPS,
+                              dtype, plain, batches[0], plain_prefix=False)
+    ref_loss, ref = head32 = run(torch.float32, True)
+    check_same_prefix_grads('K6+K3 in the DCN stages, K2+K3 in the head',
+                            run(torch.float32, False), head32)
+    check_bf16_grads(ref_loss, ref, run(torch.bfloat16, False),
+                     run(torch.bfloat16, True), DCN_GRAD_GROUPS)
+    optimizer.zero_grad()
+    model.dtype = torch.bfloat16
+    model.use_plain_kernels(False)
+    phase_train_profile(torch, model, cfg, optimizer, batches[0], gpu)
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return served, trained
+
+
+def phase_benchmark(torch, gpu):
+    """(d) tools/benchmark.py --synthetic as its own process on the cascade
+    config (batch 2, 32 images) and on SSD300 (batch 32, 256 images): exit
+    0 and its 'Overall fps' line, echoed."""
+    for name, config, b, n in BENCH_RUNS:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, '-m', 'kgdet_tpu_torch.tools.benchmark', config,
+             '--synthetic', '--batch-size', str(b), '--num-images', str(n)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in res.stdout.splitlines()
+                 if ln.startswith('Overall fps: ')]
+        if res.returncode != 0 or len(lines) != 1:
+            fail(f'tools/benchmark.py on {name} exited {res.returncode}: '
+                 f'{res.stdout[-800:]} {res.stderr[-1500:]}')
+        print(f'tools/benchmark.py --synthetic {name}: {lines[0]} '
+              f'(process {time.perf_counter() - t0:.1f} s; {gpu})',
+              flush=True)
+
+
+def phase_anchor_and_dcn(torch, gpu):
+    """Phase 12: (a) RetinaNet, (b) SSD300, (c) the DCN cascade, (d)
+    tools/benchmark.py. Returns the launches of each path."""
+    t = [time.perf_counter()]
+    launches = {}
+    launches['retina_serving'], launches['retina_training'] = \
+        phase_retina(torch, gpu)
+    t.append(time.perf_counter())
+    launches['ssd_serving'], launches['ssd_training'] = phase_ssd(torch, gpu)
+    t.append(time.perf_counter())
+    launches['dcn_serving'], launches['dcn_training'] = phase_dcn(torch, gpu)
+    t.append(time.perf_counter())
+    phase_benchmark(torch, gpu)
+    t.append(time.perf_counter())
+    print('phase 12 seconds: ' + ', '.join(
+        f'{k} {b - a:.1f}' for k, a, b in zip(
+            ('(a) retina', '(b) ssd300', '(c) dcn', '(d) benchmark'), t,
+            t[1:])) + f' ({gpu})', flush=True)
+    return launches
+
+
+PHASE_GROUPS = ('1', '2', '6', '9', '10', '11', '12')
+
+
+def main(argv=None):
+    import argparse
+    p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    p.add_argument('--phases', default=','.join(PHASE_GROUPS),
+                   help='while developing, a subset of the phase groups '
+                        f'{",".join(PHASE_GROUPS)} (2 is phases 2-5, 6 is '
+                        '6-8); it prints no result line. The check runs '
+                        'them all, the default')
+    phases = set(p.parse_args(argv).phases.split(','))
+    if not phases <= set(PHASE_GROUPS):
+        p.error(f'--phases takes groups of {PHASE_GROUPS}')
     # prove that nothing of JAX or of the JAX package is needed: any import
     # of them now fails
     for mod in ('jax', 'flax', 'kgdet_tpu'):
@@ -2843,11 +3438,52 @@ def main():
     build_report(_build, logs)
 
     gen = torch.Generator().manual_seed(SEED)
-    kernels = phase_kernels(torch, gen)
     launches = {}                   # main path -> {kernel: launches}
     prefix = dict(stem_pool=1, frozen_bottleneck=3)
+    if '1' in phases:
+        kernels = phase_kernels(torch, gen)
+    if '2' in phases:
+        cascade_phases(torch, gpu, launches)
+    if '6' in phases:
+        serial_phases(torch, gpu, launches)
 
-    # the KGDet cascade, served and trained
+    # the evaluation path: dataset, loader, the CLI, TTA
+    if '9' in phases:
+        launches['eval'] = phase_eval(
+            torch, gpu, launch_counts(deform_fused=12, **prefix))
+
+    # the training loop: tools/train.py, resume, --validate, --checkpoint
+    if '10' in phases:
+        launches['train_loop'], launches['train_loop_eval'] = \
+            phase_train_loop(
+                torch, gpu, launch_counts(deform_sample_split=2,
+                                          deform_sample_bwd=2, **prefix),
+                launch_counts(deform_fused=12, **prefix))
+
+    # data parallel: two ranks on the card, one over NCCL, the learning
+    # proof
+    if '11' in phases:
+        launches['dp_train'], launches['dp_eval'], \
+            launches['learning_proof'] = phase_data_parallel(
+                torch, gpu, launch_counts(deform_sample_split=2,
+                                          deform_sample_bwd=2, **prefix),
+                launch_counts(deform_fused=12, **prefix))
+
+    # RetinaNet, SSD300, the DCN backbone, tools/benchmark.py
+    if '12' in phases:
+        launches.update(phase_anchor_and_dcn(torch, gpu))
+
+    if phases != set(PHASE_GROUPS):
+        print(f'chip_smoke: phases {sorted(phases, key=int)} passed; no '
+              'result line for a subset', flush=True)
+        return 0
+    print_result(torch, kernels, launches)
+    return 0
+
+
+def cascade_phases(torch, gpu, launches):
+    """Phases 2 to 5: the KGDet cascade served, profiled, trained."""
+    prefix = dict(stem_pool=1, frozen_bottleneck=3)
     model, cfg, req, launches['serving'] = phase_serving(
         torch, gpu, CONFIG, launch_counts(deform_fused=12, **prefix))
     phase_profile(torch, model, cfg, req, gpu)
@@ -2861,7 +3497,11 @@ def main():
     del model, optimizer
     torch.cuda.empty_cache()
 
-    # the serial / parallel RepPoints family over the 5-level FPN
+
+def serial_phases(torch, gpu, launches):
+    """Phases 6 to 8: the serial / parallel RepPoints family over the
+    5-level FPN, served and trained, and the per-block backbone."""
+    prefix = dict(stem_pool=1, frozen_bottleneck=3)
     serial_fwd = launch_counts(deform_fused=2 * len(SERIAL_LEVELS), **prefix)
     model, cfg, req, launches['serial_serving'] = phase_serving(
         torch, gpu, SERIAL_CONFIG, serial_fwd)
@@ -2880,23 +3520,10 @@ def main():
     del model, optimizer
     torch.cuda.empty_cache()
 
-    # the evaluation path: dataset, loader, the CLI, TTA
-    launches['eval'] = phase_eval(
-        torch, gpu, launch_counts(deform_fused=12, **prefix))
 
-    # the training loop: tools/train.py, resume, --validate, --checkpoint
-    launches['train_loop'], launches['train_loop_eval'] = phase_train_loop(
-        torch, gpu, launch_counts(deform_sample_split=2, deform_sample_bwd=2,
-                                  **prefix),
-        launch_counts(deform_fused=12, **prefix))
-
-    # data parallel: two ranks on the card, one over NCCL, the learning proof
-    launches['dp_train'], launches['dp_eval'], launches['learning_proof'] = \
-        phase_data_parallel(
-            torch, gpu, launch_counts(deform_sample_split=2,
-                                      deform_sample_bwd=2, **prefix),
-            launch_counts(deform_fused=12, **prefix))
-
+def print_result(torch, kernels, launches):
+    """The kernels line (every kernel with its launches on each main path
+    and its phase 1 measurements) and the last line."""
     src = 'kgdet_tpu_torch/csrc/'
     ref = 'kgdet_tpu/ops/'
     meta = {
@@ -2928,7 +3555,6 @@ def main():
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == '__main__':

@@ -1,10 +1,13 @@
-"""Head-family records: build + decode per single-stage head family.
+"""Head-family records: build + loss + decode per single-stage head family.
 
 Port of kgdet_tpu/models/families.py: the records of the point-based
-families (build, loss, decode): ``KGDetHead`` and its single-column ablation
-``KGDetHead1Rep``, and the init/refine heads ``SerialKpHead``,
-``ParallelKpHead`` and ``RepPointsHead``. Every other family raises
-``NotImplementedError`` naming the ROADMAP queue that ports it.
+families, ``KGDetHead`` and its single-column ablation ``KGDetHead1Rep``,
+and the init/refine heads ``SerialKpHead``, ``ParallelKpHead`` and
+``RepPointsHead``; and of the anchor-based ``RetinaHead`` and ``SSDHead``,
+whose anchors are static per canvas and made once a device. GA-Retina and
+FCOS (ROADMAP Queue 1 items 5.4 and 5.5) and the two-stage families (item
+6) are not ported yet: ``get_head_family`` raises ``NotImplementedError``
+naming the item for them and for any other name.
 """
 from __future__ import annotations
 
@@ -111,6 +114,116 @@ def _point_family(build, loss):
     return HeadFamily(build=build, loss=loss, make_decode=_make_point_decode)
 
 
+# ------------------------------------------------------ anchor-based heads
+def _base_anchors(head):
+    """The head config's per-level base anchors (NumPy) and anchor
+    counts."""
+    if head.type == 'SSDHead':
+        from kgdet_tpu_torch.models.ssd_head import ssd_base_anchor_set
+        bases = ssd_base_anchor_set(head.ssd_input_size, head.point_strides,
+                                    head.ssd_basesize_ratio_range,
+                                    head.ssd_anchor_ratios)
+    else:
+        from kgdet_tpu_torch.models.retina_head import retina_base_anchors
+        bases = retina_base_anchors(head.octave_base_scale,
+                                    head.scales_per_octave,
+                                    head.anchor_ratios, head.point_strides)
+    return bases, [len(b) for b in bases]
+
+
+def _grid_anchor_set(head, canvas, device):
+    """Per level the (H*W*A, 4) anchors of a padded canvas, on
+    ``device``."""
+    from kgdet_tpu_torch.ops.anchors import grid_anchors
+    H, W = canvas
+    return [grid_anchors(b, -(-H // s), -(-W // s), s, device=device)
+            for b, s in zip(_base_anchors(head)[0], head.point_strides)]
+
+
+def _anchor_valid_set(head, canvas, valid_hw):
+    """(B, P_l) per-level anchor validity from padded extents (pixels)."""
+    from kgdet_tpu_torch.ops.anchors import anchor_valid_flags
+    H, W = canvas
+    outs = []
+    for stride, A in zip(head.point_strides, _base_anchors(head)[1]):
+        vh = torch.ceil(valid_hw[:, 0] / stride).to(torch.int32)
+        vw = torch.ceil(valid_hw[:, 1] / stride).to(torch.int32)
+        outs.append(anchor_valid_flags(-(-H // stride), -(-W // stride), A,
+                                       vh, vw))
+    return outs
+
+
+IDENTITY_NECKS = (None, 'none', 'Identity')
+
+
+def head_in_channels(cfg):
+    """The channels of each level the head reads: the neck's width, or
+    with the ``Identity`` neck the backbone's levels."""
+    n = len(cfg.head.point_strides)
+    if cfg.neck.type not in IDENTITY_NECKS:
+        return (cfg.neck.out_channels,) * n
+    if cfg.backbone.type == 'SSDVGG':
+        from kgdet_tpu_torch.models.vgg import vgg_out_channels
+        return vgg_out_channels(cfg.backbone.vgg_input_size)
+    return tuple(256 * 2 ** i for i in cfg.backbone.out_indices)
+
+
+def _anchor_loss(loss):
+    def family_loss(outs, grids, valids, batch, cfg, canvas_hw):
+        canvas = tuple(canvas_hw)
+        # made each step: a few small tensor ops a level beside the step
+        anchors = _grid_anchor_set(cfg.head, canvas,
+                                   batch['valid_hw'].device)
+        avalids = _anchor_valid_set(cfg.head, canvas, batch['valid_hw'])
+        return loss(outs, anchors, avalids, batch, cfg,
+                    cfg.refine_assigner or cfg.assigner)
+    return family_loss
+
+
+def _retina_loss(outs, anchors, avalids, batch, cfg, assign_cfg):
+    from kgdet_tpu_torch.core.anchor_loss import retina_loss
+    return retina_loss(outs, anchors, avalids, batch, cfg.head, assign_cfg)
+
+
+def _ssd_loss(outs, anchors, avalids, batch, cfg, assign_cfg):
+    from kgdet_tpu_torch.core.anchor_loss import ssd_loss
+    return ssd_loss(outs, anchors, avalids, batch, cfg.head, assign_cfg,
+                    neg_pos_ratio=cfg.head.ssd_neg_pos_ratio,
+                    target_stds=cfg.head.target_stds)
+
+
+def _make_anchor_decode(cfg, canvas):
+    from kgdet_tpu_torch.core.anchor_loss import (decode_detections_anchor,
+                                                  decode_detections_ssd)
+    canvas = tuple(canvas)
+    anchor_sets = {}                # the static anchors, once a device
+
+    def decode(outs, img_hw, scale_factor):
+        dev = img_hw.device
+        if dev not in anchor_sets:
+            anchor_sets[dev] = _grid_anchor_set(cfg.head, canvas, dev)
+        anchors = anchor_sets[dev]
+        if cfg.head.type == 'SSDHead':
+            return decode_detections_ssd(
+                outs, anchors, img_hw, scale_factor, cfg.test,
+                num_classes=cfg.head.num_classes,
+                target_stds=cfg.head.target_stds)
+        return decode_detections_anchor(
+            outs, anchors, img_hw, scale_factor, cfg.test,
+            num_classes=cfg.head.num_classes)
+    return decode
+
+
+def _build_retina(cfg):
+    from kgdet_tpu_torch.models.retina_head import RetinaHead
+    return RetinaHead.from_config(cfg)
+
+
+def _build_ssd(cfg):
+    from kgdet_tpu_torch.models.ssd_head import SSDHead
+    return SSDHead.from_config(cfg, head_in_channels(cfg))
+
+
 HEAD_FAMILIES: Dict[str, HeadFamily] = {
     'KGDetHead': _point_family(_build_kgdet, _kgdet_loss),
     'KGDetHead1Rep': _point_family(_build_kgdet_1rep, _kgdet_loss),
@@ -119,12 +232,23 @@ HEAD_FAMILIES: Dict[str, HeadFamily] = {
                                     _serial_loss),
     'RepPointsHead': _point_family(
         _build_serial(parallel=True, with_keypoints=False), _serial_loss),
+    'RetinaHead': HeadFamily(build=_build_retina,
+                             loss=_anchor_loss(_retina_loss),
+                             make_decode=_make_anchor_decode),
+    'SSDHead': HeadFamily(build=_build_ssd, loss=_anchor_loss(_ssd_loss),
+                          make_decode=_make_anchor_decode),
 }
+
+ANCHOR_FAMILIES = ('RetinaHead', 'SSDHead')
+# the single-stage families still to port, by ROADMAP Queue 1 item
+QUEUED_FAMILIES = {'GARetinaHead': '5.4', 'FCOSHead': '5.5'}
 
 
 def get_head_family(name: str) -> HeadFamily:
     if name not in HEAD_FAMILIES:
+        item = QUEUED_FAMILIES.get(name, '5')
         raise NotImplementedError(
-            f'head family {name!r} is not ported yet; the other single-stage '
-            'families are queued in ROADMAP Queue 1 item 5')
+            f'head family {name!r} is not ported yet; it is queued in '
+            f'ROADMAP Queue 1 item {item} (GA-Retina 5.4, FCOS 5.5; the '
+            'two-stage families item 6)')
     return HEAD_FAMILIES[name]

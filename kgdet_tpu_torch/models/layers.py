@@ -80,6 +80,14 @@ class ConvModule(nn.Module):
         return torch.relu(y) if self.act else y
 
 
+def head_out(x, conv):
+    """A padded 3x3 output conv with its bias, in x's dtype (NCHW), as the
+    (1, B, H, W, C) NHWC map of the anchor heads' output layout."""
+    dt = x.dtype
+    y = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=1)
+    return y.permute(0, 2, 3, 1)[None]
+
+
 # ------------------------------------------------------------ seeded inits
 # Same distributions as the JAX inits (layers.py he_normal_init,
 # normal_init, fpn.xavier_uniform_init); values differ, as the generators

@@ -14,7 +14,14 @@ folded weights and the kernels' layout of them are made once and kept
 pipeline does not apply) the stem and maxpool are PyTorch calls and each
 layer1 block is one ``ops/resblock.py::fused_bottleneck_prepared`` launch
 (kernel K8) on the same kept weights. The stem is the plain 7x7/2 conv, not
-the TPU's space-to-depth rewrite. layer2-4 are plain ``F.conv2d`` blocks.
+the TPU's space-to-depth rewrite. layer2-4 are plain ``F.conv2d`` blocks,
+or, in the stages of ``dcn_stages``, blocks whose 3x3 conv is a
+deformable conv (``DeformConv3x3``: DCN v1, offsets from a zero-initialized
+``conv2_offset`` at the conv's stride) that samples through
+``ops/deform.py::deform_conv``: kernel K6 forward and K3 backward on the
+card. The frozen prefix stays K4 + K5 while stage 0 is not a DCN stage.
+Grouped (ResNeXt) and caffe-style blocks, the plugins and the BasicBlock
+depths are queued in ROADMAP Queue 1 item 5.6.
 """
 from __future__ import annotations
 
@@ -22,7 +29,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from kgdet_tpu_torch.models.kgdet_head import DeformConvWeight
 from kgdet_tpu_torch.models.layers import FrozenBatchNorm, init_he_normal_
+from kgdet_tpu_torch.ops.deform import deform_conv
 from kgdet_tpu_torch.ops.resblock import bottleneck_reference, fold_bn, \
     fused_bottleneck_prepared
 from kgdet_tpu_torch.ops.stem_kernels import prepare_block, prepare_stem, \
@@ -36,18 +45,56 @@ def _conv(x, conv, stride=1, padding=0):
                     padding=padding)
 
 
+# the 3x3 taps' (dy, dx) offsets from the output pixel, row-major
+_TAP_GRID = tuple((ky - 1.0, kx - 1.0) for ky in range(3) for kx in range(3))
+
+
+class DeformConv3x3(DeformConvWeight):
+    """3x3 deformable conv, v1 (no modulation), one group, any stride: the
+    DCN option of the backbone's blocks. Holds the reference's DeformConv
+    weight (F, C, 3, 3), read tap-major (DeformConvWeight.tap_major, kept
+    while the module serves). forward(x (B, C, H, W), offsets (B, 18, Ho,
+    Wo)) -> (B, F, Ho, Wo): the offsets, y-first (dy, dx) pairs a tap, are
+    added to the 3x3 base grid and sampled around the output pixels'
+    centres (``stride`` times the output index). ``plain`` runs the
+    kernels' plain versions (the comparison model)."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
+        super().__init__(in_channels, out_channels, 3)
+        self.stride = stride
+        self.plain = False
+        self.register_buffer('tap_grid', torch.tensor(_TAP_GRID),
+                             persistent=False)
+
+    def forward(self, x, offsets):
+        B, _, Ho, Wo = offsets.shape
+        rel = offsets.permute(0, 2, 3, 1).reshape(B, Ho, Wo, 9, 2) \
+            + self.tap_grid
+        out = deform_conv(x.permute(0, 2, 3, 1), rel,
+                          self.tap_major(x.dtype), stride=self.stride,
+                          plain=self.plain)
+        return out.permute(0, 3, 1, 2)
+
+
 class Bottleneck(nn.Module):
-    """Pytorch-style bottleneck: the stride sits on the 3x3 conv."""
+    """Pytorch-style bottleneck: the stride sits on the 3x3 conv, which is
+    a DeformConv3x3 with its offset conv ``conv2_offset`` under
+    ``use_dcn``."""
     expansion = 4
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, use_dcn: bool = False):
         super().__init__()
         out_ch = planes * self.expansion
         self.stride = stride
+        self.use_dcn = use_dcn
         self.conv1 = nn.Conv2d(in_ch, planes, 1, bias=False)
         self.bn1 = FrozenBatchNorm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        if use_dcn:
+            self.conv2_offset = nn.Conv2d(planes, 18, 3, stride, 1)
+            self.conv2 = DeformConv3x3(planes, planes, stride)
+        else:
+            self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = FrozenBatchNorm(planes)
         self.conv3 = nn.Conv2d(planes, out_ch, 1, bias=False)
         self.bn3 = FrozenBatchNorm(out_ch)
@@ -57,7 +104,14 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         out = torch.relu(self.bn1(_conv(x, self.conv1)))
-        out = torch.relu(self.bn2(_conv(out, self.conv2, self.stride, 1)))
+        if self.use_dcn:
+            off = self.conv2_offset
+            out = self.conv2(out, F.conv2d(
+                out, off.weight.to(out.dtype), off.bias.to(out.dtype),
+                self.stride, 1))
+        else:
+            out = _conv(out, self.conv2, self.stride, 1)
+        out = torch.relu(self.bn2(out))
         out = self.bn3(_conv(out, self.conv3))
         identity = x if self.downsample is None else self.downsample[1](
             _conv(x, self.downsample[0], self.stride))
@@ -84,14 +138,15 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     def __init__(self, depth: int = 50, num_stages: int = 4,
                  out_indices=(0, 1, 2, 3), frozen_stages: int = -1,
-                 prefix_pipeline: bool = True):
+                 prefix_pipeline: bool = True, dcn_stages=()):
         super().__init__()
         if depth not in STAGE_BLOCKS:
             raise NotImplementedError(
                 f'ResNet-{depth}: the port has Bottleneck depths '
                 f'{sorted(STAGE_BLOCKS)}; BasicBlock depths are queued in '
-                'ROADMAP Queue 1 item 5')
+                'ROADMAP Queue 1 item 5.6')
         self.out_indices = tuple(out_indices)
+        self.dcn_stages = tuple(dcn_stages)
         self.frozen_stages = frozen_stages
         self.num_stages = num_stages
         self.prefix_pipeline = prefix_pipeline
@@ -107,28 +162,35 @@ class ResNet(nn.Module):
                 blocks.append(Bottleneck(
                     in_ch, planes, stride,
                     downsample=(i == 0 and (stride != 1 or
-                                            in_ch != planes * 4))))
+                                            in_ch != planes * 4)),
+                    use_dcn=stage in self.dcn_stages))
                 in_ch = planes * 4
             setattr(self, f'layer{stage + 1}', nn.Sequential(*blocks))
             planes *= 2
 
     @classmethod
     def from_config(cls, bcfg):
-        extras = (bcfg.dcn_stages or bcfg.gcb_stages or bcfg.nonlocal_stages
+        extras = (bcfg.gcb_stages or bcfg.nonlocal_stages
                   or bcfg.gen_attention_stages or bcfg.groups != 1
                   or bcfg.style != 'pytorch' or bcfg.type != 'ResNet')
         if extras:
             raise NotImplementedError(
-                'backbone options beyond a plain pytorch-style ResNet '
-                '(DCN, plugins, ResNeXt, caffe style) are queued in ROADMAP '
-                'Queue 1 item 5')
+                'backbone options beyond a pytorch-style ResNet with DCN '
+                'stages (plugins, grouped DCN and ResNeXt, caffe style) are '
+                'queued in ROADMAP Queue 1 item 5.6')
         return cls(depth=bcfg.depth, num_stages=bcfg.num_stages,
                    out_indices=bcfg.out_indices,
-                   frozen_stages=bcfg.frozen_stages)
+                   frozen_stages=bcfg.frozen_stages,
+                   dcn_stages=bcfg.dcn_stages)
 
     def init_weights(self, gen: torch.Generator):
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
+        """He-normal conv and DCN weights; zero offset convs, so that a DCN
+        starts as the plain 3x3 conv."""
+        for name, m in self.named_modules():
+            if name.endswith('conv2_offset'):
+                nn.init.zeros_(m.weight)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, (nn.Conv2d, DeformConvWeight)):
                 init_he_normal_(m.weight, gen)
 
     def prefix_weights(self, dtype):
@@ -193,7 +255,7 @@ class ResNet(nn.Module):
         """x: (B, H, W, 3) NHWC in the compute dtype. Returns the
         out_indices stage outputs as NCHW tensors."""
         outs = []
-        if self.frozen_stages >= 1:
+        if self.frozen_stages >= 1 and 0 not in self.dcn_stages:
             # NHWC -> NCHW view: channels_last memory, no copy
             x = self.frozen_prefix(x).permute(0, 3, 1, 2)
             first = 1

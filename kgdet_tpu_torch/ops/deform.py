@@ -156,8 +156,9 @@ def deform_sample(feat, rel_offsets_yx, stride: int = 1,
     Returns the (B, Ho*Wo, K, C) columns, row-major over (Ho, Wo).
 
     On CUDA tensors the column gather (K6) with the sampling backward (K3)
-    as its gradient (ops/deform_kernels.py::deform_sample_hybrid); on the
-    CPU, or with ``plain``, ``bilinear_gather`` under autograd."""
+    as its gradient (ops/deform_kernels.py::deform_sample_hybrid), or with
+    ``plain`` the same Function over their plain versions; on the CPU
+    ``bilinear_gather`` under autograd."""
     B, Ho, Wo, K, _ = rel_offsets_yx.shape
     pos_dtype = torch.promote_types(rel_offsets_yx.dtype, torch.float32)
     dev = rel_offsets_yx.device
@@ -166,10 +167,10 @@ def deform_sample(feat, rel_offsets_yx, stride: int = 1,
     centers = torch.stack([cy.repeat_interleave(Wo), cx.repeat(Ho)], dim=-1)
     pos = rel_offsets_yx.to(pos_dtype).reshape(B, Ho * Wo, K, 2) \
         + centers[None, :, None, :]
-    if plain or feat.device.type == 'cpu':
+    if feat.device.type == 'cpu':
         return bilinear_gather(feat, pos)
     from kgdet_tpu_torch.ops.deform_kernels import deform_sample_hybrid
-    return deform_sample_hybrid(feat, pos)
+    return deform_sample_hybrid(feat, pos, plain=plain)
 
 
 def deform_conv_from_samples(samples, weight, bias=None):

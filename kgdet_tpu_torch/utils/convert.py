@@ -2,8 +2,10 @@
 reference's torch names, and the loader of a reference .pth.
 
 The inverse of kgdet_tpu/utils/torch_convert.py for the ported modules
-(backbone, neck, the KGDet cascade heads and the serial / parallel / plain
-RepPoints heads): its layout maps are inverted, not re-derived.
+(the ResNet backbone with its DCN blocks and the SSDVGG trunk, the FPN
+neck, the KGDet cascade heads, the serial / parallel / plain RepPoints
+heads, RetinaHead and SSDHead): its layout maps are inverted, not
+re-derived.
   _conv_kernel  (Cout,Cin,kh,kw) -> (kh,kw,Cin,Cout)   inverse: (3,2,0,1)
   _dense_kernel (Cout,Cin,1,1)   -> (Cin,Cout)     inverse: .T[..., None, None]
   _dcn_kernel   (Cout,Cin,k,k)   -> tap-major (k*k,Cin,Cout)
@@ -52,10 +54,24 @@ def _flatten(tree, prefix=()):
 
 
 def _backbone_name(path: Tuple[str, ...]) -> Tuple[str, Any]:
-    """('conv1', 'kernel') / ('layer1/0', 'downsample_bn', 'scale') / ...
-    -> (torch name, layout inverse)."""
+    """('conv1', 'kernel') / ('layer1/0', 'downsample_bn', 'scale') /
+    ('layer2/0', 'conv2', 'conv_offset', 'kernel') / ('features_0',
+    'kernel') / ... -> (torch name, layout inverse)."""
     *mods, leaf = path
-    mods = [m.replace('/', '.') for m in mods]
+    m = re.match(r'(features|extra)_(\d+)$', mods[0])
+    if m:                           # SSDVGG trunk (torch_convert.py:159-162)
+        base = f'backbone.{m.group(1)}.{m.group(2)}'
+        return (base + '.weight', _inv_conv) if leaf == 'kernel' \
+            else (base + '.bias', None)
+    if mods == ['l2_norm']:
+        return 'backbone.l2_norm.weight', None
+    mods = [mod.replace('/', '.') for mod in mods]
+    if mods[-1] == 'conv_offset':   # a DCN block's offset conv, conv2's
+        base = 'backbone.' + '.'.join(mods[:-2]) + '.conv2_offset'
+        return (base + '.weight', _inv_conv) if leaf == 'kernel' \
+            else (base + '.bias', None)
+    if leaf == 'weight':            # a DCN block's tap-major conv2 weight
+        return 'backbone.' + '.'.join(mods) + '.weight', _inv_dcn
     mods = ['downsample.0' if m == 'downsample_conv' else
             'downsample.1' if m == 'downsample_bn' else m for m in mods]
     if leaf == 'kernel':
@@ -78,7 +94,14 @@ def _neck_name(path):
 def _head_name(path):
     if path == ('moment_transfer',):
         return 'bbox_head.moment_transfer', None
+    if path[0] in ('retina_cls', 'retina_reg'):
+        return (f'bbox_head.{path[0]}.weight', _inv_conv) \
+            if path[1] == 'kernel' else (f'bbox_head.{path[0]}.bias', None)
     m = re.match(r'(cls|reg)_convs_(\d+)$', path[0])
+    if m and len(path) == 2:        # SSDHead's plain per-level convs
+        base = f'bbox_head.{m.group(1)}_convs.{m.group(2)}'
+        return (base + '.weight', _inv_conv) if path[1] == 'kernel' \
+            else (base + '.bias', None)
     if m:
         _, sub, leaf = path
         base = f'bbox_head.{m.group(1)}_convs.{m.group(2)}.{sub}'
@@ -283,6 +306,10 @@ def load_reference_state(model, state: Dict[str, torch.Tensor]):
         elif key not in own:
             raise KeyError(f'{key} is mapped by the converter but not a '
                            'key of the model')
+        elif _plain_conv2_into_dcn(key, state, own):
+            raise KeyError(
+                f'{key}: without its block\'s conv2_offset the converter '
+                'maps it as a plain conv, and the model\'s block is a DCN')
         elif tuple(value.shape) != tuple(own[key].shape):
             raise ValueError(f'{key}: shape {tuple(value.shape)} != the '
                              f"model's {tuple(own[key].shape)}")
@@ -290,3 +317,15 @@ def load_reference_state(model, state: Dict[str, torch.Tensor]):
             take[key] = value
     model.load_state_dict(take, strict=False)
     return skipped
+
+
+def _plain_conv2_into_dcn(key, state, own):
+    """Whether ``key`` is a backbone block's conv2 weight that the JAX
+    converter lays out as a plain conv kernel (its state has no
+    conv2_offset for the block: torch_convert.py:96-107) while the model's
+    block is a DCN (it has a conv2_offset): the JAX route refuses that
+    merge."""
+    m = re.match(r'(backbone\.layer\d+\.\d+)\.conv2\.weight$', key)
+    return bool(m) and f'{m.group(1)}.conv2_offset.weight' in own \
+        and f'{m.group(1)}.conv2_offset.weight' not in state \
+        and f'{m.group(1)}.conv2_offset.bias' not in state

@@ -13,8 +13,10 @@ of boundary positions, both bodies of K1 (tensor cores, FMA) and of K3
 in two storages, the wrappers' shape checks,
 the relative-offset entries at stride 2, the autograd Functions over K6 and
 K3, K8 through both its entries with both bodies (tensor cores on each of
-their three tiles, FMA), K8 and K5 bit for bit in bf16 at width 64, and the
-ResNet per-block route (K8) against the chain (K4+K5). f32
+their three tiles, FMA), K8 and K5 bit for bit in bf16 at width 64, the
+ResNet per-block route (K8) against the chain (K4+K5), K6 and K3 at the
+DCN backbone's stride-2 shapes, the DCN cascade's served launch counts and
+one served SSD300 batch. f32
 tolerance rtol 1e-5, atol 1e-4 (chip_smoke.py's); K3's gradient map is
 summed with f32 atomics in an order that changes from run to run, which that
 tolerance covers. bf16: the kernel's error against the plain version in
@@ -1014,3 +1016,113 @@ def test_runner_epoch_on_the_card(gen, tmp_path):
     state = load_params(str(tmp_path / 'w' / 'checkpoints' / '4'))
     for k, v in runner.model.state_dict().items():
         assert not state[k].is_cuda and torch.equal(state[k], v.cpu()), k
+
+
+def _dcn_positions(gen, B, Ho, Wo, stride):
+    """A DCN's taps: the 3x3 grid around each output pixel's centre
+    (``stride`` times its index), moved by N(0, 0.5) cells."""
+    ys, xs = torch.meshgrid(torch.arange(Ho), torch.arange(Wo),
+                            indexing='ij')
+    centre = stride * torch.stack([ys, xs], dim=-1).reshape(1, -1, 1, 2)
+    grid = torch.tensor([(dy, dx) for dy in (-1, 0, 1)
+                         for dx in (-1, 0, 1)]).reshape(1, 1, 9, 2)
+    noise = 0.5 * torch.randn((B, Ho * Wo, 9, 2), generator=gen)
+    return (centre + grid + noise).cuda()
+
+
+@pytest.mark.parametrize('H,W,C', [(200, 336, 128), (50, 84, 512)])
+def test_k6_k3_at_the_dcn_stride2_shapes(gen, H, W, C):
+    """K6 and K3 against their plain versions at chip_smoke.py's phase 1
+    DCN shapes (layer2.0 and layer4.0 of the DCN backbone at 800x1344,
+    stride 2, 9 taps, P = H*W/4), batch 2: f32 within TOL (K3's sums
+    within 1e-4 of the largest), bf16 within twice the plain version's
+    error."""
+    Ho, Wo = -(-H // 2), -(-W // 2)
+    feat = _randn(gen, 2, H, W, C)
+    pos = _dcn_positions(gen, 2, Ho, Wo, 2)
+    g = _randn(gen, 2, Ho * Wo, 9, C)
+    k6, k3 = dk.deform_sample_cols.launches, dk.deform_sample_bwd.launches
+    got = dk.deform_sample_cols(feat, pos)
+    gfeat, gpos = dk.deform_sample_bwd(feat, pos, g)
+    assert (dk.deform_sample_cols.launches, dk.deform_sample_bwd.launches) \
+        == (k6 + 1, k3 + 1)
+    torch.testing.assert_close(got, dk.deform_sample_cols_ref(feat, pos),
+                               **TOL)
+    wfeat, wpos = dk.deform_sample_bwd_ref(feat, pos, g)
+    torch.testing.assert_close(
+        gfeat, wfeat, rtol=1e-5,
+        atol=1e-4 * max(1.0, wfeat.abs().max().item()))
+    torch.testing.assert_close(
+        gpos, wpos, rtol=1e-5, atol=1e-4 * max(1.0, wpos.abs().max().item()))
+    f16, g16 = feat.bfloat16(), g.bfloat16()
+    ref = dk.deform_sample_cols_ref(f16.float(), pos)
+    assert (dk.deform_sample_cols(f16, pos).float() - ref).abs().max() <= \
+        2 * (dk.deform_sample_cols_ref(f16, pos).float() - ref).abs().max()
+    kf, kp = dk.deform_sample_bwd(f16, pos, g16)
+    rf, rp = dk.deform_sample_bwd_ref(f16.float(), pos, g16.float())
+    pf, pp = dk.deform_sample_bwd_ref(f16, pos, g16)
+    assert (kf.float() - rf).abs().max() <= max(
+        2 * (pf.float() - rf).abs().max().item(),
+        1e-4 * rf.abs().max().item())
+    assert (kp - rp).abs().max() <= max(
+        2 * (pp - rp).abs().max().item(), 1e-4 * rp.abs().max().item())
+
+
+def test_dcn_cascade_served_launch_counts(gen):
+    """The cascade config with dcn_stages=(1, 2, 3), served on the card at
+    256x384, batch 1, test.score_thr 0: K1 12, K4 1, K5 3 and K6 13 (one
+    a DCN block) a forward, nothing else; finite detections."""
+    import dataclasses
+    import os
+
+    from kgdet_tpu_torch.api import build_model, make_predict_fn
+    from kgdet_tpu_torch.config import load_config
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(
+        root, 'configs', 'kgdet_moment_r50_fpn_1x_deepfashion2.py'))
+    cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone,
+                                                   dcn_stages=(1, 2, 3)),
+                      test=dataclasses.replace(cfg.test, score_thr=0.0))
+    canvas = (256, 384)
+    model = build_model(cfg).init_weights(0).eval()
+    predict = make_predict_fn(model, cfg, canvas)
+    batch = {'image': torch.randint(0, 256, (1, *canvas, 3),
+                                    generator=gen).to(torch.uint8),
+             'img_hw': torch.tensor([[256.0, 380.0]]),
+             'scale_factor': torch.tensor([1.0])}
+    wrappers = (dk.deform_conv_fused, sk.stem_pool, sk.frozen_bottleneck,
+                dk.deform_sample_cols, dk.deform_sample_split,
+                dk.deform_sample_bwd, rb.fused_bottleneck)
+    before = [w.launches for w in wrappers]
+    dets = predict(batch)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [12, 1, 3, 13, 0, 0, 0]
+    assert torch.isfinite(dets['det_bboxes']).all() and dets['valid'].any()
+
+
+def test_ssd300_served_batch(gen):
+    """configs/ssd300_vgg16_deepfashion2.py on the card, one batch of 2 at
+    300x300: no kernel of the port launched (no TPU kernel on this path),
+    detections finite and of the config's shapes (the dummy keypoint of
+    width 3)."""
+    import os
+
+    from kgdet_tpu_torch.api import build_model, make_predict_fn
+    from kgdet_tpu_torch.config import load_config
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, 'configs',
+                                   'ssd300_vgg16_deepfashion2.py'))
+    model = build_model(cfg).init_weights(0).eval()
+    wrappers = (dk.deform_conv_fused, sk.stem_pool, sk.frozen_bottleneck,
+                dk.deform_sample_cols, dk.deform_sample_split,
+                dk.deform_sample_bwd, rb.fused_bottleneck)
+    before = [w.launches for w in wrappers]
+    dets = make_predict_fn(model, cfg, (300, 300))({
+        'image': torch.randint(0, 256, (2, 300, 300, 3),
+                               generator=gen).to(torch.uint8),
+        'img_hw': torch.tensor([[300.0, 300.0], [225.0, 300.0]]),
+        'scale_factor': torch.tensor([0.5, 0.5])})
+    assert [w.launches for w in wrappers] == before
+    assert dets['det_bboxes'].shape == (2, 200, 5)
+    assert dets['det_kpts'].shape == (2, 200, 3)
+    assert torch.isfinite(dets['det_bboxes']).all()

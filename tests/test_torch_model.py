@@ -146,21 +146,26 @@ def test_detector_single_image(models):
 
 
 def test_other_families_raise():
+    """The families still queued raise NotImplementedError naming their
+    ROADMAP item: two-stage (6), GA-Retina (5.4), FCOS (5.5)."""
     cfg = tiny_r50_cfg().replace(detector_type='faster_rcnn')
-    with pytest.raises(NotImplementedError, match='Queue 1'):
+    with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
         build_model(cfg, device='cpu')
     cfg = tiny_r50_cfg()
-    cfg = cfg.replace(head=cfg.head.__class__(type='RetinaHead'))
-    with pytest.raises(NotImplementedError, match='Queue 1'):
-        build_model(cfg, device='cpu')
+    for head_type, item in (('GARetinaHead', '5.4'), ('FCOSHead', '5.5')):
+        bad = cfg.replace(head=cfg.head.__class__(type=head_type))
+        with pytest.raises(NotImplementedError,
+                           match=f'Queue 1 item {item}'):
+            build_model(bad, device='cpu')
 
 
 def test_port_runs_without_jax_flax_cv2():
     """The port imports, loads every config file, serves a batch and takes
     a train step (the KGDet cascade, then each of the serial, parallel,
-    plain RepPoints and single-column families, then the cascade in a
-    process group of one) with jax, flax, cv2 and kgdet_tpu unavailable,
-    as on the GPU machine."""
+    plain RepPoints and single-column families, RetinaNet, SSD and the
+    cascade on the DCN backbone, then the cascade in a process group of
+    one) with jax, flax, cv2 and kgdet_tpu unavailable, as on the GPU
+    machine."""
     code = '\n'.join([
         'import glob, sys',
         "for m in ('jax', 'flax', 'cv2', 'kgdet_tpu'):",
@@ -217,6 +222,30 @@ def test_port_runs_without_jax_flax_cv2():
         ", head_type",
         "    fdets = make_predict_fn(fmodel.eval(), fcfg, (64, 96))(batch)",
         "    assert fdets['det_bboxes'].shape == (1, 20, 5), head_type",
+        # the anchor families on a 3-level FPN, and the DCN backbone
+        "for head_type in ('RetinaHead', 'SSDHead', 'dcn'):",
+        "    fcfg = cfg.replace(neck=dataclasses.replace(cfg.neck, "
+        "start_level=1, num_outs=3, select_out=None), "
+        "head=dataclasses.replace(cfg.head, type=head_type, "
+        "point_strides=(8, 16, 32), ssd_anchor_ratios=((2,), (2, 3), (2,)))"
+        ", assigner=AssignConfig(type='MaxIoUAssigner'))",
+        "    if head_type == 'dcn':",
+        "        fcfg = cfg.replace(backbone=dataclasses.replace("
+        "cfg.backbone, dcn_stages=(1, 2, 3)))",
+        "    fmodel, _, fstep = init_trainer(fcfg, (64, 96), 10, "
+        "device='cpu')",
+        "    flogs = fstep(dict(train_batch))",
+        "    assert torch.isfinite(flogs['loss']) and flogs['grad_norm'] > 0"
+        ", head_type",
+        "    fdets = make_predict_fn(fmodel.eval(), fcfg, (64, 96))(batch)",
+        "    assert fdets['det_bboxes'].shape == (1, 20, 5), head_type",
+        "ssd = load_config('configs/ssd300_vgg16_deepfashion2.py')",
+        "smodel = build_model(ssd, device='cpu').init_weights(0).eval()",
+        "sbatch = {'image': rng.randint(0, 256, (1, 300, 300, 3))"
+        ".astype(np.uint8), 'img_hw': np.array([[300, 300]], np.float32), "
+        "'scale_factor': np.ones(1, np.float32)}",
+        "sdets = make_predict_fn(smodel, ssd, (300, 300))(sbatch)",
+        "assert sdets['det_kpts'].shape == (1, 200, 3)",
         # the data-parallel code: a group of one process over gloo
         'import os, socket',
         'from kgdet_tpu_torch.parallel.dist import (init_distributed, '
@@ -452,12 +481,18 @@ def test_pth_skip_rule_matches_the_jax_converter():
     (mapped), a key at each of the converter's 22 skip sites and mapped
     keys of modules the port lacks."""
     from kgdet_tpu_torch.utils.convert import converter_skips
+    from tests.test_torch_anchor import SSD300
+    from tests.test_torch_anchor import family_cfg as anchor_cfg
+    from tests.test_torch_dcn import dcn_cfg
     from tests.test_torch_serial import family_cfg
+    from kgdet_tpu_torch.config import load_config
     state = dict(build_model(tiny_r50_cfg(), device='cpu').state_dict())
-    for head_type in ('SerialKpHead', 'ParallelKpHead', 'RepPointsHead',
-                      'KGDetHead1Rep'):
-        state.update(build_model(family_cfg(head_type), device='cpu')
-                     .state_dict())
+    cfgs = [family_cfg(t) for t in ('SerialKpHead', 'ParallelKpHead',
+                                    'RepPointsHead', 'KGDetHead1Rep')]
+    cfgs += [anchor_cfg('RetinaHead'), anchor_cfg('SSDHead'), dcn_cfg(),
+             load_config(SSD300)]
+    for cfg in cfgs:
+        state.update(build_model(cfg, device='cpu').state_dict())
     for key in SKIPPED_KEYS + MAPPED_KEYS:
         state.setdefault(key, torch.zeros(4, 4, 3, 3))
     _, _, skipped = convert_state_dict(state)
