@@ -35,7 +35,10 @@ the 16x16 tensor-core body, and checked and timed once more at width 128
 also at the DCN backbone's stride-2 shapes (phase 12 (c)): layer2.0, map
 200x336x128 with 100x168 outputs, and layer4.0, map 50x84x512 with 25x42
 outputs, 9 taps around each output pixel's centre, with their
-F.grid_sample yardsticks. After the
+F.grid_sample yardsticks; and at phase 13's shapes: GA-Retina's feature
+adaption on P3 (map 100x168x256, stride 1) and ResNeXt-101 32x4d's grouped
+DCN at layer2.0 (200x336x256, stride 2) and layer4.0 (50x84x1024, stride
+2). After the
 build, ptxas's registers and spills a kernel and, by cuobjdump, the bf16
 tensor-core instructions and local-memory accesses in the SASS of the
 bottleneck bodies of K5 and K8 (fails if a tensor-core instance has none).
@@ -169,9 +172,31 @@ cascade config (batch 2, 32 images) and on SSD300 (batch 32, 256 images):
 exit 0 and its Overall fps line, echoed. (a) to (c) also print the served
 batch's and the train step's profile by stage, as phases 3 and 5 do.
 
+Phase 13: GA-Retina, FCOS and the backbone and neck extras, seeded random
+weights, bf16, test.score_thr 0. (a) GA-Retina (mmdetection v1.x's
+ga_retinanet_r50_caffe_fpn_1x as far as the config expresses it, built in
+code: caffe-style ResNet-50, FPN P3-P7, GARetinaHead with 4 stacked convs
+of 256), 2 requests of 2 served (K4 1 / K5 3 / K6 10 a forward), the head
+outputs against the plain kernels as phase 2 holds them, 2 train steps (K3
+10 / K4 1 / K5 3 / K6 10 a step, retina_cls moved, a frozen parameter
+bit-equal), the Function over K6+K3 on the step's P3 tensors of
+feature_adaption_cls, the model's gradients against the plain kernels'
+(the whole-model rule, the prefix the same on both sides) and in bf16.
+(b) FCOS (fcos_r50_caffe_fpn_gn_1x, built the same way): served and
+trained with K4 1 / K5 3 and nothing else, the head outputs against the
+plain prefix. (d) The backbone and neck of each of the four two-stage
+configs (faster_rcnn_r50_caffe_c4, faster_rcnn_x101_32x4d_fpn,
+faster_rcnn_hrnetv2p_w32, libra_faster_rcnn_r50_fpn) as the files ship,
+through build_backbone / build_neck: one bf16 step at batch 2 on 800x1344
+(forward, backward, SGD; finite outputs and gradients, frozen parameters
+bit-equal, peak memory), then ResNeXt-101 32x4d with grouped DCN in c3-c5
+(K6 30 a forward, K3 30 a step), its C3-C5 against the plain kernels. (a)
+and (b) also print the served batch's and the train step's profile by
+stage.
+
 Prints the card's name and power limit, one line per check, a JSON line of
 the seven kernels (launches on each main path, the evaluation CLI's
-and phase 12's included, error, wrapper and device times, bound), and as
+and phases 12 and 13 included, error, wrapper and device times, bound), and as
 its last line {"ok": true, "device": {...}}. Exits
 nonzero, with no result line, when a check fails or no CUDA device is
 present. Imports nothing of JAX and nothing of the JAX package.
@@ -693,19 +718,25 @@ def phase_kernels(torch, gen):
         k1_ops(H * W, K, C, 2 * C), 'bf16'))
     del feat, pos, w, g, a16
 
-    # the DCN backbone's stride-2 blocks (phase 12 (c)), 9 taps around each
-    # output pixel's centre: K6 (its forward, served and trained) and K3
-    # (its backward) at layer2.0 (map 200x336x128, outputs 100x168) and
-    # layer4.0 (map 50x84x512, outputs 25x42)
-    for label, (H, W, C_dcn) in (('layer2_0', (200, 336, 128)),
-                                 ('layer4_0', (50, 84, 512))):
-        Ho, Wo = -(-H // 2), -(-W // 2)
+    # 9 taps around each output pixel's centre: K6 (the forward, served
+    # and trained) and K3 (its backward) at the DCN backbone's stride-2
+    # blocks (phase 12 (c)), layer2.0 (map 200x336x128, outputs 100x168)
+    # and layer4.0 (map 50x84x512, outputs 25x42); at GA-Retina's feature
+    # adaption on P3 (phase 13 (a): map 100x168x256, stride 1); at
+    # ResNeXt-101 32x4d's grouped DCN blocks (phase 13 (d)), layer2.0 (map
+    # 200x336x256, stride 2) and layer4.0 (map 50x84x1024, stride 2)
+    for label, (H, W, C_dcn), st in (
+            ('layer2_0', (200, 336, 128), 2), ('layer4_0', (50, 84, 512), 2),
+            ('ga_p3', (100, 168, 256), 1),
+            ('x101_layer2_0', (200, 336, 256), 2),
+            ('x101_layer4_0', (50, 84, 1024), 2)):
+        Ho, Wo = -(-H // st), -(-W // st)
         P = Ho * Wo
-        feat, pos = randn(B, H, W, C_dcn), dcn_pos(Ho, Wo, 2)
+        feat, pos = randn(B, H, W, C_dcn), dcn_pos(Ho, Wo, st)
         g = randn(B, P, K, C_dcn)
         lib_fwd, lib_bwd, lib_err, lib_dtype = library_sampling(feat, pos, g)
         name = f'K6 deform_sample_cols DCN {label} map {H}x{W}x{C_dcn} ' \
-            f'stride 2'
+            f'stride {st}'
         m, a16 = check_pair(name, dk.deform_sample_cols,
                             dk.deform_sample_cols_ref, [feat, pos],
                             lambda a: [a[0].to(bf16), a[1]])
@@ -714,7 +745,7 @@ def phase_kernels(torch, gen):
             nbytes(*a16) + out_bytes(dk.deform_sample_cols, a16),
             7 * B * P * K * C_dcn, 'f32'), library_ms=lib_fwd)
         results['deform_sample_bwd'][f'dcn_{label}'] = check_bwd(
-            f'DCN {label} map {H}x{W}x{C_dcn} stride 2, taps near their '
+            f'DCN {label} map {H}x{W}x{C_dcn} stride {st}, taps near their '
             f'centre', feat, pos, g, lib_bwd)
         print(f'K6 / K3 yardstick F.grid_sample and its backward '
               f'({lib_dtype}, NCHW) DCN {label}: {lib_fwd:.4f} / '
@@ -840,12 +871,15 @@ def phase_kernels(torch, gen):
               f'{r["device_ms"]:.4f} ms, per forward or step of batch {B})',
               flush=True)
         for case in ('near', 'b8_42x25', 'serial', 'serial_near',
-                     'width128', 'dcn_layer2_0', 'dcn_layer4_0'):
+                     'width128', 'dcn_layer2_0', 'dcn_layer4_0', 'dcn_ga_p3',
+                     'dcn_x101_layer2_0', 'dcn_x101_layer4_0'):
             if case in r:
                 q = r[case]
+                lib = '' if q.get('library_ms') is None \
+                    else f', grid_sample {q["library_ms"]:.4f} ms'
                 print(f'bound {name}, {case}: {q["bound_ms"]:.4f} ms by '
                       f'{q["bound_by"]} (wrapper calls {q["ms"]:.4f} ms, '
-                      f'kernel on the device {q["device_ms"]:.4f} ms)',
+                      f'kernel on the device {q["device_ms"]:.4f} ms{lib})',
                       flush=True)
     return results
 
@@ -902,9 +936,11 @@ def serve(torch, predict, reqs):
 
 def last_stage(outs):
     """The last stage's maps of every level: cls, kpt and bbox of the
-    point families, cls and bbox of the anchor families."""
+    point families, cls and bbox of the anchor families, FCOS's
+    centerness, GA-Retina's anchor shape and location."""
     return {f'{k} level {lvl}': o[k][-1] for lvl, o in enumerate(outs)
-            for k in ('cls', 'kpt', 'bbox') if k in o}
+            for k in ('cls', 'kpt', 'bbox', 'centerness', 'shape', 'loc')
+            if k in o}
 
 
 def hold_against_plain(torch, model, batch, where=''):
@@ -964,7 +1000,7 @@ def phase_serving(torch, gpu, config, per_fwd, n_reqs=SERVED, compare=True,
     ``prepare(model, request)``, where given, sets weights before the
     first request."""
     from kgdet_tpu_torch.api import build_model, make_predict_fn
-    from kgdet_tpu_torch.models.families import ANCHOR_FAMILIES
+    from kgdet_tpu_torch.models.families import BOX_FAMILIES
 
     cfg, name = config_of(config)
     cfg = cfg.replace(test=dataclasses.replace(cfg.test, score_thr=0.0))
@@ -974,7 +1010,7 @@ def phase_serving(torch, gpu, config, per_fwd, n_reqs=SERVED, compare=True,
           f'test.score_thr set to 0.0 so NMS has work under random weights',
           flush=True)
     model = build_model(cfg).init_weights(SEED).eval()
-    kpt_width = 3 if cfg.head.type in ANCHOR_FAMILIES \
+    kpt_width = 3 if cfg.head.type in BOX_FAMILIES \
         else 3 * cfg.head.num_keypts
     if next(model.parameters()).device.type != 'cuda':
         fail('build_model did not place the model on the card')
@@ -3171,11 +3207,12 @@ def phase_ssd(torch, gpu):
     return served, trained
 
 
-def calibrate_offsets(torch, model, req, cells=0.25):
+def calibrate_offsets(torch, model, req, cells=0.25, forward=None):
     """Seeded offset convs in place of their zero init, so that the DCN
     blocks sample off the pixel grid: each block's conv2_offset gets
     N(0, sd) weights, sd set from the block's input so that its offsets
-    have a standard deviation of about ``cells`` grid cells."""
+    have a standard deviation of about ``cells`` grid cells. ``forward``,
+    where given, runs the model instead of a detector forward on ``req``."""
     from kgdet_tpu_torch.models.resnet import Bottleneck
     from kgdet_tpu_torch.ops.image import device_normalize
 
@@ -3186,10 +3223,12 @@ def calibrate_offsets(torch, model, req, cells=0.25):
         lambda mod, args, out, blk=blk: rms.__setitem__(
             blk, torch.relu(out.float()).square().mean().sqrt().item()))
         for blk in blocks]
-    image = device_normalize(torch.as_tensor(req['image']).cuda(),
-                             torch.as_tensor(req['img_hw']).cuda())
     with torch.inference_mode():
-        model(image)
+        if forward is not None:
+            forward()
+        else:
+            model(device_normalize(torch.as_tensor(req['image']).cuda(),
+                                   torch.as_tensor(req['img_hw']).cuda()))
     for h in hooks:
         h.remove()
     gen = torch.Generator().manual_seed(SEED + 5)
@@ -3257,19 +3296,23 @@ def hold_dcn_against_plain(torch, model, req):
                  f'plain {ep:.3e}')
 
 
-def dcn_function(torch, model, loss_fn, batch):
+def dcn_function(torch, model, loss_fn, batch, blocks=DCN_FUNCTION_BLOCKS):
     """ops/deform.py::deform_conv (the Function over K6 and K3, then the
     contraction) against the same over their plain versions, f32, on the
-    tensors that the train step's forward hands DCN_FUNCTION_BLOCKS (map,
-    offsets, tap-major weight) and a seeded cotangent: the output and every
-    gradient within MODEL_F32_REL of its scale (no ReLU between)."""
+    tensors that the train step's forward hands the DeformConv3x3 modules
+    ``blocks`` in their first call (map, offsets, tap-major weight; a
+    head's module runs once a level, the first on the largest) and a
+    seeded cotangent: the output and every gradient within MODEL_F32_REL
+    of its scale (no ReLU between)."""
     from kgdet_tpu_torch.ops.deform import deform_conv
 
     modules = dict(model.named_modules())
     caught = {}
+    # a forward hook that returns a value replaces the module's output:
+    # these return None
     hooks = [modules[n].register_forward_hook(
-        lambda mod, args, out, n=n: caught.__setitem__(
-            n, [a.detach() for a in args])) for n in DCN_FUNCTION_BLOCKS]
+        lambda mod, args, out, n=n: None if n in caught else
+        caught.__setitem__(n, [a.detach() for a in args])) for n in blocks]
     model.dtype = torch.float32
     model.use_plain_kernels(False)
     try:
@@ -3280,7 +3323,7 @@ def dcn_function(torch, model, loss_fn, batch):
             h.remove()
     gen = torch.Generator(device='cuda').manual_seed(SEED + 6)
     names = ('output', 'grad map', 'grad offsets', 'grad weight')
-    for n in DCN_FUNCTION_BLOCKS:
+    for n in blocks:
         conv = modules[n]
         x, offsets = caught[n]
         Bn, _, Ho, Wo = offsets.shape
@@ -3399,7 +3442,324 @@ def phase_anchor_and_dcn(torch, gpu):
     return launches
 
 
-PHASE_GROUPS = ('1', '2', '6', '9', '10', '11', '12')
+# ------------------- phase 13: GA-Retina, FCOS, the backbone and neck extras
+# mmdetection v1.x configs/guided_anchoring/ga_retinanet_r50_caffe_fpn_1x.py
+# and configs/fcos/fcos_r50_caffe_fpn_gn_1x_4gpu.py share the caffe-style
+# ResNet-50 (frozen_stages 1) and the FPN on C3-C5 with extra convs (P3-P7)
+FPN_P3_P7 = dict(in_channels=(256, 512, 1024, 2048), out_channels=256,
+                 start_level=1, num_outs=5, add_extra_convs=True,
+                 select_out=None, norm=None)
+# the Function over K6+K3 on the step's tensors of GA's feature adaption
+GA_FUNCTION_BLOCKS = ('bbox_head.feature_adaption_cls.conv_adaption',)
+GA_GRAD_GROUPS = ('backbone.layer2.', 'backbone.layer3.', 'backbone.layer4.',
+                  'neck.', 'bbox_head.')
+# the four two-stage configs whose backbones and necks the port builds
+TWO_STAGE_CONFIGS = tuple(
+    os.path.join(ROOT, 'configs', f'{name}_1x_deepfashion2.py') for name in (
+        'faster_rcnn_r50_caffe_c4', 'faster_rcnn_x101_32x4d_fpn',
+        'faster_rcnn_hrnetv2p_w32', 'libra_faster_rcnn_r50_fpn'))
+
+
+def caffe_recipe(name, head, assigner):
+    """The cascade config cut to a single-stage recipe of mmdetection v1.x:
+    caffe-style ResNet-50, FPN_P3_P7, ``head``; test nms_pre 1000, IoU 0.5,
+    100 a image."""
+    from kgdet_tpu_torch.config import NeckConfig, TestConfig, load_config
+    cfg = load_config(CONFIG)
+    return name, cfg.replace(
+        backbone=dataclasses.replace(cfg.backbone, style='caffe'),
+        neck=NeckConfig(**FPN_P3_P7), head=head, assigner=assigner,
+        refine_assigner=None,
+        test=TestConfig(nms_pre=1000, nms_iou_thr=0.5, max_per_img=100))
+
+
+def ga_config():
+    """GA-Retina (ga_retinanet_r50_caffe_fpn_1x) as far as the JAX
+    HeadConfig expresses it: 4 stacked convs of 256 a branch, no norm,
+    octave base scale 4, 3 scales an octave, ratios 0.5 / 1 / 2 for the
+    approx anchors; one assigner for the approx and the guided anchors
+    (MaxIoU 0.5 / 0.4 / 0: the JAX loss takes one)."""
+    from kgdet_tpu_torch.config import AssignConfig, HeadConfig
+    return caffe_recipe(
+        'GA-Retina R-50 caffe FPN (ga_retinanet_r50_caffe_fpn_1x recipe)',
+        HeadConfig(type='GARetinaHead', num_classes=13, in_channels=256,
+                   feat_channels=256, stacked_convs=4, norm=None,
+                   octave_base_scale=4, scales_per_octave=3,
+                   anchor_ratios=(0.5, 1.0, 2.0),
+                   point_strides=(8, 16, 32, 64, 128)),
+        AssignConfig(type='MaxIoUAssigner', pos_iou_thr=0.5,
+                     neg_iou_thr=0.4, min_pos_iou=0.0))
+
+
+def fcos_config():
+    """FCOS (fcos_r50_caffe_fpn_gn_1x_4gpu): 4 stacked GN convs of 256 a
+    branch, strides 8 to 128 (the JAX FPN has neither
+    extra_convs_on_inputs=False nor relu_before_extra_convs: its P6 reads
+    C5)."""
+    from kgdet_tpu_torch.config import AssignConfig, HeadConfig
+    return caffe_recipe(
+        'FCOS R-50 caffe FPN GN (fcos_r50_caffe_fpn_gn_1x recipe)',
+        HeadConfig(type='FCOSHead', num_classes=13, in_channels=256,
+                   feat_channels=256, stacked_convs=4, norm='gn',
+                   gn_groups=32, point_strides=(8, 16, 32, 64, 128)),
+        AssignConfig(type='PointAssigner'))
+
+
+def phase_ga(torch, gpu):
+    """(a) GA-Retina at full width: 2 requests of 2 served (K4 1, K5 3, K6
+    10 a forward: two feature adaptions a level), the head outputs against
+    the plain kernels; 2 train steps (K3 10, K4 1, K5 3, K6 10 a step); the
+    Function over K6+K3 on the step's P3 tensors of feature_adaption_cls;
+    the model's gradients against the plain kernels' with the prefix the
+    same on both sides (the whole-model rule) and in bf16. Returns the
+    launches served and trained."""
+    from kgdet_tpu_torch.parallel.train import make_loss_fn
+
+    prefix = dict(stem_pool=1, frozen_bottleneck=3)
+    config = ga_config()
+    n_fa = 2 * len(config[1].head.point_strides)
+    model, cfg, req, served = phase_serving(
+        torch, gpu, config, launch_counts(deform_sample_cols=n_fa, **prefix))
+    phase_profile(torch, model, cfg, req, gpu)
+    del model
+    torch.cuda.empty_cache()
+    model, cfg, optimizer, batches, trained = take_train_steps(
+        torch, gpu, config, launch_counts(
+            deform_sample_cols=n_fa, deform_sample_bwd=n_fa, **prefix),
+        n_logs=7, free_name='bbox_head.retina_cls.weight')
+    loss_fn = make_loss_fn(model, cfg, CANVAS)
+    dcn_function(torch, model, loss_fn, batches[0], GA_FUNCTION_BLOCKS)
+
+    def run(dtype, plain):
+        return loss_and_grads(model, optimizer, loss_fn, GA_GRAD_GROUPS,
+                              dtype, plain, batches[0], plain_prefix=False)
+    ref_loss, ref = head32 = run(torch.float32, True)
+    check_same_prefix_grads('K6+K3 in the feature adaption',
+                            run(torch.float32, False), head32)
+    check_bf16_grads(ref_loss, ref, run(torch.bfloat16, False),
+                     run(torch.bfloat16, True), GA_GRAD_GROUPS)
+    optimizer.zero_grad()
+    model.dtype = torch.bfloat16
+    model.use_plain_kernels(False)
+    phase_train_profile(torch, model, cfg, optimizer, batches[0], gpu)
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return served, trained
+
+
+def phase_fcos(torch, gpu):
+    """(b) FCOS at full width: 2 requests of 2 served (K4 1, K5 3 a
+    forward, nothing else), the head outputs against the plain prefix; 2
+    train steps (K4 1, K5 3 a step). Returns the launches served and
+    trained."""
+    prefix = launch_counts(stem_pool=1, frozen_bottleneck=3)
+    config = fcos_config()
+    model, cfg, req, served = phase_serving(torch, gpu, config, prefix)
+    phase_profile(torch, model, cfg, req, gpu)
+    del model
+    torch.cuda.empty_cache()
+    model, cfg, optimizer, batches, trained = take_train_steps(
+        torch, gpu, config, prefix, n_logs=6,
+        free_name='bbox_head.fcos_cls.weight')
+    phase_train_profile(torch, model, cfg, optimizer, batches[0], gpu)
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return served, trained
+
+
+def build_trunk(torch, cfg):
+    """A backbone and its neck (None: the identity neck) under the
+    detector's attribute names, built as the config says, seeded weights,
+    on the card."""
+    from kgdet_tpu_torch.models.detector import build_backbone, build_neck
+
+    class Trunk(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.backbone = build_backbone(cfg.backbone)
+            self.neck = build_neck(cfg.neck)
+
+        def forward(self, x):
+            feats = self.backbone(x)
+            return feats if self.neck is None else self.neck(feats)
+    trunk = Trunk()
+    gen = torch.Generator().manual_seed(SEED)
+    for part in (trunk.backbone, trunk.neck):
+        if part is not None:
+            part.init_weights(gen)
+    return trunk.cuda()
+
+
+def trunk_step(torch, gpu, trunk, cfg, name, per_step):
+    """One forward and backward of ``trunk`` at batch B on the canvas in
+    bf16 and one SGD update: ``per_step`` launches, finite outputs and
+    gradients, frozen parameters bit-equal, a free one moved; prints the
+    ms and the peak memory. Returns the launches."""
+    from kgdet_tpu_torch.parallel.train import SGDOptimizer, \
+        frozen_param_mask
+
+    x = torch.randn((B, *CANVAS, 3), generator=torch.Generator(
+        device='cuda').manual_seed(SEED), device='cuda').to(torch.bfloat16)
+    opt = SGDOptimizer(trunk, cfg, steps_per_epoch=1000)
+    frozen = frozen_param_mask(trunk, cfg.backbone.frozen_stages)
+    params = dict(trunk.named_parameters())
+    kept = {n: p.detach().clone() for n, p in params.items() if frozen[n]}
+    free = next(n for n in params if not frozen[n])
+    before = params[free].detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = trunk(x)
+    loss = sum(o.float().square().mean() for o in outs)
+    loss.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = read_launches()
+    if got != per_step:
+        fail(f'{name}: launch counts {got} != {per_step} for one step')
+    if not all(torch.isfinite(o).all() for o in outs) or not all(
+            torch.isfinite(p.grad).all() for p in params.values()
+            if p.grad is not None):
+        fail(f'{name}: non-finite outputs or gradients')
+    if any(not torch.equal(params[n], v) for n, v in kept.items()):
+        fail(f'{name}: a frozen parameter changed')
+    if torch.equal(params[free], before):
+        fail(f'{name}: {free} did not move')
+    print(f'{name}: outputs ' + ', '.join(
+        'x'.join(map(str, o.shape[1:])) for o in outs) + f'; one bf16 step '
+        f'at batch {B} {CANVAS[0]}x{CANVAS[1]} (forward, backward, SGD) '
+        f'{ms:.1f} ms with its first calls, launches {got}, {len(kept)} '
+        f'frozen parameters bit-equal, peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB ({gpu})',
+        flush=True)
+    return got
+
+
+def hold_trunk_against_plain(torch, trunk, x):
+    """The DCN trunk's C3 to C5 on its kernels against on their plain
+    versions: f32 within F32_TOL with atol scaled by the map's largest
+    value (as phase 12 (c)), bf16 error against the f32 plain run within
+    BF16_RATIO x the plain bf16 run's."""
+    from kgdet_tpu_torch.models.resnet import DeformConv3x3
+    convs = [m for m in trunk.modules() if isinstance(m, DeformConv3x3)]
+    runs = {}
+    try:
+        with torch.inference_mode():
+            for dtype in (torch.bfloat16, torch.float32):
+                for plain in (False, True):
+                    for m in convs:
+                        m.plain = plain
+                    runs[dtype, plain] = trunk.backbone(x.to(dtype))
+    finally:
+        for m in convs:
+            m.plain = False
+    ref = runs[torch.float32, True]
+    for i, r in enumerate(ref):
+        if i == 0:
+            continue
+        got = runs[torch.float32, False][i]
+        e32 = max_err(got, r)
+        ek = max_err(runs[torch.bfloat16, False][i], r)
+        ep = max_err(runs[torch.bfloat16, True][i], r)
+        atol = F32_TOL['atol'] * max(1.0, r.abs().max().item())
+        print(f'ResNeXt-101 32x4d DCN C{i + 2}: f32 kernels vs plain '
+              f'{e32:.3e} (rtol {F32_TOL["rtol"]}, atol {atol:.3e}); bf16 vs '
+              f'f32 plain: kernels {ek:.3e}, plain {ep:.3e} (bound '
+              f'{BF16_RATIO} x plain)', flush=True)
+        if not torch.allclose(got, r, rtol=F32_TOL['rtol'], atol=atol):
+            fail(f'ResNeXt DCN C{i + 2}: the f32 kernels differ from the '
+                 f'plain versions by {e32:.3e}')
+        if not ek <= BF16_RATIO * ep:
+            fail(f'ResNeXt DCN C{i + 2}: bf16 kernel err {ek:.3e} > '
+                 f'{BF16_RATIO} x plain {ep:.3e}')
+
+
+def phase_extras(torch, gpu):
+    """(d) The backbones and necks of the four two-stage configs, built by
+    build_backbone / build_neck from the files as they ship (build_model
+    refuses two-stage until item 6), each one bf16 step at batch B on the
+    canvas (K4 1 / K5 3 where the frozen prefix applies: the caffe C4
+    ResNet-50 and Libra's ResNet-50; none for ResNeXt and HRNet); then
+    ResNeXt-101 32x4d with grouped DCN in c3-c5 (K6 30 a forward, K3 30 a
+    step), its offset convs seeded off zero, C3-C5 against the plain
+    kernels. Returns the launches of the four steps summed and of the DCN
+    trunk's step."""
+    from kgdet_tpu_torch.config import load_config
+    from kgdet_tpu_torch.models.resnet import DeformConv3x3
+
+    total = launch_counts()
+    for path in TWO_STAGE_CONFIGS:
+        cfg = load_config(path)
+        trunk = build_trunk(torch, cfg)
+        prefix = getattr(trunk.backbone, 'use_prefix', False)
+        per = launch_counts(stem_pool=1, frozen_bottleneck=3) if prefix \
+            else launch_counts()
+        got = trunk_step(torch, gpu, trunk, cfg,
+                         os.path.relpath(path, ROOT), per)
+        total = {k: total[k] + got[k] for k in total}
+        del trunk
+        torch.cuda.empty_cache()
+
+    cfg = load_config(TWO_STAGE_CONFIGS[1])
+    cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone,
+                                                   dcn_stages=DCN_STAGES))
+    trunk = build_trunk(torch, cfg)
+    n_dcn = sum(isinstance(m, DeformConv3x3) for m in trunk.modules())
+    if n_dcn != 30 or trunk.backbone.layer3[0].conv2.groups != 32:
+        fail(f'ResNeXt-101 32x4d DCN c3-c5: {n_dcn} grouped DCN blocks')
+    x = torch.randn((B, *CANVAS, 3), generator=torch.Generator(
+        device='cuda').manual_seed(SEED + 7), device='cuda')
+    calibrate_offsets(torch, trunk, None,
+                      forward=lambda: trunk.backbone(x.to(torch.bfloat16)))
+    hold_trunk_against_plain(torch, trunk, x)
+    got = trunk_step(torch, gpu, trunk, cfg,
+                     'ResNeXt-101 32x4d, grouped DCN c3-c5 (x101 config)',
+                     launch_counts(deform_sample_cols=n_dcn,
+                                   deform_sample_bwd=n_dcn))
+    del trunk
+    torch.cuda.empty_cache()
+    return total, got
+
+
+def phase_ga_fcos_and_extras(torch, gpu):
+    """Phase 13: (a) GA-Retina, (b) FCOS, (d) the backbones and necks of
+    the two-stage configs and the ResNeXt DCN trunk ((c) is in phase 1).
+    Returns the launches of each path."""
+    t = [time.perf_counter()]
+    launches = {}
+    launches['ga_serving'], launches['ga_training'] = phase_ga(torch, gpu)
+    t.append(time.perf_counter())
+    launches['fcos_serving'], launches['fcos_training'] = \
+        phase_fcos(torch, gpu)
+    t.append(time.perf_counter())
+    launches['two_stage_trunks'], launches['x101_dcn_step'] = \
+        phase_extras(torch, gpu)
+    t.append(time.perf_counter())
+    print('phase 13 seconds: ' + ', '.join(
+        f'{k} {b - a:.1f}' for k, a, b in zip(
+            ('(a) GA-Retina', '(b) FCOS', '(d) trunks'), t, t[1:]))
+        + f' ({gpu})', flush=True)
+    return launches
+
+
+PHASE_GROUPS = ('1', '2', '6', '9', '10', '11', '12', '13')
+
+
+def import_every_module():
+    """Import every module of kgdet_tpu_torch (jax, flax and kgdet_tpu are
+    blocked by then): the port needs none of them anywhere."""
+    import importlib
+    import pkgutil
+
+    import kgdet_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        kgdet_tpu_torch.__path__, 'kgdet_tpu_torch.')]
+    for name in names:
+        importlib.import_module(name)
+    print(f'imports: {len(names)} modules of kgdet_tpu_torch with jax, '
+          'flax and kgdet_tpu blocked', flush=True)
 
 
 def main(argv=None):
@@ -3422,6 +3782,7 @@ def main(argv=None):
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    import_every_module()
     from kgdet_tpu_torch.ops import _build
 
     gpu = gpu_line()
@@ -3472,6 +3833,10 @@ def main(argv=None):
     # RetinaNet, SSD300, the DCN backbone, tools/benchmark.py
     if '12' in phases:
         launches.update(phase_anchor_and_dcn(torch, gpu))
+
+    # GA-Retina, FCOS, the two-stage configs' backbones and necks
+    if '13' in phases:
+        launches.update(phase_ga_fcos_and_extras(torch, gpu))
 
     if phases != set(PHASE_GROUPS):
         print(f'chip_smoke: phases {sorted(phases, key=int)} passed; no '

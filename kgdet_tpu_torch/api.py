@@ -77,12 +77,11 @@ def make_raw_predict_fn(model: KGDetDetector, cfg: KGDetConfig, canvas_hw):
     which test-time augmentation merges over its variants before one NMS
     (core/postprocess.py::decode_raw)."""
     from kgdet_tpu_torch.core.postprocess import decode_raw
-    from kgdet_tpu_torch.models.families import ANCHOR_FAMILIES, \
-        level_grids
-    if cfg.head.type in ANCHOR_FAMILIES:
+    from kgdet_tpu_torch.models.families import BOX_FAMILIES, level_grids
+    if cfg.head.type in BOX_FAMILIES:
         raise NotImplementedError(
             f'test-time augmentation decodes the point families only, as '
-            f'in the JAX package; {cfg.head.type} is anchor-based')
+            f'in the JAX package; {cfg.head.type} predicts no keypoints')
     grids = {}                      # the static level grids, once a device
 
     @torch.inference_mode()
@@ -131,7 +130,8 @@ class Detector:
     def __call__(self, img):
         """img: BGR uint8 (H, W, 3) array or image path. Returns (dets (N, 5)
         xyxy+score, labels (N,), kpts (N, K, 3)) in original image
-        coordinates; K is 1, a zero keypoint, for the anchor families."""
+        coordinates; K is 1, a zero keypoint, for the box families
+        (RetinaNet, SSD, FCOS, GA-Retina)."""
         from kgdet_tpu_torch.data.transforms import (
             imnormalize, imrescale, pad_to_canvas)
 
@@ -150,7 +150,7 @@ class Detector:
         boxes = dets['det_bboxes'][0].cpu().numpy()[valid]
         labels = dets['det_labels'][0].cpu().numpy()[valid]
         kpts = dets['det_kpts'][0].cpu().numpy()[valid]
-        # (N, K, 3); the anchor families carry one dummy keypoint a box
+        # (N, K, 3); the box families carry one dummy keypoint a box
         return boxes, labels, kpts.reshape(len(kpts), -1, 3)
 
     def _raw_predict_for(self, canvas):

@@ -147,48 +147,68 @@ def ssd_loss(level_outs, anchors_per_level, valids_per_level, batch,
                             'num_pos': total_pos}
 
 
-def _decode(level_outs, anchors_per_level, img_hw, scale_factor,
-            cfg: TestConfig, scores_of, stds):
-    """Per level: scores_of(cls logits (B, P, ·)) -> (B, P, C) scores,
-    top-``nms_pre`` by max score (stable descending sort: ties keep the
-    lower index, as jax.lax.top_k), delta decode, clamp to the resized
-    image; then rescale and multiclass NMS with a width-3 dummy keypoint."""
-    B = level_outs[0]['cls'].shape[1]
-    img_hw = img_hw.float()
-    w = img_hw[:, 1][:, None]
-    h = img_hw[:, 0][:, None]
-    mlvl_scores, mlvl_bboxes = [], []
-    for outs, anchors in zip(level_outs, anchors_per_level):
-        P = anchors.shape[0]
-        scores = scores_of(outs['cls'][-1].float().reshape(B, P, -1))
-        reg = outs['bbox'][-1].float().reshape(B, P, 4)
-        anc = anchors[None].expand(B, P, 4)
-        if 0 < cfg.nms_pre < P:
-            topk = torch.sort(scores.amax(-1), dim=-1, descending=True,
-                              stable=True)[1][:, :cfg.nms_pre]
+def top_k_rows(scores, nms_pre, *tensors):
+    """The top-``nms_pre`` rows (dim 1) by each row's max score of
+    ``scores`` (B, P, C) and of every (B, P, n) tensor, when 0 < nms_pre <
+    P; the stable descending sort keeps the lower index first on ties, as
+    jax.lax.top_k does."""
+    P = scores.shape[1]
+    if not 0 < nms_pre < P:
+        return (scores, *tensors)
+    topk = torch.sort(scores.amax(-1), dim=-1, descending=True,
+                      stable=True)[1][:, :nms_pre]
+    return tuple(t.gather(1, topk[..., None].expand(-1, -1, t.shape[-1]))
+                 for t in (scores, *tensors))
 
-            def take(t):
-                return t.gather(1, topk[..., None].expand(-1, -1,
-                                                          t.shape[-1]))
-            scores, reg, anc = take(scores), take(reg), take(anc)
-        boxes = delta2bbox(anc, reg, stds=stds)
-        boxes = torch.stack([
-            torch.minimum(boxes[..., 0].clamp(min=0), w),
-            torch.minimum(boxes[..., 1].clamp(min=0), h),
-            torch.minimum(boxes[..., 2].clamp(min=0), w),
-            torch.minimum(boxes[..., 3].clamp(min=0), h)], dim=-1)
-        mlvl_scores.append(scores)
-        mlvl_bboxes.append(boxes)
+
+def clamp_to_image(boxes, img_hw):
+    """xyxy boxes (B, N, 4) clamped to [0, w] x [0, h] of each resized
+    image."""
+    w = img_hw[:, 1].float()[:, None]
+    h = img_hw[:, 0].float()[:, None]
+    return torch.stack([
+        torch.minimum(boxes[..., 0].clamp(min=0), w),
+        torch.minimum(boxes[..., 1].clamp(min=0), h),
+        torch.minimum(boxes[..., 2].clamp(min=0), w),
+        torch.minimum(boxes[..., 3].clamp(min=0), h)], dim=-1)
+
+
+def nms_detections(mlvl_scores, mlvl_boxes, scale_factor, cfg: TestConfig,
+                   **nms_kw):
+    """The levels' scores and boxes concatenated, rescaled to the original
+    images, then multiclass NMS with a width-3 dummy keypoint: the padded
+    dict of the decodes."""
     scores = torch.cat(mlvl_scores, dim=1)
-    boxes = torch.cat(mlvl_bboxes, dim=1) \
+    boxes = torch.cat(mlvl_boxes, dim=1) \
         / scale_factor.float()[:, None, None]
+    B = boxes.shape[0]
     det_bboxes, det_labels, det_kpts, valid = multiclass_nms_kp(
         boxes, scores, boxes.new_zeros((B, boxes.shape[1], 3)),
         cfg.score_thr, cfg.nms_iou_thr, max_per_class=cfg.max_per_class,
-        max_per_img=cfg.max_per_img, nms_type=cfg.nms_type,
-        soft_sigma=cfg.soft_nms_sigma, soft_min_score=cfg.soft_nms_min_score)
+        max_per_img=cfg.max_per_img, nms_type=cfg.nms_type, **nms_kw)
     return {'det_bboxes': det_bboxes, 'det_labels': det_labels,
             'det_kpts': det_kpts, 'valid': valid}
+
+
+def _decode(level_outs, anchors_per_level, img_hw, scale_factor,
+            cfg: TestConfig, scores_of, stds):
+    """Per level: scores_of(cls logits (B, P, ·)) -> (B, P, C) scores,
+    top-``nms_pre`` by max score, delta decode, clamp to the resized
+    image; then rescale and multiclass NMS with a width-3 dummy keypoint."""
+    B = level_outs[0]['cls'].shape[1]
+    mlvl_scores, mlvl_bboxes = [], []
+    for outs, anchors in zip(level_outs, anchors_per_level):
+        P = anchors.shape[0]
+        scores, reg, anc = top_k_rows(
+            scores_of(outs['cls'][-1].float().reshape(B, P, -1)),
+            cfg.nms_pre, outs['bbox'][-1].float().reshape(B, P, 4),
+            anchors[None].expand(B, P, 4))
+        mlvl_scores.append(scores)
+        mlvl_bboxes.append(clamp_to_image(delta2bbox(anc, reg, stds=stds),
+                                          img_hw))
+    return nms_detections(mlvl_scores, mlvl_bboxes, scale_factor, cfg,
+                          soft_sigma=cfg.soft_nms_sigma,
+                          soft_min_score=cfg.soft_nms_min_score)
 
 
 def decode_detections_anchor(level_outs, anchors_per_level, img_hw,

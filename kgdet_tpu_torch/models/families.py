@@ -3,11 +3,13 @@
 Port of kgdet_tpu/models/families.py: the records of the point-based
 families, ``KGDetHead`` and its single-column ablation ``KGDetHead1Rep``,
 and the init/refine heads ``SerialKpHead``, ``ParallelKpHead`` and
-``RepPointsHead``; and of the anchor-based ``RetinaHead`` and ``SSDHead``,
-whose anchors are static per canvas and made once a device. GA-Retina and
-FCOS (ROADMAP Queue 1 items 5.4 and 5.5) and the two-stage families (item
-6) are not ported yet: ``get_head_family`` raises ``NotImplementedError``
-naming the item for them and for any other name.
+``RepPointsHead``; of the anchor-based ``RetinaHead`` and ``SSDHead``,
+whose anchors are static per canvas and made once a device; of the
+anchor-free ``FCOSHead`` (on the level grids) and of ``GARetinaHead``
+(guided anchors). ``get_head_family`` raises ``KeyError`` for any other
+name, as the JAX registry does; the two-stage families (ROADMAP Queue 1
+item 6) dispatch on ``cfg.detector_type`` and are refused before a head is
+built.
 """
 from __future__ import annotations
 
@@ -165,7 +167,9 @@ def head_in_channels(cfg):
     if cfg.backbone.type == 'SSDVGG':
         from kgdet_tpu_torch.models.vgg import vgg_out_channels
         return vgg_out_channels(cfg.backbone.vgg_input_size)
-    return tuple(256 * 2 ** i for i in cfg.backbone.out_indices)
+    from kgdet_tpu_torch.models.resnet import ResNet
+    chans = ResNet.stage_channels(cfg.backbone.depth)
+    return tuple(chans[i] for i in cfg.backbone.out_indices)
 
 
 def _anchor_loss(loss):
@@ -224,6 +228,62 @@ def _build_ssd(cfg):
     return SSDHead.from_config(cfg, head_in_channels(cfg))
 
 
+# ------------------------------------------------------------------- FCOS
+def _build_fcos(cfg):
+    from kgdet_tpu_torch.models.fcos_head import FCOSHead
+    return FCOSHead.from_config(cfg)
+
+
+def _fcos_loss(outs, grids, valids, batch, cfg, canvas_hw):
+    from kgdet_tpu_torch.core.fcos_loss import fcos_loss
+    return fcos_loss(outs, grids, valids, batch, cfg.head)
+
+
+def _make_fcos_decode(cfg, canvas):
+    from kgdet_tpu_torch.core.fcos_loss import decode_detections_fcos
+    grids = {}                      # the static level grids, once a device
+
+    def decode(outs, img_hw, scale_factor):
+        dev = img_hw.device
+        if dev not in grids:
+            grids[dev] = level_grids(cfg, canvas, device=dev)
+        return decode_detections_fcos(outs, grids[dev], img_hw,
+                                      scale_factor, cfg.test,
+                                      num_classes=cfg.head.num_classes)
+    return decode
+
+
+# -------------------------------------------------------------- GA-Retina
+def _build_ga_retina(cfg):
+    from kgdet_tpu_torch.models.ga_head import GARetinaHead
+    return GARetinaHead.from_config(cfg)
+
+
+def _ga_retina_loss(outs, grids, valids, batch, cfg, canvas_hw):
+    from kgdet_tpu_torch.core.ga_loss import ga_loss
+    return ga_loss(outs, batch, cfg.head,
+                   cfg.refine_assigner or cfg.assigner, canvas_hw)
+
+
+def _make_ga_decode(cfg, canvas):
+    from kgdet_tpu_torch.core.ga_loss import decode_detections_ga, \
+        ga_squares
+    H, W = canvas
+    square_sets = {}                # the static squares, once a device
+
+    def decode(outs, img_hw, scale_factor):
+        dev = img_hw.device
+        if dev not in square_sets:
+            square_sets[dev] = [
+                ga_squares(s, cfg.head.octave_base_scale, -(-H // s),
+                           -(-W // s), device=dev)
+                for s in cfg.head.point_strides]
+        return decode_detections_ga(outs, cfg.head, canvas, img_hw,
+                                    scale_factor, cfg.test,
+                                    squares=square_sets[dev])
+    return decode
+
+
 HEAD_FAMILIES: Dict[str, HeadFamily] = {
     'KGDetHead': _point_family(_build_kgdet, _kgdet_loss),
     'KGDetHead1Rep': _point_family(_build_kgdet_1rep, _kgdet_loss),
@@ -237,18 +297,18 @@ HEAD_FAMILIES: Dict[str, HeadFamily] = {
                              make_decode=_make_anchor_decode),
     'SSDHead': HeadFamily(build=_build_ssd, loss=_anchor_loss(_ssd_loss),
                           make_decode=_make_anchor_decode),
+    'FCOSHead': HeadFamily(build=_build_fcos, loss=_fcos_loss,
+                           make_decode=_make_fcos_decode),
+    'GARetinaHead': HeadFamily(build=_build_ga_retina, loss=_ga_retina_loss,
+                               make_decode=_make_ga_decode),
 }
 
-ANCHOR_FAMILIES = ('RetinaHead', 'SSDHead')
-# the single-stage families still to port, by ROADMAP Queue 1 item
-QUEUED_FAMILIES = {'GARetinaHead': '5.4', 'FCOSHead': '5.5'}
+# the families whose detections carry a width-3 dummy keypoint
+BOX_FAMILIES = ('RetinaHead', 'SSDHead', 'FCOSHead', 'GARetinaHead')
 
 
 def get_head_family(name: str) -> HeadFamily:
     if name not in HEAD_FAMILIES:
-        item = QUEUED_FAMILIES.get(name, '5')
-        raise NotImplementedError(
-            f'head family {name!r} is not ported yet; it is queued in '
-            f'ROADMAP Queue 1 item {item} (GA-Retina 5.4, FCOS 5.5; the '
-            'two-stage families item 6)')
+        raise KeyError(
+            f'unknown head family {name}; have {sorted(HEAD_FAMILIES)}')
     return HEAD_FAMILIES[name]

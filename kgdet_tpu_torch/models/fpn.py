@@ -48,10 +48,6 @@ class FPN(nn.Module):
 
     @classmethod
     def from_config(cls, ncfg):
-        if ncfg.type != 'FPN':
-            raise NotImplementedError(
-                f'neck {ncfg.type!r} is queued in ROADMAP Queue 1 item 5.6 '
-                '(HRFPN, BFP, FPNBFP)')
         return cls(in_channels=ncfg.in_channels,
                    out_channels=ncfg.out_channels,
                    start_level=ncfg.start_level, end_level=ncfg.end_level,

@@ -81,10 +81,12 @@ class ConvModule(nn.Module):
 
 
 def head_out(x, conv):
-    """A padded 3x3 output conv with its bias, in x's dtype (NCHW), as the
-    (1, B, H, W, C) NHWC map of the anchor heads' output layout."""
+    """An output conv (3x3 padded or 1x1) with its bias, in x's dtype
+    (NCHW), as the (1, B, H, W, C) NHWC map of the single-stage heads'
+    output layout."""
     dt = x.dtype
-    y = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=1)
+    y = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt),
+                 padding=conv.padding)
     return y.permute(0, 2, 3, 1)[None]
 
 
@@ -110,6 +112,25 @@ def init_xavier_uniform_(w, gen: torch.Generator):
         w.copy_((torch.rand(w.shape, generator=gen) * 2 - 1) * bound)
 
 
+def init_variance_scaling_(w, gen: torch.Generator, scale: float = 1.0,
+                           distribution: str = 'truncated_normal'):
+    """flax's ``variance_scaling`` on a torch-layout weight ((out, in, ...)
+    conv or linear) over its fan-in: the default ``lecun_normal`` (scale 1,
+    truncated at two standard deviations), or ``uniform``."""
+    fan_in = w.shape[1] * (w[0, 0].numel() if w.dim() > 2 else 1)
+    var = scale / max(fan_in, 1)
+    with torch.no_grad():
+        if distribution == 'uniform':
+            lim = math.sqrt(3 * var)
+            w.copy_((torch.rand(w.shape, generator=gen) * 2 - 1) * lim)
+        else:
+            std = math.sqrt(var) / .87962566103423978
+            w.copy_(nn.init.trunc_normal_(torch.empty(w.shape), std=std,
+                                          a=-2 * std, b=2 * std,
+                                          generator=gen))
+
+
 def bias_prior(prior_prob: float = 0.01) -> float:
     """Focal-loss classification bias prior."""
     return float(-math.log((1 - prior_prob) / prior_prob))
+

@@ -1,4 +1,5 @@
-"""ResNet backbone (Bottleneck depths, pytorch style).
+"""ResNet / ResNeXt backbones (BasicBlock depths 18 / 34, Bottleneck
+depths 50 / 101 / 152; pytorch or caffe style).
 
 Port of kgdet_tpu/models/resnet.py. Module and
 parameter names follow torchvision / the reference (conv1, bn1,
@@ -14,14 +15,19 @@ folded weights and the kernels' layout of them are made once and kept
 pipeline does not apply) the stem and maxpool are PyTorch calls and each
 layer1 block is one ``ops/resblock.py::fused_bottleneck_prepared`` launch
 (kernel K8) on the same kept weights. The stem is the plain 7x7/2 conv, not
-the TPU's space-to-depth rewrite. layer2-4 are plain ``F.conv2d`` blocks,
-or, in the stages of ``dcn_stages``, blocks whose 3x3 conv is a
-deformable conv (``DeformConv3x3``: DCN v1, offsets from a zero-initialized
-``conv2_offset`` at the conv's stride) that samples through
-``ops/deform.py::deform_conv``: kernel K6 forward and K3 backward on the
-card. The frozen prefix stays K4 + K5 while stage 0 is not a DCN stage.
-Grouped (ResNeXt) and caffe-style blocks, the plugins and the BasicBlock
-depths are queued in ROADMAP Queue 1 item 5.6.
+the TPU's space-to-depth rewrite. The prefix takes the JAX module's gate:
+Bottleneck blocks, ``groups == 1`` and no DCN or plugin in stage 0 (caffe
+style changes nothing there: layer1 has stride 1). Every other block is a
+PyTorch block: ``style='caffe'`` puts a stage's stride on the first 1x1
+conv; ``groups`` / ``base_width`` make the grouped ResNeXt bottleneck (3x3
+width ``planes * base_width / 64 * groups``); in the stages of
+``dcn_stages`` the 3x3 conv is a deformable conv (``DeformConv3x3``: DCN
+v1, offsets from a zero-initialized ``conv2_offset`` at the conv's stride)
+that samples through ``ops/deform.py::deform_sample``: kernel K6 forward
+and K3 backward on the card, then one contraction, block-diagonal by group
+for ResNeXt; ``gcb_stages``, ``nonlocal_stages`` and
+``gen_attention_stages`` insert the plugins of models/plugins.py where the
+JAX blocks do.
 """
 from __future__ import annotations
 
@@ -31,18 +37,29 @@ import torch.nn.functional as F
 
 from kgdet_tpu_torch.models.kgdet_head import DeformConvWeight
 from kgdet_tpu_torch.models.layers import FrozenBatchNorm, init_he_normal_
-from kgdet_tpu_torch.ops.deform import deform_conv
+from kgdet_tpu_torch.models.plugins import ContextBlock, \
+    GeneralizedAttention, NonLocal2D
+from kgdet_tpu_torch.ops.deform import deform_conv, deform_sample
 from kgdet_tpu_torch.ops.resblock import bottleneck_reference, fold_bn, \
     fused_bottleneck_prepared
 from kgdet_tpu_torch.ops.stem_kernels import prepare_block, prepare_stem, \
     stem_layer1_prepared, stem_layer1_ref
 
-STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+ARCH_SETTINGS = {
+    18: ('basic', (2, 2, 2, 2)),
+    34: ('basic', (3, 4, 6, 3)),
+    50: ('bottleneck', (3, 4, 6, 3)),
+    101: ('bottleneck', (3, 4, 23, 3)),
+    152: ('bottleneck', (3, 8, 36, 3)),
+}
+PLUGINS = {'gcb': ('context_block', ContextBlock),
+           'nonlocal': ('nonlocal_block', NonLocal2D),
+           'gen_attention': ('gen_attention_block', GeneralizedAttention)}
 
 
 def _conv(x, conv, stride=1, padding=0):
     return F.conv2d(x, conv.weight.to(x.dtype), stride=stride,
-                    padding=padding)
+                    padding=padding, groups=conv.groups)
 
 
 # the 3x3 taps' (dy, dx) offsets from the output pixel, row-major
@@ -50,18 +67,24 @@ _TAP_GRID = tuple((ky - 1.0, kx - 1.0) for ky in range(3) for kx in range(3))
 
 
 class DeformConv3x3(DeformConvWeight):
-    """3x3 deformable conv, v1 (no modulation), one group, any stride: the
-    DCN option of the backbone's blocks. Holds the reference's DeformConv
-    weight (F, C, 3, 3), read tap-major (DeformConvWeight.tap_major, kept
-    while the module serves). forward(x (B, C, H, W), offsets (B, 18, Ho,
-    Wo)) -> (B, F, Ho, Wo): the offsets, y-first (dy, dx) pairs a tap, are
-    added to the 3x3 base grid and sampled around the output pixels'
-    centres (``stride`` times the output index). ``plain`` runs the
-    kernels' plain versions (the comparison model)."""
+    """3x3 deformable conv, v1 (no modulation), one offset field, any
+    stride: the DCN option of the backbone's blocks and GA-Retina's feature
+    adaption. Holds the reference's DeformConv weight (F, C / groups, 3,
+    3), read tap-major (DeformConvWeight.tap_major, kept while the module
+    serves). forward(x (B, C, H, W), offsets (B, 18, Ho, Wo)) ->
+    (B, F, Ho, Wo): the offsets, y-first (dy, dx) pairs a tap, are added to
+    the 3x3 base grid and sampled around the output pixels' centres
+    (``stride`` times the output index). With ``groups > 1`` (ResNeXt) the
+    one column gather is contracted block-diagonally, channel group g of
+    the columns with output group g (the grouped conv's layout), as one
+    batched matmul. ``plain`` runs the kernels' plain versions (the
+    comparison model)."""
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
-        super().__init__(in_channels, out_channels, 3)
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 groups: int = 1):
+        super().__init__(in_channels // groups, out_channels, 3)
         self.stride = stride
+        self.groups = groups
         self.plain = False
         self.register_buffer('tap_grid', torch.tensor(_TAP_GRID),
                              persistent=False)
@@ -70,52 +93,110 @@ class DeformConv3x3(DeformConvWeight):
         B, _, Ho, Wo = offsets.shape
         rel = offsets.permute(0, 2, 3, 1).reshape(B, Ho, Wo, 9, 2) \
             + self.tap_grid
-        out = deform_conv(x.permute(0, 2, 3, 1), rel,
-                          self.tap_major(x.dtype), stride=self.stride,
-                          plain=self.plain)
-        return out.permute(0, 3, 1, 2)
+        feat, w = x.permute(0, 2, 3, 1), self.tap_major(x.dtype)
+        g = self.groups
+        if g == 1:
+            out = deform_conv(feat, rel, w, stride=self.stride,
+                              plain=self.plain)
+            return out.permute(0, 3, 1, 2)
+        cols = deform_sample(feat, rel, stride=self.stride,
+                             plain=self.plain)              # (B, P, 9, C)
+        P, C, Fo = cols.shape[1], cols.shape[3], w.shape[2]
+        cols = cols.reshape(B * P, 9, g, C // g).permute(2, 0, 1, 3) \
+            .reshape(g, B * P, 9 * (C // g))
+        w = w.reshape(9, C // g, g, Fo // g).permute(2, 0, 1, 3) \
+            .reshape(g, 9 * (C // g), Fo // g)
+        out = torch.bmm(cols, w)                            # (g, BP, F/g)
+        return out.permute(1, 0, 2).reshape(B, Ho, Wo, Fo) \
+            .permute(0, 3, 1, 2)
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 convs (the stride on the first), ResNet-18 / 34."""
+    expansion = 1
+
+    def __init__(self, in_ch: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.stride = stride
+        self.conv1 = nn.Conv2d(in_ch, planes, 3, stride, 1, bias=False)
+        self.bn1 = FrozenBatchNorm(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = FrozenBatchNorm(planes)
+        self.downsample = nn.Sequential(
+            nn.Conv2d(in_ch, planes, 1, stride, bias=False),
+            FrozenBatchNorm(planes)) if downsample else None
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(_conv(x, self.conv1, self.stride, 1)))
+        out = self.bn2(_conv(out, self.conv2, 1, 1))
+        identity = x if self.downsample is None else self.downsample[1](
+            _conv(x, self.downsample[0], self.stride))
+        return torch.relu(out + identity)
 
 
 class Bottleneck(nn.Module):
-    """Pytorch-style bottleneck: the stride sits on the 3x3 conv, which is
-    a DeformConv3x3 with its offset conv ``conv2_offset`` under
-    ``use_dcn``."""
+    """Bottleneck block: the stride on the 3x3 conv (pytorch style) or on
+    the first 1x1 (``style='caffe'``). ``use_dcn`` makes the 3x3 a
+    DeformConv3x3 with its offset conv ``conv2_offset``; ``groups`` and
+    ``base_width`` the grouped ResNeXt 3x3; ``plugin`` adds
+    GeneralizedAttention after the 3x3 (``gen_attention_block``), the
+    context block after bn3 (``context_block``) or a non-local block after
+    the residual sum (``nonlocal_block``), as the JAX block does."""
     expansion = 4
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
-                 downsample: bool = False, use_dcn: bool = False):
+                 downsample: bool = False, use_dcn: bool = False,
+                 style: str = 'pytorch', plugin=None, groups: int = 1,
+                 base_width: int = 4):
         super().__init__()
         out_ch = planes * self.expansion
+        width = planes if groups == 1 \
+            else int(planes * (base_width / 64)) * groups
         self.stride = stride
+        self.c1s, self.c2s = (stride, 1) if style == 'caffe' else (1, stride)
         self.use_dcn = use_dcn
-        self.conv1 = nn.Conv2d(in_ch, planes, 1, bias=False)
-        self.bn1 = FrozenBatchNorm(planes)
+        self.plugin = plugin
+        self.conv1 = nn.Conv2d(in_ch, width, 1, self.c1s, bias=False)
+        self.bn1 = FrozenBatchNorm(width)
         if use_dcn:
-            self.conv2_offset = nn.Conv2d(planes, 18, 3, stride, 1)
-            self.conv2 = DeformConv3x3(planes, planes, stride)
+            self.conv2_offset = nn.Conv2d(width, 18, 3, self.c2s, 1)
+            self.conv2 = DeformConv3x3(width, width, self.c2s, groups)
         else:
-            self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = FrozenBatchNorm(planes)
-        self.conv3 = nn.Conv2d(planes, out_ch, 1, bias=False)
+            self.conv2 = nn.Conv2d(width, width, 3, self.c2s, 1,
+                                   groups=groups, bias=False)
+        self.bn2 = FrozenBatchNorm(width)
+        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
         self.bn3 = FrozenBatchNorm(out_ch)
         self.downsample = nn.Sequential(
             nn.Conv2d(in_ch, out_ch, 1, stride, bias=False),
             FrozenBatchNorm(out_ch)) if downsample else None
+        if plugin is not None:
+            name, cls = PLUGINS[plugin]
+            setattr(self, name, cls(width if plugin == 'gen_attention'
+                                    else out_ch))
 
     def forward(self, x):
-        out = torch.relu(self.bn1(_conv(x, self.conv1)))
+        out = torch.relu(self.bn1(_conv(x, self.conv1, self.c1s)))
         if self.use_dcn:
             off = self.conv2_offset
             out = self.conv2(out, F.conv2d(
                 out, off.weight.to(out.dtype), off.bias.to(out.dtype),
-                self.stride, 1))
+                self.c2s, 1))
         else:
-            out = _conv(out, self.conv2, self.stride, 1)
+            out = _conv(out, self.conv2, self.c2s, 1)
         out = torch.relu(self.bn2(out))
+        if self.plugin == 'gen_attention':
+            out = self.gen_attention_block(out)
         out = self.bn3(_conv(out, self.conv3))
+        if self.plugin == 'gcb':
+            out = self.context_block(out)
         identity = x if self.downsample is None else self.downsample[1](
             _conv(x, self.downsample[0], self.stride))
-        return torch.relu(out + identity)
+        out = torch.relu(out + identity)
+        if self.plugin == 'nonlocal':
+            out = self.nonlocal_block(out)
+        return out
 
     def folded(self):
         """Folded weights in the ops/resblock.py convention (stride-1
@@ -138,13 +219,13 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     def __init__(self, depth: int = 50, num_stages: int = 4,
                  out_indices=(0, 1, 2, 3), frozen_stages: int = -1,
-                 prefix_pipeline: bool = True, dcn_stages=()):
+                 prefix_pipeline: bool = True, dcn_stages=(),
+                 gcb_stages=(), nonlocal_stages=(), gen_attention_stages=(),
+                 style: str = 'pytorch', groups: int = 1,
+                 base_width: int = 4):
         super().__init__()
-        if depth not in STAGE_BLOCKS:
-            raise NotImplementedError(
-                f'ResNet-{depth}: the port has Bottleneck depths '
-                f'{sorted(STAGE_BLOCKS)}; BasicBlock depths are queued in '
-                'ROADMAP Queue 1 item 5.6')
+        block_type, stage_blocks = ARCH_SETTINGS[depth]
+        block = BasicBlock if block_type == 'basic' else Bottleneck
         self.out_indices = tuple(out_indices)
         self.dcn_stages = tuple(dcn_stages)
         self.frozen_stages = frozen_stages
@@ -152,46 +233,64 @@ class ResNet(nn.Module):
         self.prefix_pipeline = prefix_pipeline
         self.plain_prefix = False
         self._kept = None       # (key, folded, {dtype: prepared})
+        extras = (dcn_stages, gcb_stages, nonlocal_stages,
+                  gen_attention_stages)
+        # the frozen K4 + K5 prefix: the JAX module's gate
+        self.use_prefix = (block is Bottleneck and frozen_stages >= 1
+                           and num_stages >= 1 and groups == 1
+                           and not any(0 in st for st in extras))
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
         in_ch, planes = 64, 64
         for stage in range(num_stages):
+            plugin = ('gcb' if stage in gcb_stages else
+                      'nonlocal' if stage in nonlocal_stages else
+                      'gen_attention' if stage in gen_attention_stages
+                      else None)
+            kw = {} if block is BasicBlock else dict(
+                use_dcn=stage in self.dcn_stages, style=style,
+                plugin=plugin, groups=groups, base_width=base_width)
             blocks = []
-            for i in range(STAGE_BLOCKS[depth][stage]):
+            for i in range(stage_blocks[stage]):
                 stride = 2 if (stage > 0 and i == 0) else 1
-                blocks.append(Bottleneck(
+                blocks.append(block(
                     in_ch, planes, stride,
-                    downsample=(i == 0 and (stride != 1 or
-                                            in_ch != planes * 4)),
-                    use_dcn=stage in self.dcn_stages))
-                in_ch = planes * 4
+                    downsample=(i == 0 and (stride != 1 or in_ch !=
+                                            planes * block.expansion)),
+                    **kw))
+                in_ch = planes * block.expansion
             setattr(self, f'layer{stage + 1}', nn.Sequential(*blocks))
             planes *= 2
 
+    @staticmethod
+    def stage_channels(depth):
+        e = 1 if ARCH_SETTINGS[depth][0] == 'basic' else 4
+        return [64 * e, 128 * e, 256 * e, 512 * e]
+
     @classmethod
-    def from_config(cls, bcfg):
-        extras = (bcfg.gcb_stages or bcfg.nonlocal_stages
-                  or bcfg.gen_attention_stages or bcfg.groups != 1
-                  or bcfg.style != 'pytorch' or bcfg.type != 'ResNet')
-        if extras:
-            raise NotImplementedError(
-                'backbone options beyond a pytorch-style ResNet with DCN '
-                'stages (plugins, grouped DCN and ResNeXt, caffe style) are '
-                'queued in ROADMAP Queue 1 item 5.6')
+    def from_config(cls, bcfg, groups=None):
         return cls(depth=bcfg.depth, num_stages=bcfg.num_stages,
                    out_indices=bcfg.out_indices,
                    frozen_stages=bcfg.frozen_stages,
-                   dcn_stages=bcfg.dcn_stages)
+                   dcn_stages=bcfg.dcn_stages, gcb_stages=bcfg.gcb_stages,
+                   nonlocal_stages=bcfg.nonlocal_stages,
+                   gen_attention_stages=bcfg.gen_attention_stages,
+                   style=bcfg.style,
+                   groups=bcfg.groups if groups is None else groups,
+                   base_width=bcfg.base_width)
 
     def init_weights(self, gen: torch.Generator):
         """He-normal conv and DCN weights; zero offset convs, so that a DCN
-        starts as the plain 3x3 conv."""
+        starts as the plain 3x3 conv; each plugin its own init."""
         for name, m in self.named_modules():
             if name.endswith('conv2_offset'):
                 nn.init.zeros_(m.weight)
                 nn.init.zeros_(m.bias)
             elif isinstance(m, (nn.Conv2d, DeformConvWeight)):
                 init_he_normal_(m.weight, gen)
+        for m in self.modules():
+            if isinstance(m, tuple(cls for _, cls in PLUGINS.values())):
+                m.init_weights(gen)
 
     def prefix_weights(self, dtype):
         """The frozen prefix's weights: (folded, prepared). ``folded``: the
@@ -255,7 +354,7 @@ class ResNet(nn.Module):
         """x: (B, H, W, 3) NHWC in the compute dtype. Returns the
         out_indices stage outputs as NCHW tensors."""
         outs = []
-        if self.frozen_stages >= 1 and 0 not in self.dcn_stages:
+        if self.use_prefix:
             # NHWC -> NCHW view: channels_last memory, no copy
             x = self.frozen_prefix(x).permute(0, 3, 1, 2)
             first = 1
@@ -275,3 +374,14 @@ class ResNet(nn.Module):
             if stage in self.out_indices:
                 outs.append(x)
         return tuple(outs)
+
+
+class ResNeXt(ResNet):
+    """The grouped-bottleneck ResNet, registered as its own backbone type
+    as in the reference registry. A config's ``groups = 1`` means unset
+    here: the canonical 32x4d recipe's 32."""
+
+    @classmethod
+    def from_config(cls, bcfg, groups=None):
+        return super().from_config(
+            bcfg, groups=bcfg.groups if bcfg.groups != 1 else 32)

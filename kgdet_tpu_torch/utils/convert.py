@@ -2,14 +2,17 @@
 reference's torch names, and the loader of a reference .pth.
 
 The inverse of kgdet_tpu/utils/torch_convert.py for the ported modules
-(the ResNet backbone with its DCN blocks and the SSDVGG trunk, the FPN
-neck, the KGDet cascade heads, the serial / parallel / plain RepPoints
-heads, RetinaHead and SSDHead): its layout maps are inverted, not
-re-derived.
+(the ResNet / ResNeXt backbones with their DCN blocks and plugins, HRNet,
+the SSDVGG trunk; the FPN, HRFPN, BFP and FPNBFP necks; the KGDet cascade
+heads, the serial / parallel / plain RepPoints heads, RetinaHead, SSDHead,
+FCOSHead and GARetinaHead): its layout maps are inverted, not re-derived.
+FCOS's flax ``scales`` vector becomes one ``scales.<level>.scale`` scalar a
+level (the inverse of its ``_scales_tmp`` pass).
   _conv_kernel  (Cout,Cin,kh,kw) -> (kh,kw,Cin,Cout)   inverse: (3,2,0,1)
   _dense_kernel (Cout,Cin,1,1)   -> (Cin,Cout)     inverse: .T[..., None, None]
   _dcn_kernel   (Cout,Cin,k,k)   -> tap-major (k*k,Cin,Cout)
                                                   inverse: (2,1,0) + reshape
+  _fc_kernel    (Cout,Cin)       -> (Cin,Cout)     inverse: .T
 FrozenBatchNorm scale/bias and batch_stats mean/var map to
 weight/bias/running_mean/running_var (plus num_batches_tracked = 0, which
 reference checkpoints carry); GroupNorm scale/bias to weight/bias.
@@ -35,6 +38,14 @@ def _inv_dense(w):
     return np.transpose(w, (1, 0))[:, :, None, None]
 
 
+def _inv_fc(w):
+    return np.transpose(w, (1, 0))
+
+
+def _inv_ln(w):                 # the context block's LayerNorm([C, 1, 1])
+    return w[:, None, None]
+
+
 def _inv_dcn(w):
     taps, cin, cout = w.shape
     k = int(round(taps ** 0.5))
@@ -53,10 +64,58 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), np.asarray(v, dtype=np.float32)
 
 
+_PLUGIN_DENSE = ('query_conv', 'key_conv', 'value_conv', 'proj_conv')
+
+
+def _plugin_name(base, mods, leaf):
+    """A block plugin's leaf (models/plugins.py names) under ``base``."""
+    plugin, sub = mods[0], mods[1:]
+    base = f'{base}.{plugin}'
+    if plugin == 'gen_attention_block':
+        if not sub:                 # appr_bias / geom_bias / gamma
+            return f'{base}.{leaf}', None
+        if sub[0] in _PLUGIN_DENSE:
+            return (f'{base}.{sub[0]}.weight', _inv_dense) \
+                if leaf == 'kernel' else (f'{base}.{sub[0]}.bias', None)
+        return f'{base}.{sub[0]}.weight', _inv_fc   # appr_geom_fc_x / _y
+    if plugin == 'context_block':
+        m = re.match(r'(channel_add|channel_mul)_(conv1|ln|conv2)$', sub[0])
+        if m:
+            seq = {'conv1': 0, 'ln': 1, 'conv2': 3}[m.group(2)]
+            base = f'{base}.{m.group(1)}_conv.{seq}'
+            if m.group(2) == 'ln':
+                return (f'{base}.weight', _inv_ln) if leaf == 'scale' \
+                    else (f'{base}.bias', _inv_ln)
+        else:                       # conv_mask
+            base = f'{base}.{sub[0]}'
+        return (f'{base}.weight', _inv_conv) if leaf == 'kernel' \
+            else (f'{base}.bias', None)
+    return _conv_module_name(f'{base}.{sub[0]}', leaf)   # nonlocal_block
+
+
+def _conv_module_name(base, leaf):
+    """A flax Conv with a bias held as the reference's ConvModule."""
+    return (f'{base}.conv.weight', _inv_conv) if leaf == 'kernel' \
+        else (f'{base}.conv.bias', None)
+
+
+def _hrnet_prefix(mod):
+    """HRNet's literal flax names: 'transition1/0/0' (a channel-fix conv,
+    the reference's Sequential transition1.0) or 'transition1/1/0' (the
+    first conv of a new branch's chain, transition1.1.0); fuse layers and
+    branch blocks map '/' to '.'."""
+    parts = mod.split('/')
+    m = re.match(r'transition(\d+)$', parts[0])
+    if m and int(parts[1]) < int(m.group(1)):   # an existing branch
+        parts = parts[:2]
+    return '.'.join(parts)
+
+
 def _backbone_name(path: Tuple[str, ...]) -> Tuple[str, Any]:
     """('conv1', 'kernel') / ('layer1/0', 'downsample_bn', 'scale') /
     ('layer2/0', 'conv2', 'conv_offset', 'kernel') / ('features_0',
-    'kernel') / ... -> (torch name, layout inverse)."""
+    'kernel') / ('transition1/0/0/conv', 'kernel') / ... -> (torch name,
+    layout inverse)."""
     *mods, leaf = path
     m = re.match(r'(features|extra)_(\d+)$', mods[0])
     if m:                           # SSDVGG trunk (torch_convert.py:159-162)
@@ -65,6 +124,17 @@ def _backbone_name(path: Tuple[str, ...]) -> Tuple[str, Any]:
             else (base + '.bias', None)
     if mods == ['l2_norm']:
         return 'backbone.l2_norm.weight', None
+    m = re.match(r'(.*)/(conv|bn)$', mods[0])
+    if m and re.match(r'(transition|stage)\d', mods[0]):
+        # HRNet's Sequential(conv, bn): children 0 and 1
+        base = f'backbone.{_hrnet_prefix(m.group(1))}'
+        if m.group(2) == 'conv':
+            return base + '.0.weight', _inv_conv
+        return f'{base}.1.{_NORM_LEAF[leaf]}', None
+    if len(mods) > 1 and mods[1] in ('gen_attention_block', 'context_block',
+                                     'nonlocal_block'):
+        return _plugin_name('backbone.' + mods[0].replace('/', '.'),
+                            mods[1:], leaf)
     mods = [mod.replace('/', '.') for mod in mods]
     if mods[-1] == 'conv_offset':   # a DCN block's offset conv, conv2's
         base = 'backbone.' + '.'.join(mods[:-2]) + '.conv2_offset'
@@ -79,12 +149,24 @@ def _backbone_name(path: Tuple[str, ...]) -> Tuple[str, Any]:
     return 'backbone.' + '.'.join(mods) + '.' + _NORM_LEAF[leaf], None
 
 
-def _neck_name(path):
+def _neck_name(path, base='neck'):
+    if path[0] in ('fpn', 'bfp'):   # FPNBFP: the reference's neck list
+        return _neck_name(path[1:],
+                          f'{base}.{0 if path[0] == "fpn" else 1}')
+    if path[0] == 'reduction_conv':                 # HRFPN
+        return _conv_module_name(f'{base}.reduction_conv', path[-1])
+    m = re.match(r'fpn_convs_(\d+)$', path[0])
+    if m:                                           # HRFPN
+        return _conv_module_name(f'{base}.fpn_convs.{m.group(1)}', path[-1])
+    if path[0] == 'refine':                         # BFP
+        if len(path) == 3:                          # the non-local refine
+            return _conv_module_name(f'{base}.refine.{path[1]}', path[2])
+        return _conv_module_name(f'{base}.refine', path[1])
     mod, sub, leaf = path
     m = re.match(r'(lateral|fpn)_(\d+)$', mod)
     if not m:
         raise KeyError(f'neck/{"/".join(path)}')
-    base = f'neck.{m.group(1)}_convs.{m.group(2)}.{sub}'
+    base = f'{base}.{m.group(1)}_convs.{m.group(2)}.{sub}'
     if sub == 'conv':
         return (base + ('.weight' if leaf == 'kernel' else '.bias'),
                 _inv_conv if leaf == 'kernel' else None)
@@ -94,9 +176,14 @@ def _neck_name(path):
 def _head_name(path):
     if path == ('moment_transfer',):
         return 'bbox_head.moment_transfer', None
-    if path[0] in ('retina_cls', 'retina_reg'):
+    if path[0] in ('retina_cls', 'retina_reg', 'fcos_cls', 'fcos_reg',
+                   'fcos_centerness', 'conv_loc', 'conv_shape'):
         return (f'bbox_head.{path[0]}.weight', _inv_conv) \
             if path[1] == 'kernel' else (f'bbox_head.{path[0]}.bias', None)
+    if path[0] in ('feature_adaption_cls', 'feature_adaption_reg'):
+        base = f'bbox_head.{path[0]}.{path[1]}.weight'
+        return (base, _inv_conv) if path[1] == 'conv_offset' \
+            else (base, _inv_dcn)
     m = re.match(r'(cls|reg)_convs_(\d+)$', path[0])
     if m and len(path) == 2:        # SSDHead's plain per-level convs
         base = f'bbox_head.{m.group(1)}_convs.{m.group(2)}'
@@ -142,6 +229,11 @@ def state_dict_from_jax(variables: Dict) -> 'OrderedDict[str, torch.Tensor]':
     for tree in trees:
         for path, v in _flatten(tree):
             comp, rest = path[0], path[1:]
+            if (comp, rest) == ('head', ('scales',)):    # FCOS, a level each
+                for i, scale in enumerate(v):
+                    state[f'bbox_head.scales.{i}.scale'] = torch.tensor(
+                        float(scale), dtype=torch.float32)
+                continue
             if comp == 'backbone':
                 name, inv = _backbone_name(rest)
             elif comp == 'neck':
@@ -293,10 +385,14 @@ def load_reference_state(model, state: Dict[str, torch.Tensor]):
     converter skips are dropped and returned; a key it maps that the model
     lacks raises KeyError; a shape that differs from the model's raises
     ValueError; model keys the state lacks keep their values. BatchNorm's
-    ``num_batches_tracked``, which no layer reads, is not loaded. Nothing
-    is loaded unless every key passes. Returns the skipped keys."""
+    ``num_batches_tracked``, which no layer reads, is not loaded. FCOS's
+    per-level scales go in as the JAX converter assembles them (the levels
+    present, in order, one vector: a count other than the model's raises
+    ValueError). Nothing is loaded unless every key passes. Returns the
+    skipped keys."""
     is_hrfpn = any(k.startswith('neck.reduction_conv.') for k in state)
     own = model.state_dict()
+    state = _fcos_scales_in_order(state, own)
     skipped, take = [], {}
     for key, value in state.items():
         if converter_skips(key, is_hrfpn):
@@ -317,6 +413,31 @@ def load_reference_state(model, state: Dict[str, torch.Tensor]):
             take[key] = value
     model.load_state_dict(take, strict=False)
     return skipped
+
+
+_SCALE = re.compile(r'bbox_head\.scales\.(\d+)\.scale$')
+
+
+def _fcos_scales_in_order(state, own):
+    """The reference's ``scales.<level>.scale`` scalars renumbered as the
+    JAX converter's ``_scales_tmp`` pass lays them out: the levels present,
+    in ascending order, become levels 0, 1, ... of one vector, which must
+    have the model's length. Only for a model with scales."""
+    keys = sorted((k for k in state if _SCALE.match(k)),
+                  key=lambda k: int(_SCALE.match(k).group(1)))
+    n_own = sum(1 for k in own if _SCALE.match(k))
+    if not keys or not n_own:
+        return state
+    if len(keys) != n_own:
+        raise ValueError(f'bbox_head.scales: {len(keys)} levels != the '
+                         f"model's {n_own}")
+    out = {k: v for k, v in state.items() if not _SCALE.match(k)}
+    for i, k in enumerate(keys):
+        if state[k].numel() != 1:
+            raise ValueError(f'{k}: shape {tuple(state[k].shape)} is not a '
+                             'scalar')
+        out[f'bbox_head.scales.{i}.scale'] = state[k].reshape(())
+    return out
 
 
 def _plain_conv2_into_dcn(key, state, own):

@@ -27,12 +27,14 @@ import torch.nn.functional as F
 from kgdet_tpu.api import build_model as jbuild_model
 from kgdet_tpu.api import init_variables
 from kgdet_tpu.api import make_predict_fn as jmake_predict_fn
+from kgdet_tpu.models.detector import build_backbone as jbuild_backbone
 from kgdet_tpu.models.resnet import Bottleneck as JBottleneck
 from kgdet_tpu.ops.deform import deform_conv as jdeform_conv
 from kgdet_tpu.parallel import train as jtrain
 from kgdet_tpu.utils.torch_convert import (convert_state_dict,
                                            merge_into_variables)
 from kgdet_tpu_torch.api import build_model, make_predict_fn
+from kgdet_tpu_torch.models.detector import build_backbone
 from kgdet_tpu_torch.models.resnet import Bottleneck, DeformConv3x3, ResNet
 from kgdet_tpu_torch.ops.deform import deform_conv
 from kgdet_tpu_torch.parallel import train as ttrain
@@ -365,8 +367,10 @@ def test_dcn_pth_route_accepts_and_refuses_as_jax(cascade):
 def test_dcn_plain_switch_prefix_and_refusals():
     """use_plain_kernels reaches the DCN blocks; a DCN in stage 0 runs the
     stem and layer1 without the frozen prefix (and equals the prefix route
-    with zero offsets); grouped DCN and the plugins raise naming ROADMAP
-    Queue 1 item 5.6."""
+    with zero offsets); the DCN backbone with grouped DCN (ResNeXt widths,
+    groups 32), with the context block in stage 1, or in caffe style builds
+    and its stage outputs match the JAX backbone's within 1e-4 of scale
+    (the JAX variables loaded with strict names)."""
     cfg = dcn_cfg()
     model = build_model(cfg, device='cpu').init_weights(0)
     blocks = [m for m in model.modules() if isinstance(m, DeformConv3x3)]
@@ -393,10 +397,25 @@ def test_dcn_plain_switch_prefix_and_refusals():
     for g, w in zip(got, want):
         np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4,
                                    atol=1e-5 * w.abs().max().item())
+    x = np.random.RandomState(6).randn(1, 32, 32, 3).astype(np.float32)
     for kw in ({'groups': 32}, {'gcb_stages': (1,)}, {'style': 'caffe'}):
-        bad = cfg.replace(backbone=dataclasses.replace(cfg.backbone, **kw))
-        with pytest.raises(NotImplementedError, match='item 5.6'):
-            build_model(bad, device='cpu')
+        bcfg = dataclasses.replace(cfg.backbone, **kw)
+        jnet = jbuild_backbone(cfg.replace(backbone=bcfg), jnp.float32)
+        variables = _offsets(_perturb(dict(jax.jit(jnet.init)(
+            jax.random.PRNGKey(0), jnp.asarray(x)))))
+        net = build_backbone(bcfg)
+        state = state_dict_from_jax({k: {'backbone': v}
+                                     for k, v in variables.items()})
+        net.load_state_dict({k[len('backbone.'):]: v
+                             for k, v in state.items()}, strict=True)
+        with torch.no_grad():
+            got = net(torch.from_numpy(x))
+        want = jax.jit(jnet.apply)(variables, jnp.asarray(x))
+        for g, w in zip(got, want):
+            w = np.asarray(w)
+            np.testing.assert_allclose(_np(g.permute(0, 2, 3, 1)), w,
+                                       rtol=1e-4, err_msg=str(kw),
+                                       atol=1e-4 * np.abs(w).max())
 
 
 def test_dcn_tap_major_weight_kept_while_serving():

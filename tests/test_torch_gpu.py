@@ -15,8 +15,9 @@ the relative-offset entries at stride 2, the autograd Functions over K6 and
 K3, K8 through both its entries with both bodies (tensor cores on each of
 their three tiles, FMA), K8 and K5 bit for bit in bf16 at width 64, the
 ResNet per-block route (K8) against the chain (K4+K5), K6 and K3 at the
-DCN backbone's stride-2 shapes, the DCN cascade's served launch counts and
-one served SSD300 batch. f32
+DCN backbone's stride-2 shapes, at GA-Retina's P3 and at ResNeXt-101's
+grouped DCN shapes (up to 1024 channels), the grouped DCN module, the DCN
+cascade's served launch counts and one served SSD300 batch. f32
 tolerance rtol 1e-5, atol 1e-4 (chip_smoke.py's); K3's gradient map is
 summed with f32 atomics in an order that changes from run to run, which that
 tolerance covers. bf16: the kernel's error against the plain version in
@@ -1037,9 +1038,52 @@ def test_k6_k3_at_the_dcn_stride2_shapes(gen, H, W, C):
     stride 2, 9 taps, P = H*W/4), batch 2: f32 within TOL (K3's sums
     within 1e-4 of the largest), bf16 within twice the plain version's
     error."""
-    Ho, Wo = -(-H // 2), -(-W // 2)
+    _check_k6_k3(gen, H, W, C, 2)
+
+
+@pytest.mark.parametrize('H,W,C,stride', [(100, 168, 256, 1),
+                                          (200, 336, 256, 2),
+                                          (50, 84, 1024, 2)])
+def test_k6_k3_at_the_ga_and_resnext_shapes(gen, H, W, C, stride):
+    """K6 and K3 against their plain versions at chip_smoke.py's phase 13
+    shapes, batch 2, 9 taps: GA-Retina's feature adaption on P3 (stride
+    1) and ResNeXt-101 32x4d's grouped DCN blocks layer2.0 and layer4.0
+    (stride 2; 1024 channels, the widest map they take); the bounds of
+    test_k6_k3_at_the_dcn_stride2_shapes."""
+    _check_k6_k3(gen, H, W, C, stride)
+
+
+def test_grouped_dcn_module_on_the_card(gen):
+    """DeformConv3x3 with 32 groups (ResNeXt) on the card, K6 forward and
+    K3 backward, against the module on the plain versions: output and
+    every gradient within 1e-4 of its scale in f32."""
+    from kgdet_tpu_torch.models.resnet import DeformConv3x3
+    conv = DeformConv3x3(256, 256, stride=2, groups=32).cuda()
+    with torch.no_grad():
+        conv.weight.copy_(_randn(gen, *conv.weight.shape) * 0.05)
+    x = _randn(gen, 2, 256, 20, 34)
+    off = _randn(gen, 2, 18, 10, 17) * 0.5
+
+    def run(plain):
+        conv.plain = plain
+        leaves = [t.clone().requires_grad_() for t in (x, off)]
+        out = conv(*leaves)
+        grads = torch.autograd.grad(out.square().sum(),
+                                    leaves + [conv.weight])
+        return [out, *grads]
+    k6, k3 = dk.deform_sample_cols.launches, dk.deform_sample_bwd.launches
+    got = run(False)
+    assert (dk.deform_sample_cols.launches, dk.deform_sample_bwd.launches) \
+        == (k6 + 1, k3 + 1)
+    for a, b in zip(got, run(True)):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * b.abs().max().item())
+
+
+def _check_k6_k3(gen, H, W, C, stride):
+    Ho, Wo = -(-H // stride), -(-W // stride)
     feat = _randn(gen, 2, H, W, C)
-    pos = _dcn_positions(gen, 2, Ho, Wo, 2)
+    pos = _dcn_positions(gen, 2, Ho, Wo, stride)
     g = _randn(gen, 2, Ho * Wo, 9, C)
     k6, k3 = dk.deform_sample_cols.launches, dk.deform_sample_bwd.launches
     got = dk.deform_sample_cols(feat, pos)

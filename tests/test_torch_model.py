@@ -146,26 +146,39 @@ def test_detector_single_image(models):
 
 
 def test_other_families_raise():
-    """The families still queued raise NotImplementedError naming their
-    ROADMAP item: two-stage (6), GA-Retina (5.4), FCOS (5.5)."""
+    """The two-stage families still raise NotImplementedError naming
+    ROADMAP Queue 1 item 6; GA-Retina and FCOS build (their heads the
+    port's modules of the same name); an unknown head name raises
+    KeyError, as the JAX registry does."""
+    from kgdet_tpu.models.families import get_head_family as jget_family
+    from kgdet_tpu_torch.models.fcos_head import FCOSHead
+    from kgdet_tpu_torch.models.ga_head import GARetinaHead
     cfg = tiny_r50_cfg().replace(detector_type='faster_rcnn')
     with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
         build_model(cfg, device='cpu')
     cfg = tiny_r50_cfg()
-    for head_type, item in (('GARetinaHead', '5.4'), ('FCOSHead', '5.5')):
-        bad = cfg.replace(head=cfg.head.__class__(type=head_type))
-        with pytest.raises(NotImplementedError,
-                           match=f'Queue 1 item {item}'):
-            build_model(bad, device='cpu')
+    for head_type, cls in (('GARetinaHead', GARetinaHead),
+                           ('FCOSHead', FCOSHead)):
+        good = cfg.replace(head=dataclasses.replace(cfg.head,
+                                                    type=head_type))
+        assert type(build_model(good, device='cpu').bbox_head) is cls
+        assert jget_family(head_type) is not None
+    bad = cfg.replace(head=dataclasses.replace(cfg.head, type='nope'))
+    with pytest.raises(KeyError, match='unknown head family nope'):
+        build_model(bad, device='cpu')
+    with pytest.raises(KeyError, match='unknown head family nope'):
+        jget_family('nope')
 
 
 def test_port_runs_without_jax_flax_cv2():
     """The port imports, loads every config file, serves a batch and takes
     a train step (the KGDet cascade, then each of the serial, parallel,
-    plain RepPoints and single-column families, RetinaNet, SSD and the
-    cascade on the DCN backbone, then the cascade in a process group of
-    one) with jax, flax, cv2 and kgdet_tpu unavailable, as on the GPU
-    machine."""
+    plain RepPoints and single-column families, RetinaNet, SSD, the
+    cascade on the DCN backbone, FCOS and GA-Retina; runs the backbones
+    and necks of the four two-stage configs and the three plugins; then
+    the cascade in a process group of one), after importing every module
+    of the port, with jax, flax, cv2 and kgdet_tpu unavailable, as on the
+    GPU machine."""
     code = '\n'.join([
         'import glob, sys',
         "for m in ('jax', 'flax', 'cv2', 'kgdet_tpu'):",
@@ -181,6 +194,12 @@ def test_port_runs_without_jax_flax_cv2():
         'for path in paths:',
         '    assert isinstance(load_config(path), KGDetConfig), path',
         "assert sys.modules['kgdet_tpu'] is None",
+        # every module of the port, the newest included
+        'import importlib, pkgutil, kgdet_tpu_torch',
+        'for m in pkgutil.walk_packages(kgdet_tpu_torch.__path__, '
+        "'kgdet_tpu_torch.'):",
+        '    importlib.import_module(m.name)',
+        "assert 'kgdet_tpu_torch.models.ga_head' in sys.modules",
         'cfg = KGDetConfig(backbone=BackboneConfig(depth=50, '
         'frozen_stages=1), neck=NeckConfig(out_channels=64), '
         'head=HeadConfig(in_channels=64, feat_channels=64, '
@@ -223,7 +242,8 @@ def test_port_runs_without_jax_flax_cv2():
         "    fdets = make_predict_fn(fmodel.eval(), fcfg, (64, 96))(batch)",
         "    assert fdets['det_bboxes'].shape == (1, 20, 5), head_type",
         # the anchor families on a 3-level FPN, and the DCN backbone
-        "for head_type in ('RetinaHead', 'SSDHead', 'dcn'):",
+        "for head_type in ('RetinaHead', 'SSDHead', 'dcn', 'FCOSHead', "
+        "'GARetinaHead'):",
         "    fcfg = cfg.replace(neck=dataclasses.replace(cfg.neck, "
         "start_level=1, num_outs=3, select_out=None), "
         "head=dataclasses.replace(cfg.head, type=head_type, "
@@ -239,6 +259,21 @@ def test_port_runs_without_jax_flax_cv2():
         ", head_type",
         "    fdets = make_predict_fn(fmodel.eval(), fcfg, (64, 96))(batch)",
         "    assert fdets['det_bboxes'].shape == (1, 20, 5), head_type",
+        # the backbone and neck extras, as the two-stage configs build them
+        'from kgdet_tpu_torch.models.detector import build_backbone, '
+        'build_neck',
+        "for path in ('faster_rcnn_r50_caffe_c4', 'faster_rcnn_x101_32x4d_"
+        "fpn', 'faster_rcnn_hrnetv2p_w32', 'libra_faster_rcnn_r50_fpn'):",
+        "    tcfg = load_config(f'configs/{path}_1x_deepfashion2.py')",
+        '    feats = build_backbone(tcfg.backbone)(torch.zeros(1, 64, 64, 3))',
+        '    neck = build_neck(tcfg.neck)',
+        '    outs = feats if neck is None else neck(feats)',
+        '    assert all(torch.isfinite(o).all() for o in outs), path',
+        'from kgdet_tpu_torch.models.plugins import ContextBlock, '
+        'GeneralizedAttention, NonLocal2D',
+        'for plugin in (ContextBlock(16), NonLocal2D(16), '
+        'GeneralizedAttention(16, num_heads=4)):',
+        '    assert plugin(torch.ones(1, 16, 4, 6)).shape == (1, 16, 4, 6)',
         "ssd = load_config('configs/ssd300_vgg16_deepfashion2.py')",
         "smodel = build_model(ssd, device='cpu').init_weights(0).eval()",
         "sbatch = {'image': rng.randint(0, 256, (1, 300, 300, 3))"
