@@ -38,7 +38,9 @@ outputs, 9 taps around each output pixel's centre, with their
 F.grid_sample yardsticks; and at phase 13's shapes: GA-Retina's feature
 adaption on P3 (map 100x168x256, stride 1) and ResNeXt-101 32x4d's grouped
 DCN at layer2.0 (200x336x256, stride 2) and layer4.0 (50x84x1024, stride
-2). After the
+2); and at phase 14's RoIAlign gathers: Faster R-CNN's P2 (map
+200x336x256, 1000 RoIs x 196 samples, batch 2) and the C4 map
+(50x84x1024, 1000 RoIs x 784 samples, batch 1). After the
 build, ptxas's registers and spills a kernel and, by cuobjdump, the bf16
 tensor-core instructions and local-memory accesses in the SASS of the
 bottleneck bodies of K5 and K8 (fails if a tensor-core instance has none).
@@ -194,9 +196,36 @@ bit-equal, peak memory), then ResNeXt-101 32x4d with grouped DCN in c3-c5
 and (b) also print the served batch's and the train step's profile by
 stage.
 
+Phase 14: the box-only two-stage detectors, seeded random weights,
+test.score_thr 0, each config file as it ships (batch 2 at 800x1344, its
+own dtype). (a) configs/faster_rcnn_r50_fpn_1x_deepfashion2.py (bf16): 2
+requests of 2 served through make_predict_fn (K4 1 / K5 3 / K6 5 a
+forward, one K6 a FPN level of the RoI gather; finite detections, img/s,
+peak memory), the served batch by stage under torch.profiler (backbone,
+neck, RPN head, proposals with their NMS loop, RoI extraction, box head,
+decode), the model against its plain kernels with the proposals pinned
+(the RPN's maps compared directly; the RoI head fed the kernel run's
+proposals through the external-proposal input on both sides; f32 within
+MODEL_F32_REL of scale, bf16 within BF16_RATIO x the plain model's
+error), one bf16 train step through init_trainer (K3 5 more; finite loss
+terms and acc, frozen parameters bit-equal, fc_cls moved, ms and peak
+memory), and the gradients of the model on K6+K3 against on their plain
+versions with the prefix the same on both sides (the whole-model rule)
+and in bf16. (b) The seven other box-only configs (RPN; Fast R-CNN on
+1000 jittered box proposals an image; Cascade, K6 15 a forward; C4, K6 1;
+Libra; ResNeXt-101 32x4d and HRNet-W32, no frozen prefix): one served
+batch and one step each with their launch counts, finiteness, img/s, step
+ms and peak memory (HRNet's random levels are scaled to unit RMS at
+HRFPN's output convs: at an RMS of 4e8 no proposal stays inside the
+image). (c) tools/train.py --validate on Faster R-CNN (16 training PNGs
+at the shipped batch of 8, 4 validation PNGs at batch 2; finite records,
+a checkpoint, the bbox copypaste line), tools/test.py on RPN (its
+proposal_AR_copypaste line) and on Fast R-CNN with a .pkl of jittered box
+proposals written by the phase (the bbox copypaste line).
+
 Prints the card's name and power limit, one line per check, a JSON line of
 the seven kernels (launches on each main path, the evaluation CLI's
-and phases 12 and 13 included, error, wrapper and device times, bound), and as
+and phases 12 to 14 included, error, wrapper and device times, bound), and as
 its last line {"ok": true, "device": {...}}. Exits
 nonzero, with no result line, when a check fails or no CUDA device is
 present. Imports nothing of JAX and nothing of the JAX package.
@@ -257,6 +286,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {'bf16': 989e12, 'f32': 67e12}
 TRAIN_STEPS = 2
 SERVED = 2
+# RoIs an image at test time (test proposals of every two-stage config)
+ROI_COUNT = 1000
 
 
 def fail(msg):
@@ -484,6 +515,7 @@ def phase_kernels(torch, gen):
     from kgdet_tpu_torch.ops import resblock as rb
     from kgdet_tpu_torch.ops import stem_kernels as sk
     from kgdet_tpu_torch.ops.deform import bilinear_gather
+    from kgdet_tpu_torch.ops.roi import roi_positions
 
     dev = 'cuda'
     bf16 = torch.bfloat16
@@ -754,6 +786,45 @@ def phase_kernels(torch, gen):
         del feat, pos, g, a16
     torch.cuda.empty_cache()
 
+    # RoIAlign's gather (phase 14): each RoI's n*n bilinear samples (n =
+    # out_size * sample_num) on its own image's map, as ops/roi.py hands
+    # them to K6 (forward) and K3 (backward): Faster R-CNN's P2 (map
+    # 200x336x256, 1000 RoIs x 196 samples, scale 1/4, batch 2) and the
+    # C4 map (50x84x1024, 1000 RoIs x 784 samples, scale 1/16; batch 1:
+    # the plain version's f32 check of a batch of 2 would hold ~58 GB)
+    for label, (H, W, C_r), stride, out, b, size in (
+            ('roi_p2', (200, 336, 256), 4, 7, B, (16.0, 100.0)),
+            ('roi_c4', (50, 84, 1024), 16, 14, 1, (32.0, 600.0))):
+        K = (out * 2) ** 2
+        xy = torch.rand((b, ROI_COUNT, 2), generator=gen) \
+            * torch.tensor([CANVAS[1] - 64.0, CANVAS[0] - 64.0])
+        wh = size[0] + torch.rand((b, ROI_COUNT, 2), generator=gen) \
+            * (size[1] - size[0])
+        pos = roi_positions(torch.cat([xy, xy + wh], -1), out, 1 / stride,
+                            2).to(dev)
+        feat = randn(b, H, W, C_r)
+        g = randn(b, ROI_COUNT, K, C_r)
+        lib_fwd, lib_bwd, lib_err, lib_dtype = library_sampling(feat, pos, g)
+        name = f'K6 deform_sample_cols RoIAlign {label} map {H}x{W}x{C_r}, ' \
+            f'{ROI_COUNT} RoIs x {K} samples, batch {b}'
+        m, a16 = check_pair(name, dk.deform_sample_cols,
+                            dk.deform_sample_cols_ref, [feat, pos],
+                            lambda a: [a[0].to(bf16), a[1]])
+        one_launch(name, m)
+        results['deform_sample_cols'][label] = entry(m, *bound(
+            nbytes(*a16) + out_bytes(dk.deform_sample_cols, a16),
+            7 * b * ROI_COUNT * K * C_r, 'f32'), library_ms=lib_fwd)
+        del a16
+        results['deform_sample_bwd'][label] = check_bwd(
+            f'RoIAlign {label} map {H}x{W}x{C_r}, batch {b}', feat, pos, g,
+            lib_bwd)
+        print(f'K6 / K3 yardstick F.grid_sample and its backward '
+              f'({lib_dtype}, NCHW) RoIAlign {label}: {lib_fwd:.4f} / '
+              f'{lib_bwd:.4f} ms, f32 max err vs plain {lib_err:.3e}',
+              flush=True)
+        del feat, pos, g
+        torch.cuda.empty_cache()
+
     def keeping(prepare, run):
         """K4, K5 or K8 through its prepared entry, the prepared weights kept
         per dtype as ResNet.prefix_weights keeps them on the main path: a
@@ -872,7 +943,8 @@ def phase_kernels(torch, gen):
               flush=True)
         for case in ('near', 'b8_42x25', 'serial', 'serial_near',
                      'width128', 'dcn_layer2_0', 'dcn_layer4_0', 'dcn_ga_p3',
-                     'dcn_x101_layer2_0', 'dcn_x101_layer4_0'):
+                     'dcn_x101_layer2_0', 'dcn_x101_layer4_0', 'roi_p2',
+                     'roi_c4'):
             if case in r:
                 q = r[case]
                 lib = '' if q.get('library_ms') is None \
@@ -3744,7 +3816,526 @@ def phase_ga_fcos_and_extras(torch, gpu):
     return launches
 
 
-PHASE_GROUPS = ('1', '2', '6', '9', '10', '11', '12', '13')
+# ---------------------- phase 14: the box-only two-stage detectors
+def two_stage_path(name):
+    return os.path.join(ROOT, 'configs', f'{name}_1x_deepfashion2.py')
+
+
+FASTER_CONFIG = two_stage_path('faster_rcnn_r50_fpn')
+# by the name of their launch path: the config file, whether the frozen
+# K4 + K5 prefix runs (R-50, not ResNeXt or HRNet), K6 launches a forward
+# (one a FPN level a RoI stage: Faster 5, the cascade 3 x 5, C4 1)
+TWO_STAGE = {
+    'faster_rcnn': ('faster_rcnn_r50_fpn', True, 5),
+    'rpn': ('rpn_r50_fpn', True, 0),
+    'fast_rcnn': ('fast_rcnn_r50_fpn', True, 5),
+    'cascade': ('cascade_rcnn_r50_fpn', True, 15),
+    'c4': ('faster_rcnn_r50_caffe_c4', True, 1),
+    'libra': ('libra_faster_rcnn_r50_fpn', True, 5),
+    'x101': ('faster_rcnn_x101_32x4d_fpn', False, 5),
+    'hrnet': ('faster_rcnn_hrnetv2p_w32', False, 5),
+}
+TWO_STAGE_GRAD_GROUPS = ('backbone.layer2.', 'backbone.layer3.',
+                         'backbone.layer4.', 'neck.', 'rpn_head.',
+                         'bbox_head.')
+TWO_STAGE_STAGES = ('normalize', 'backbone', 'neck', 'rpn_head',
+                    'proposals', 'roi_extraction', 'box_head', 'decode')
+TWO_STAGE_LOGS = ('loss_rpn_cls', 'loss_rpn_bbox', 'loss_cls', 'loss_bbox',
+                  'acc')
+CLI_TRAIN_IMAGES = 16
+CLI_VAL_IMAGES = 4
+
+
+def two_stage_launches(name, step):
+    """The launches of a forward (``step`` False) or a train step of the
+    path ``name``: K4 1 / K5 3 where the frozen prefix runs, K6 a RoI
+    gather and, in a step, K3 as many."""
+    _, prefix, k6 = TWO_STAGE[name]
+    per = dict(stem_pool=1, frozen_bottleneck=3) if prefix else {}
+    return launch_counts(deform_sample_cols=k6,
+                         deform_sample_bwd=k6 if step else 0, **per)
+
+
+def jittered_proposals(rng, boxes, hw, n=ROI_COUNT):
+    """(B, n, 4) Fast R-CNN proposals: boxes (B, G, 4) picked at random
+    and moved by N(0, 0.1) of their size, clamped to the images (B, 2)."""
+    import numpy as np
+    B, G = boxes.shape[:2]
+    pick = boxes[np.arange(B)[:, None], rng.randint(0, G, (B, n))]
+    wh = np.tile(pick[..., 2:] - pick[..., :2], 2)
+    out = pick + rng.randn(B, n, 4) * 0.1 * wh
+    lim = np.tile(hw[:, None, ::-1], 2) - 1
+    return np.clip(out, 0, lim).astype(np.float32), np.ones((B, n), bool)
+
+
+def settle_hrnet(torch, model, batch):
+    """HRNet-W32's random weights under frozen BatchNorm statistics (mean
+    0, variance 1) grow its levels to an RMS of about 4e8: every RPN delta
+    then leaves the image and no proposal survives. A trained model's
+    levels are of order 1, so each of HRFPN's output convs (no activation)
+    is divided by its level's RMS on ``batch``."""
+    from kgdet_tpu_torch.ops.image import device_normalize
+    image = torch.as_tensor(batch['image']).cuda()
+    hw = torch.as_tensor(batch.get('img_hw', batch.get('valid_hw'))).cuda()
+    with torch.no_grad():
+        feats = model.features(device_normalize(image, hw))
+        rms = [f.float().square().mean().sqrt().item() for f in feats]
+        for conv, r in zip(model.neck.fpn_convs, rms):
+            conv.conv.weight /= r
+            conv.conv.bias /= r
+    print('hrnet: HRFPN levels of RMS ' + ', '.join(f'{r:.3e}' for r in rms)
+          + ' scaled to 1', flush=True)
+
+
+def two_stage_serving(torch, gpu, name, n_reqs=SERVED):
+    """Serve ``n_reqs`` requests of B images at full width through
+    make_predict_fn (seeded random weights, test.score_thr 0): the launches
+    of each forward, finite detections of the padded shapes (a width-3
+    dummy keypoint; RPN: its ranked proposals), img/s and peak memory.
+    Returns (model, cfg, requests, launches)."""
+    import numpy as np
+
+    from kgdet_tpu_torch.api import build_model, load_config, \
+        make_predict_fn
+
+    path = two_stage_path(TWO_STAGE[name][0])
+    cfg = load_config(path)
+    cfg = cfg.replace(test=dataclasses.replace(cfg.test, score_thr=0.0))
+    model = build_model(cfg).init_weights(SEED).eval()
+    if next(model.parameters()).device.type != 'cuda':
+        fail(f'{name}: build_model did not place the model on the card')
+    predict = make_predict_fn(model, cfg, CANVAS)
+    reqs = make_requests(n_reqs, SEED)
+    if cfg.detector_type == 'fast_rcnn':
+        rng = np.random.RandomState(SEED + 3)
+        for r in reqs:
+            xy = rng.uniform(0, 700, (B, 8, 2))
+            seeds = np.concatenate([xy, xy + rng.uniform(32, 500, (B, 8, 2))],
+                                   -1)
+            r['proposals'], r['proposals_valid'] = jittered_proposals(
+                rng, seeds, r['img_hw'])
+    if name == 'hrnet':
+        settle_hrnet(torch, model, reqs[0])
+    predict(reqs[0])                      # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    dets, secs = serve(torch, predict, reqs)
+    got = read_launches()
+    want = {k: v * len(reqs) for k, v in
+            two_stage_launches(name, step=False).items()}
+    if got != want:
+        fail(f'{name} serving: launch counts {got} != {want} for '
+             f'{len(reqs)} forwards')
+    m = cfg.num_proposals_test if cfg.detector_type == 'rpn' \
+        else cfg.test.max_per_img
+    n_valid = 0
+    for d in dets:
+        if not all(torch.isfinite(v).all() for v in d.values()
+                   if v.is_floating_point()) or \
+                tuple(d['det_bboxes'].shape) != (B, m, 5) or \
+                tuple(d['det_kpts'].shape) != (B, m, 3):
+            fail(f'{name} detections {[tuple(v.shape) for v in d.values()]}')
+        n_valid += int(d['valid'].sum())
+    if n_valid == 0:
+        fail(f'{name}: no detection at score_thr 0')
+    print(f'{name} serving: {os.path.relpath(path, ROOT)}, '
+          f'{cfg.compute_dtype}, {n_reqs} requests x {B} images at '
+          f'{CANVAS[0]}x{CANVAS[1]}, {n_valid} valid detections, launches '
+          f'{got}; {B * n_reqs / secs:.2f} img/s, peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB ({gpu})',
+          flush=True)
+    return model, cfg, reqs, got
+
+
+def two_stage_profile(torch, model, cfg, req, gpu, steps=2):
+    """Faster R-CNN's served batch by stage under torch.profiler (the
+    stages labelled around the model's parts): per stage its device span
+    and busy time, the device's idle share of the window, the top kernels.
+    The proposals stage holds the RPN's top-k and its NMS loop."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from kgdet_tpu_torch.models.families import two_stage_decoder
+    from kgdet_tpu_torch.models.two_stage import rpn_proposals
+    from kgdet_tpu_torch.ops.image import device_normalize
+
+    decode = two_stage_decoder(cfg.detector_type)
+    img = torch.as_tensor(req['image']).cuda()
+    img_hw = torch.as_tensor(req['img_hw']).cuda()
+    sf = torch.as_tensor(req['scale_factor']).cuda()
+
+    @torch.inference_mode()
+    def run():
+        with record_function('normalize'):
+            x = device_normalize(img, img_hw)
+        with record_function('backbone'):
+            feats = model.backbone(x.to(model.dtype))
+        with record_function('neck'):
+            feats = list(model.neck(feats))
+        with record_function('rpn_head'):
+            rpn_outs = model.rpn_head(feats)
+        with record_function('proposals'):
+            props, _, valid = rpn_proposals(
+                rpn_outs, model.anchors(feats), img_hw,
+                max_num=model.num_proposals_test)
+        with record_function('roi_extraction'):
+            roi = model.roi_feats(feats, props, valid, model.roi_size)
+        with record_function('box_head'):
+            cls, reg = model.box_head(roi)
+        with record_function('decode'):
+            return decode(dict(proposals=props, proposal_valid=valid,
+                               roi_cls=cls, roi_reg=reg), img_hw, sf,
+                          cfg.test, cfg.head.num_classes)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    span_ms, busy_ms, kern = stage_times(prof, TWO_STAGE_STAGES,
+                                         DeviceType.CUDA, steps)
+    busy = sum(busy_ms.values())
+    if busy <= 0:
+        fail('the profiler saw no device time in the served batch')
+    print(f'faster_rcnn profile: {steps} batches of {len(img)} at '
+          f'{CANVAS[0]}x{CANVAS[1]} under torch.profiler: {wall:.3f} ms per '
+          f'batch, device busy {busy:.3f} ms, idle share '
+          f'{1 - busy / wall:.3f} ({gpu})', flush=True)
+    print('  stage device span / busy ms per batch: ' + ', '.join(
+        f'{s} {span_ms[s]:.3f}/{busy_ms[s]:.3f}' for s in TWO_STAGE_STAGES),
+        flush=True)
+    print_top_kernels(kern, steps, 8)
+    print_own_kernels(kern, steps, 'batch')
+
+
+def hold_two_stage_against_plain(torch, model, req):
+    """Faster R-CNN on its kernels against on their plain versions, with
+    the proposals pinned (a rounding difference can swap proposals at the
+    top-k and the NMS): the RPN's maps compared directly, then the RoI
+    head fed the kernel run's proposals through the external-proposal
+    input on both sides. f32 within MODEL_F32_REL of each output's scale;
+    bf16 error against the f32 plain run within BF16_RATIO x the plain
+    bf16 run's."""
+    from kgdet_tpu_torch.ops.image import device_normalize
+
+    image = device_normalize(torch.as_tensor(req['image']).cuda(),
+                             torch.as_tensor(req['img_hw']).cuda())
+    img_hw = torch.as_tensor(req['img_hw']).cuda().float()
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def run(dtype, plain, props=None):
+        model.dtype = dtype
+        model.use_plain_kernels(plain)
+        model.external_proposals = props is not None
+        kw = {} if props is None else dict(proposals=props[0],
+                                           proposals_valid=props[1])
+        fwd = model(image, img_hw, train=False, **kw)
+        return fwd, {k: fwd[k] for k in ('roi_cls', 'roi_reg')}
+
+    def rpn_maps(fwd):
+        return {f'rpn {k} level {i}': o[k][-1]
+                for i, o in enumerate(fwd['rpn_outs']) for k in o}
+
+    try:
+        with torch.inference_mode():
+            k32, head_k32 = run(f32, False)
+            k16, head_k16 = run(bf16, False)
+            p32, _ = run(f32, True)
+            p16, _ = run(bf16, True)
+            pinned = {dt: (fwd['proposals'], fwd['proposal_valid'])
+                      for dt, fwd in ((f32, k32), (bf16, k16))}
+            _, head_p32 = run(f32, True, pinned[f32])
+            _, ref16 = run(f32, True, pinned[bf16])
+            _, head_p16 = run(bf16, True, pinned[bf16])
+    finally:
+        model.dtype = bf16
+        model.use_plain_kernels(False)
+        model.external_proposals = False
+    cases = [(rpn_maps(k32), rpn_maps(p32), rpn_maps(k16), rpn_maps(p16),
+              rpn_maps(p32)),
+             (head_k32, head_p32, head_k16, head_p16, ref16)]
+    for got32, want32, got16, plain16, ref in cases:
+        for k in want32:
+            scale = max(1.0, want32[k].float().abs().max().item())
+            e32 = max_err(got32[k], want32[k])
+            ek, ep = max_err(got16[k], ref[k]), max_err(plain16[k], ref[k])
+            print(f'faster_rcnn {k}: f32 kernels vs plain {e32:.3e} (bound '
+                  f'{MODEL_F32_REL * scale:.3e}); bf16 vs f32 plain: '
+                  f'kernels {ek:.3e}, plain {ep:.3e} (bound {BF16_RATIO} x '
+                  f'plain)', flush=True)
+            if not e32 <= MODEL_F32_REL * scale:
+                fail(f'faster_rcnn {k}: f32 kernel model differs by '
+                     f'{e32:.3e}')
+            if not ek <= BF16_RATIO * ep:
+                fail(f'faster_rcnn {k}: bf16 kernel model err {ek:.3e} > '
+                     f'{BF16_RATIO} x plain {ep:.3e}')
+
+
+def two_stage_train_batches(cfg, n):
+    """make_train_batches, with Fast R-CNN's proposals: the images' boxes
+    jittered, ROI_COUNT an image."""
+    import numpy as np
+    batches = make_train_batches(n, SEED + 1, cfg.head.num_keypts)
+    if cfg.detector_type == 'fast_rcnn':
+        rng = np.random.RandomState(SEED + 4)
+        for b in batches:
+            b['proposals'], b['proposals_valid'] = jittered_proposals(
+                rng, b['gt_bboxes'], b['valid_hw'].astype(np.float32))
+    return batches
+
+
+def two_stage_step(torch, gpu, name, free_name):
+    """init_trainer on the config as shipped, one warm-up and one timed
+    step at batch B in the config's dtype: the step's launches, finite
+    logs (the loss terms and acc where the detector has them), every
+    frozen parameter bit-equal, ``free_name`` moved; prints the step's ms
+    and peak memory. Returns (model, cfg, optimizer, batches,
+    launches)."""
+    import math
+
+    from kgdet_tpu_torch.api import init_trainer, load_config
+    from kgdet_tpu_torch.parallel.train import frozen_param_mask
+
+    cfg = load_config(two_stage_path(TWO_STAGE[name][0]))
+    model, optimizer, train_step = init_trainer(cfg, CANVAS,
+                                                steps_per_epoch=1000)
+    params = dict(model.named_parameters())
+    frozen = frozen_param_mask(model, cfg.backbone.frozen_stages)
+    kept = {n: p.detach().clone() for n, p in params.items() if frozen[n]}
+    batches = two_stage_train_batches(cfg, 2)
+    if name == 'hrnet':
+        settle_hrnet(torch, model, batches[0])
+    start = params[free_name].detach().clone()
+    torch.cuda.reset_peak_memory_stats()
+    train_step(batches[0])                # warm-up: cuDNN plans, allocator
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = train_step(batches[1])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = read_launches()
+    want = two_stage_launches(name, step=True)
+    if got != want:
+        fail(f'{name} training: launch counts {got} != {want} for a step')
+    vals = {k: v.item() for k, v in logs.items()}
+    if not {'loss', 'grad_norm'} <= set(vals) \
+            or not all(math.isfinite(v) for v in vals.values()):
+        fail(f'{name} train step logs {vals}')
+    if name in ('faster_rcnn', 'c4', 'libra', 'x101', 'hrnet') and \
+            sorted(TWO_STAGE_LOGS) != sorted(set(vals) - {'loss',
+                                                          'grad_norm'}):
+        fail(f'{name} train step logs {sorted(vals)}')
+    if any(not torch.equal(params[n], v) for n, v in kept.items()):
+        fail(f'{name}: a frozen parameter changed')
+    if torch.equal(params[free_name], start):
+        fail(f'{name}: {free_name} did not move')
+    print(f'{name} training: one {cfg.compute_dtype} step x {B} images at '
+          f'{CANVAS[0]}x{CANVAS[1]}, launches {got}; {ms:.2f} ms a step, '
+          f'{B / ms * 1e3:.2f} img/s, peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; '
+          + ' '.join(f'{k} {v:.4f}' for k, v in vals.items())
+          + f'; {len(kept)} frozen parameters bit-equal ({gpu})', flush=True)
+    return model, cfg, optimizer, batches, got
+
+
+def phase_faster_rcnn(torch, gpu):
+    """(a) Faster R-CNN R-50 FPN as shipped: served, profiled by stage,
+    held against its plain kernels with the proposals pinned; one bf16
+    train step; the gradients of the model on K6+K3 against on their plain
+    versions (the whole-model rule, the prefix the same on both sides) and
+    in bf16. Returns the launches served and trained."""
+    from kgdet_tpu_torch.parallel.train import make_loss_fn
+
+    model, cfg, reqs, served = two_stage_serving(torch, gpu, 'faster_rcnn')
+    two_stage_profile(torch, model, cfg, reqs[0], gpu)
+    hold_two_stage_against_plain(torch, model, reqs[0])
+    del model
+    torch.cuda.empty_cache()
+    model, cfg, optimizer, batches, trained = two_stage_step(
+        torch, gpu, 'faster_rcnn', 'bbox_head.fc_cls.weight')
+    loss_fn = make_loss_fn(model, cfg, CANVAS)
+
+    def run(dtype, plain):
+        return loss_and_grads(model, optimizer, loss_fn,
+                              TWO_STAGE_GRAD_GROUPS, dtype, plain,
+                              batches[0], plain_prefix=False)
+    ref_loss, ref = head32 = run(torch.float32, True)
+    check_same_prefix_grads('K6+K3 in the RoI gather',
+                            run(torch.float32, False), head32)
+    check_bf16_grads(ref_loss, ref, run(torch.bfloat16, False),
+                     run(torch.bfloat16, True), TWO_STAGE_GRAD_GROUPS)
+    optimizer.zero_grad()
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return served, trained
+
+
+FREE_NAMES = {'rpn': 'rpn_head.rpn_cls.weight',
+              'cascade': 'bbox_head.2.fc_cls.weight'}
+
+
+def phase_other_two_stage(torch, gpu, launches):
+    """(b) The other seven box-only configs as shipped: one served batch
+    and one bf16 step each (launch counts, finiteness, img/s, step ms,
+    peak memory); launches by path into ``launches``."""
+    for name in TWO_STAGE:
+        if name == 'faster_rcnn':
+            continue
+        model, _, _, launches[f'{name}_serving'] = two_stage_serving(
+            torch, gpu, name, n_reqs=1)
+        del model
+        torch.cuda.empty_cache()
+        model, _, optimizer, _, launches[f'{name}_training'] = \
+            two_stage_step(torch, gpu, name,
+                           FREE_NAMES.get(name, 'bbox_head.fc_cls.weight'))
+        del model, optimizer
+        torch.cuda.empty_cache()
+
+
+def cli_config(root, name, train=(), val=()):
+    """The shipped config ``name`` with its data under ``root`` (the
+    train / validation layout of make_eval_set), test.score_thr 0.0 and the
+    fields ``train`` / ``val`` (pairs) replaced in its data configs, as a
+    file that runs the shipped one."""
+    path = os.path.join(root, f'{name}.py')
+
+    def data(field, split, extra):
+        return (f'    {field}=dataclasses.replace(\n'
+                f'        config.{field}, ann_file={root!r} + '
+                f'"/{split}-coco_style.json",\n'
+                f'        img_prefix={root!r} + "/{split}/image"'
+                + ''.join(f', {k}={v!r}' for k, v in extra) + '),\n')
+    with open(path, 'w') as f:
+        f.write('import dataclasses\nimport runpy\n'
+                f'config = runpy.run_path({two_stage_path(name)!r})'
+                '["config"]\nconfig = config.replace(\n'
+                + data('train_data', 'train', train)
+                + data('val_data', 'validation', val)
+                + '    test=dataclasses.replace(config.test, '
+                'score_thr=0.0))\n')
+    return path
+
+
+def phase_two_stage_clis(torch, gpu):
+    """(c) The CLIs on synthetic PNGs: tools/train.py --validate on Faster
+    R-CNN (CLI_TRAIN_IMAGES training PNGs at the shipped batch of 8, one
+    epoch, CLI_VAL_IMAGES validation PNGs at batch 2; finite records, a
+    checkpoint, the bbox copypaste line), tools/test.py on RPN (its
+    proposal_AR_copypaste line) and on Fast R-CNN with a .pkl of jittered
+    box proposals that the phase writes (the bbox copypaste line). Returns
+    the training CLI's launches."""
+    import math
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    root = tempfile.mkdtemp(prefix='kgdet_two_stage_')
+    try:
+        t0 = time.perf_counter()
+        make_eval_set(root, SEED + 30, n_images=CLI_TRAIN_IMAGES,
+                      split='train')
+        images, anns = make_eval_set(root, SEED + 31,
+                                     n_images=CLI_VAL_IMAGES)
+        work = os.path.join(root, 'work')
+        reset_launches()
+        # validation at batch 2: the grouped loader cannot wrap-pad a
+        # group of fewer than half a batch in test mode
+        runner, printed = run_train_cli([
+            cli_config(root, 'faster_rcnn_r50_fpn',
+                       val=[('batch_size', 2)]),
+            '--work-dir', work, '--max-epochs', '1', '--validate',
+            '--log-interval', '1'])
+        trained = read_launches()
+        with open(os.path.join(work, 'train_log.jsonl')) as f:
+            recs = [json.loads(line) for line in f]
+        if runner.step < 1 or not all(
+                math.isfinite(v) for r in recs for v in r.values()
+                if not isinstance(v, (str, dict))):
+            fail(f'Faster R-CNN tools/train.py: step {runner.step}, records '
+                 f'{recs}')
+        ckpts = os.listdir(os.path.join(work, 'checkpoints'))
+        lines = [ln for ln in printed.splitlines()
+                 if 'bbox_mAP_copypaste: ' in ln]
+        if len(lines) != 1 or not ckpts:
+            fail(f'Faster R-CNN tools/train.py --validate printed {lines}, '
+                 f'saved {ckpts}')
+        print(f'Faster R-CNN tools/train.py --validate: {runner.step} steps '
+              f'on {CLI_TRAIN_IMAGES} training PNGs, {len(recs)} finite '
+              f'records, checkpoints {ckpts}, launches {trained} '
+              f'({time.perf_counter() - t0:.1f} s with the PNGs; {gpu})',
+              flush=True)
+        del runner
+        torch.cuda.empty_cache()
+
+        _, printed = run_cli([cli_config(root, 'rpn_r50_fpn'),
+                              '--batch-size', '2'])
+        lines = [ln for ln in printed.splitlines()
+                 if ln.startswith('proposal_AR_copypaste: ')]
+        ar = [float(v) for v in lines[0].split(': ', 1)[1].split()] \
+            if len(lines) == 1 else []
+        if len(ar) != 3 or not all(0 <= v <= 1 for v in ar):
+            fail(f'RPN tools/test.py printed {lines}')
+        torch.cuda.empty_cache()
+
+        rng = np.random.RandomState(SEED + 32)
+        props = []
+        for im in images:
+            boxes = np.asarray([[a['bbox'][0], a['bbox'][1],
+                                 a['bbox'][0] + a['bbox'][2],
+                                 a['bbox'][1] + a['bbox'][3]]
+                                for a in anns if a['image_id'] == im['id']
+                                and not a['iscrowd']], np.float32)
+            p, _ = jittered_proposals(
+                rng, boxes[None], np.asarray([[im['height'], im['width']]],
+                                             np.float32), n=300)
+            props.append(np.concatenate(
+                [p[0], rng.rand(300, 1).astype(np.float32)], 1))
+        pkl = os.path.join(root, 'proposals.pkl')
+        with open(pkl, 'wb') as f:
+            pickle.dump(props, f)
+        out, printed = run_cli([cli_config(
+            root, 'fast_rcnn_r50_fpn', val=[('proposal_file', pkl)]),
+            '--batch-size', '2'])
+        copypaste(printed, 'bbox', 12)
+        if len(out['results']) != CLI_VAL_IMAGES:
+            fail(f'Fast R-CNN tools/test.py: {len(out["results"])} images')
+        print(f'the two-stage CLIs: {time.perf_counter() - t0:.1f} s '
+              f'({gpu})', flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return trained
+
+
+def phase_two_stage(torch, gpu):
+    """Phase 14: (a) Faster R-CNN, (b) the other seven box-only configs,
+    (c) the CLIs ((d) is in phase 1). Returns the launches of each
+    path."""
+    t = [time.perf_counter()]
+    launches = {}
+    launches['faster_rcnn_serving'], launches['faster_rcnn_training'] = \
+        phase_faster_rcnn(torch, gpu)
+    t.append(time.perf_counter())
+    phase_other_two_stage(torch, gpu, launches)
+    t.append(time.perf_counter())
+    launches['faster_rcnn_train_cli'] = phase_two_stage_clis(torch, gpu)
+    t.append(time.perf_counter())
+    print('phase 14 seconds: ' + ', '.join(
+        f'{k} {b - a:.1f}' for k, a, b in zip(
+            ('(a) Faster R-CNN', '(b) seven configs', '(c) CLIs'), t,
+            t[1:])) + f' ({gpu})', flush=True)
+    return launches
+
+
+PHASE_GROUPS = ('1', '2', '6', '9', '10', '11', '12', '13', '14')
 
 
 def import_every_module():
@@ -3837,6 +4428,10 @@ def main(argv=None):
     # GA-Retina, FCOS, the two-stage configs' backbones and necks
     if '13' in phases:
         launches.update(phase_ga_fcos_and_extras(torch, gpu))
+
+    # the box-only two-stage detectors: served, trained, their CLIs
+    if '14' in phases:
+        launches.update(phase_two_stage(torch, gpu))
 
     if phases != set(PHASE_GROUPS):
         print(f'chip_smoke: phases {sorted(phases, key=int)} passed; no '

@@ -21,7 +21,8 @@ import torch
 
 from kgdet_tpu_torch.config import KGDetConfig, load_config
 from kgdet_tpu_torch.models.detector import KGDetDetector
-from kgdet_tpu_torch.models.families import get_head_family
+from kgdet_tpu_torch.models.families import get_head_family, \
+    is_two_stage, two_stage_decoder
 from kgdet_tpu_torch.ops.image import device_normalize
 
 
@@ -37,22 +38,44 @@ def resolve_device(device=None) -> torch.device:
     return torch.device('cuda')
 
 
-def build_model(cfg: KGDetConfig, device=None) -> KGDetDetector:
+def build_model(cfg: KGDetConfig, device=None):
     """The detector of ``cfg`` on ``device`` (None: the CUDA card), with
-    the constructors' default weights; ``init_weights`` seeds them."""
-    if cfg.detector_type != 'single_stage':
-        raise NotImplementedError(
-            f'detector_type {cfg.detector_type!r} is not ported yet; the '
-            'two-stage families are queued in ROADMAP Queue 1 item 6')
-    return KGDetDetector(cfg).to(resolve_device(device))
+    the constructors' default weights; ``init_weights`` seeds them: a
+    single-stage KGDetDetector, or by ``cfg.detector_type`` a two-stage
+    RPNDetector, FasterRCNN (Fast R-CNN with external proposals) or
+    CascadeRCNN (models/two_stage.py)."""
+    if is_two_stage(cfg.detector_type):
+        from kgdet_tpu_torch.models.two_stage import build_two_stage
+        model = build_two_stage(cfg)
+    else:
+        model = KGDetDetector(cfg)
+    return model.to(resolve_device(device))
 
 
-def make_predict_fn(model: KGDetDetector, cfg: KGDetConfig, canvas_hw):
+# Fast R-CNN's precomputed proposals, which ride the batch
+PROPOSAL_KEYS = ('proposals', 'proposals_valid')
+
+
+def make_predict_fn(model, cfg: KGDetConfig, canvas_hw):
     """predict(batch) -> padded detections, on the model's device.
 
     batch: image (B, H, W, 3) uint8 BGR (normalized on the device) or
-    normalized float; img_hw (B, 2) resized extents; scale_factor (B,).
-    Tensors or numpy arrays."""
+    normalized float; img_hw (B, 2) resized extents; scale_factor (B,);
+    for Fast R-CNN proposals (B, R, 4) and proposals_valid (B, R). Tensors
+    or numpy arrays."""
+    if is_two_stage(cfg.detector_type):
+        decode2 = two_stage_decoder(cfg.detector_type)
+
+        @torch.inference_mode()
+        def predict(batch):
+            feed = _feed(model, batch, PROPOSAL_KEYS)
+            img_hw = feed['img_hw'].float()
+            fwd = model(device_normalize(feed['image'], feed['img_hw']),
+                        img_hw, train=False,
+                        **{k: feed[k] for k in PROPOSAL_KEYS if k in feed})
+            return decode2(fwd, img_hw, feed['scale_factor'].float(),
+                           cfg.test, cfg.head.num_classes)
+        return predict
     decode = get_head_family(cfg.head.type).make_decode(cfg, tuple(canvas_hw))
 
     @torch.inference_mode()
@@ -63,11 +86,18 @@ def make_predict_fn(model: KGDetDetector, cfg: KGDetConfig, canvas_hw):
     return predict
 
 
+def _feed(model, batch, optional=()):
+    """The batch's tensors on the model's device: image, img_hw,
+    scale_factor and those of ``optional`` that it has."""
+    dev = next(model.parameters()).device
+    keys = ('image', 'img_hw', 'scale_factor') + tuple(
+        k for k in optional if k in batch)
+    return {k: torch.as_tensor(batch[k]).to(dev) for k in keys}
+
+
 def _forward(model, batch):
     """The batch's tensors on the model's device and the head outputs."""
-    dev = next(model.parameters()).device
-    feed = {k: torch.as_tensor(batch[k]).to(dev)
-            for k in ('image', 'img_hw', 'scale_factor')}
+    feed = _feed(model, batch)
     return feed, model(device_normalize(feed['image'], feed['img_hw']))
 
 
@@ -78,6 +108,10 @@ def make_raw_predict_fn(model: KGDetDetector, cfg: KGDetConfig, canvas_hw):
     (core/postprocess.py::decode_raw)."""
     from kgdet_tpu_torch.core.postprocess import decode_raw
     from kgdet_tpu_torch.models.families import BOX_FAMILIES, level_grids
+    if is_two_stage(cfg.detector_type):
+        raise NotImplementedError(
+            'test-time augmentation decodes the single-stage point families '
+            f'only; {cfg.detector_type} has no pre-NMS decode')
     if cfg.head.type in BOX_FAMILIES:
         raise NotImplementedError(
             f'test-time augmentation decodes the point families only, as '

@@ -12,8 +12,10 @@ labels, (N, 294, 3) keypoints) and deepfashion2.py:8-99.
 
 The port's own copy of kgdet_tpu/data/dataset.py: NumPy, with images read
 and resized through data/image_io.py (no OpenCV needed). Every sample equals
-the JAX package's. Precomputed proposals, mask rasters and semantic maps
-serve the two-stage families and raise until ROADMAP Queue 1 item 6.
+the JAX package's. Precomputed proposals (``DataConfig.proposal_file``,
+Fast R-CNN) ride the samples as ``proposals`` / ``proposals_valid``; mask
+rasters and semantic maps serve the mask families and raise until ROADMAP
+Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from kgdet_tpu_torch.data.transforms import (
     imnormalize, imrescale, keep_ratio_scale, pad_to_canvas, rescale_size)
 from kgdet_tpu_torch.eval.coco import CocoIndex
 
-_ITEM6 = 'the two-stage families (ROADMAP Queue 1 item 6)'
+_ITEM6 = 'the mask families (ROADMAP Queue 1 item 6)'
 
 _GROUPS0 = None
 
@@ -70,6 +72,9 @@ class ImageRecord:
 class DeepFashion2Dataset:
     """Map-style dataset over a COCO-format DeepFashion2 annotation file."""
 
+    # precomputed-proposal store (Fast R-CNN), by img_id
+    proposals = None
+
     def __init__(self, cfg: DataConfig, train: bool = True,
                  min_size: int = 32, min_keypoints: int = 0,
                  filter_empty: Optional[bool] = None):
@@ -103,8 +108,49 @@ class DeepFashion2Dataset:
             [1 if r.width / r.height > 1 else 0 for r in self.records],
             dtype=np.int64)
         if cfg.proposal_file:
-            raise NotImplementedError(
-                f'DataConfig.proposal_file serves {_ITEM6}, not ported yet')
+            self.proposals = self._load_proposals(cfg.proposal_file)
+
+    def _load_proposals(self, path):
+        """A .pkl of per-image (P, 4 | 5) proposals (reference custom.py
+        proposal_file): a list in the annotation file's image order, or a
+        dict keyed by file name or img id. The file is unpickled: load only
+        files you trust."""
+        import pickle
+        with open(path, 'rb') as f:
+            raw = pickle.load(f)
+        if not isinstance(raw, dict):
+            by_id = dict(zip(self.coco.img_ids, raw))
+            return {r.img_id: np.asarray(by_id[r.img_id], np.float32)
+                    for r in self.records}
+        out = {}
+        for r in self.records:
+            p = raw.get(r.filename, raw.get(r.img_id))
+            if p is None:
+                raise KeyError(f'proposal_file {path!r} has no entry for '
+                               f'{r.filename!r} (img_id {r.img_id})')
+            p = np.asarray(p, np.float32)
+            out[r.img_id] = p.reshape(-1, p.shape[-1]) if p.size \
+                else p.reshape(-1, 4)
+        return out
+
+    def _padded_proposals(self, img_id, sf, flip_width=None):
+        """(num_proposals, 4) canvas-coordinate proposals and their
+        validity: by descending score where the file has one, scaled,
+        flipped with the image."""
+        P = self.cfg.num_proposals
+        out = np.zeros((P, 4), np.float32)
+        valid = np.zeros((P,), bool)
+        p = self.proposals.get(img_id)
+        if p is not None and p.size:
+            p = p.reshape(-1, p.shape[-1])
+            if p.shape[-1] >= 5:                # score-sorted, scores drop
+                p = p[np.argsort(-p[:, 4])]
+            p = p[:P, :4] * sf
+            if flip_width is not None:
+                p = flip_bboxes(p, flip_width)
+            out[:len(p)] = p
+            valid[:len(p)] = True
+        return out, valid
 
     def _semantic_seg(self, record, sf, flip, canvas):
         """Stuff-label map of the HTC semantic branch."""
@@ -276,6 +322,10 @@ class DeepFashion2Dataset:
         if self.cfg.with_mask:
             sample['gt_masks'] = self.rasterize_masks(
                 record.img_id, sf, rw if flipped else None, canvas)
+        if self.proposals is not None:
+            sample['proposals'], sample['proposals_valid'] = \
+                self._padded_proposals(record.img_id, sf,
+                                       rw if flipped else None)
         if self.cfg.seg_prefix:
             sample['gt_semantic_seg'] = self._semantic_seg(
                 record, sf, flipped, canvas)
@@ -328,6 +378,10 @@ class DeepFashion2Dataset:
             'flipped': np.bool_(flip),
             'img_id': record.img_id,
         }
+        if self.proposals is not None:
+            out['proposals'], out['proposals_valid'] = \
+                self._padded_proposals(record.img_id, sf,
+                                       rw if flip else None)
         return out
 
     @property

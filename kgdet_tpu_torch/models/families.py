@@ -7,9 +7,10 @@ and the init/refine heads ``SerialKpHead``, ``ParallelKpHead`` and
 whose anchors are static per canvas and made once a device; of the
 anchor-free ``FCOSHead`` (on the level grids) and of ``GARetinaHead``
 (guided anchors). ``get_head_family`` raises ``KeyError`` for any other
-name, as the JAX registry does; the two-stage families (ROADMAP Queue 1
-item 6) dispatch on ``cfg.detector_type`` and are refused before a head is
-built.
+name, as the JAX registry does. The two-stage detectors dispatch on
+``cfg.detector_type`` instead (``two_stage_decoder``, ``is_two_stage``):
+the box-only ones decode through core/two_stage_loss.py; the mask, grid
+and HTC decoders wait for ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -312,3 +313,33 @@ def get_head_family(name: str) -> HeadFamily:
         raise KeyError(
             f'unknown head family {name}; have {sorted(HEAD_FAMILIES)}')
     return HEAD_FAMILIES[name]
+
+
+# --------------------------------------------------- two-stage family table
+TWO_STAGE_TYPES = ('faster_rcnn', 'fast_rcnn', 'mask_rcnn', 'ms_rcnn',
+                   'cascade_rcnn', 'double_head_rcnn', 'grid_rcnn', 'htc',
+                   'rpn')
+
+
+def is_two_stage(detector_type: str) -> bool:
+    return detector_type in TWO_STAGE_TYPES
+
+
+def two_stage_decoder(detector_type: str):
+    """decode(fwd, img_hw, scale_factor, test_cfg, num_classes) of
+    cfg.detector_type (the reference's simple_test equivalents); KeyError
+    for an unknown name, as in the JAX package."""
+    from kgdet_tpu_torch.core import two_stage_loss as tsl
+    table = {
+        'faster_rcnn': tsl.decode_rcnn_detections,
+        'fast_rcnn': tsl.decode_rcnn_detections,
+        'double_head_rcnn': tsl.decode_rcnn_detections,
+        'cascade_rcnn': tsl.decode_cascade_detections,
+        'rpn': tsl.decode_rpn_proposals,
+    }
+    if detector_type in tsl.NOT_PORTED:
+        raise NotImplementedError(
+            f'the {detector_type} decode waits for {tsl.ITEM6}')
+    if detector_type not in table:
+        raise KeyError(f'unknown two-stage detector {detector_type}')
+    return table[detector_type]

@@ -1,0 +1,544 @@
+"""Two-stage detectors: RPN head, RoI box heads, RPN, Faster / Fast R-CNN
+and Cascade R-CNN.
+
+Port of kgdet_tpu/models/two_stage.py for the box-only detectors.
+Proposals are fixed-size padded tensors (per level a top-``nms_pre`` by a
+stable descending sort, as jax.lax.top_k orders ties, then one greedy NMS
+over the levels for every image at once, ops/nms.py) and are detached. RoI
+features come from ops/roi.py::roi_align on each image's own map (no copy
+of the map per RoI): on the card through kernel K6 forward and K3 backward,
+on the CPU through the plain gather; ``use_plain_kernels`` selects the
+plain versions on the card too. Every level is gathered and each RoI's
+scale-matched level is picked with ``where``, as the JAX package does.
+
+Module and parameter names are the reference's (rpn_head.rpn_conv,
+bbox_head.shared_fcs.0, bbox_head.<stage>.* for the cascade,
+shared_head.layer4.<i>.* for C4), so a reference .pth loads as it is:
+``shared_fcs.0`` and the double head's ``fc_branch.0`` flatten the RoI
+features in the reference's (C, roi, roi) order. The heads compute in the
+detector's dtype from f32 parameters; activations are NCHW into the heads,
+NHWC into the RoI gather. Masks, grids, HTC's semantic branch and GA-RPN
+raise ``NotImplementedError`` naming ROADMAP Queue 1 item 6.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from kgdet_tpu_torch.core.anchor_loss import clamp_to_image
+from kgdet_tpu_torch.core.bbox_transforms import delta2bbox
+from kgdet_tpu_torch.core.two_stage_loss import CASCADE_STAGE_STDS, ITEM6
+from kgdet_tpu_torch.models.layers import head_out, init_he_normal_, \
+    init_normal_, init_variance_scaling_, init_xavier_uniform_
+from kgdet_tpu_torch.models.resnet import ARCH_SETTINGS, Bottleneck, \
+    DeformConv3x3, ResNet
+from kgdet_tpu_torch.ops.anchors import base_anchors, grid_anchors
+from kgdet_tpu_torch.ops.nms import NEG_INF, greedy_nms
+from kgdet_tpu_torch.ops.roi import roi_align
+
+
+def _linear(x, fc):
+    return F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype))
+
+
+def _conv(x, conv, padding=0):
+    b = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, conv.weight.to(x.dtype), b, padding=padding)
+
+
+def _group_norm(x, gn):
+    return F.group_norm(x.float(), gn.num_groups, gn.weight, gn.bias,
+                        gn.eps).to(x.dtype)
+
+
+def _zero_biases(module):
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
+            nn.init.zeros_(m.bias)
+
+
+class RPNHead(nn.Module):
+    """Class-agnostic region proposal head: a 3x3 conv, then 1x1 objectness
+    and delta convs, on every level. Output per level: cls (1, B, H, W, A)
+    and bbox (1, B, H, W, 4A), the JAX layout."""
+
+    def __init__(self, in_channels=256, feat_channels=256, num_anchors=3):
+        super().__init__()
+        self.rpn_conv = nn.Conv2d(in_channels, feat_channels, 3, padding=1)
+        self.rpn_cls = nn.Conv2d(feat_channels, num_anchors, 1)
+        self.rpn_reg = nn.Conv2d(feat_channels, num_anchors * 4, 1)
+
+    def init_weights(self, gen):
+        for conv in (self.rpn_conv, self.rpn_cls, self.rpn_reg):
+            init_normal_(conv.weight, 0.01, gen)
+        _zero_biases(self)
+
+    def forward(self, feats):
+        outs = []
+        for x in feats:
+            t = torch.relu(_conv(x, self.rpn_conv, padding=1))
+            outs.append({'cls': head_out(t, self.rpn_cls),
+                         'bbox': head_out(t, self.rpn_reg)})
+        return outs
+
+
+@torch.no_grad()
+def rpn_proposals(rpn_outs, anchors_per_level, img_hw, nms_pre=1000,
+                  max_num=1000, nms_thr=0.7, min_bbox_size=0.0):
+    """Decode RPN outputs into fixed-size padded proposals: per level the
+    top ``nms_pre`` anchors by objectness, decoded and clamped to the
+    image, boxes not wider and taller than ``min_bbox_size`` dropped; then
+    one greedy NMS over the levels, every image at once. Returns
+    (proposals (B, max_num, 4), scores (B, max_num), valid (B, max_num))."""
+    B = rpn_outs[0]['cls'].shape[1]
+    lvl_boxes, lvl_scores = [], []
+    for outs, anchors in zip(rpn_outs, anchors_per_level):
+        P = anchors.shape[0]
+        scores = torch.sigmoid(outs['cls'][-1].float().reshape(B, P))
+        reg = outs['bbox'][-1].float().reshape(B, P, 4)
+        k = min(nms_pre, P)
+        top_scores, topk = torch.sort(scores, dim=-1, descending=True,
+                                      stable=True)
+        top_scores, topk = top_scores[:, :k], topk[:, :k]
+        boxes = delta2bbox(anchors[topk], reg.gather(
+            1, topk[..., None].expand(B, k, 4)))
+        boxes = clamp_to_image(boxes, img_hw)
+        ok = (boxes[..., 2] - boxes[..., 0] > min_bbox_size) \
+            & (boxes[..., 3] - boxes[..., 1] > min_bbox_size)
+        lvl_scores.append(torch.where(ok, top_scores, NEG_INF))
+        lvl_boxes.append(boxes)
+    boxes = torch.cat(lvl_boxes, dim=1)
+    scores = torch.cat(lvl_scores, dim=1)
+    keep_idx, keep_scores = greedy_nms(boxes, scores, nms_thr, max_num)
+    valid = keep_scores > NEG_INF / 2
+    safe = keep_idx.clamp(0, boxes.shape[1] - 1)
+    props = boxes.gather(1, safe[..., None].expand(B, max_num, 4))
+    return (torch.where(valid[..., None], props, 0.0),
+            torch.where(valid, keep_scores, 0.0), valid)
+
+
+def map_rois_to_levels(rois_wh, num_levels, finest_scale=56):
+    """The FPN level of each RoI by its sqrt-area (single_level.py
+    map_roi_levels)."""
+    scale = torch.sqrt(torch.clamp(rois_wh[..., 0] * rois_wh[..., 1],
+                                   min=1e-6))
+    lvl = torch.floor(torch.log2(scale / finest_scale + 1e-6))
+    return lvl.clamp(0, num_levels - 1).to(torch.int32)
+
+
+def extract_roi_feats(feats, strides, proposals, valid, out_size=7,
+                      sample_num=2, finest_scale=56, plain=False):
+    """Multi-level RoIAlign: each RoI takes its scale-matched level.
+    feats: (B, H_l, W_l, C) maps; proposals (B, R, 4) in image
+    coordinates; valid (B, R). Returns (B, R, out, out, C), zero for an
+    invalid RoI."""
+    wh = torch.stack([proposals[..., 2] - proposals[..., 0],
+                      proposals[..., 3] - proposals[..., 1]], dim=-1)
+    lvl = map_rois_to_levels(wh, len(feats), finest_scale)
+    out = None
+    for li, (feat, stride) in enumerate(zip(feats, strides)):
+        f = roi_align(feat, proposals, out_size=out_size,
+                      spatial_scale=1.0 / stride, sample_num=sample_num,
+                      plain=plain)
+        mask = ((lvl == li) & valid)[..., None, None, None]
+        out = torch.where(mask, f, torch.zeros_like(f) if out is None
+                          else out)
+    return out
+
+
+def _reg_dim(num_classes, agnostic):
+    return 4 if agnostic else 4 * (num_classes + 1)
+
+
+def _flat_roi(x):
+    """(..., roi, roi, C) -> (..., C * roi * roi) in the reference's
+    (C, roi, roi) order."""
+    return x.movedim(-1, -3).flatten(-3)
+
+
+class ConvFCBBoxHead(nn.Module):
+    """Shared-2FC RoI box head: softmax cls (C + 1) and per-class deltas in
+    the reference layout, (C + 1) slices with background at 0
+    (convfc_bbox_head.py), or 4 class-agnostic deltas."""
+
+    def __init__(self, num_classes=13, in_channels=256, fc_channels=1024,
+                 roi_size=7, reg_class_agnostic=False):
+        super().__init__()
+        self.shared_fcs = nn.ModuleList([
+            nn.Linear(in_channels * roi_size * roi_size, fc_channels),
+            nn.Linear(fc_channels, fc_channels)])
+        self.fc_cls = nn.Linear(fc_channels, num_classes + 1)
+        self.fc_reg = nn.Linear(fc_channels,
+                                _reg_dim(num_classes, reg_class_agnostic))
+
+    def init_weights(self, gen):
+        for fc in self.shared_fcs:
+            init_xavier_uniform_(fc.weight, gen)
+        init_normal_(self.fc_cls.weight, 0.01, gen)
+        init_normal_(self.fc_reg.weight, 0.001, gen)
+        _zero_biases(self)
+
+    def forward(self, roi_feats):
+        """(..., roi, roi, C) -> (cls (..., C + 1), deltas)."""
+        x = _flat_roi(roi_feats)
+        for fc in self.shared_fcs:
+            x = torch.relu(_linear(x, fc))
+        return _linear(x, self.fc_cls), _linear(x, self.fc_reg)
+
+
+class _ConvGN(nn.Module):
+    """conv + GroupNorm under the reference ConvModule's names (conv, gn);
+    flax GroupNorm's epsilon, 1e-6."""
+
+    def __init__(self, cin, cout, k, groups, bias=False):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, k, padding=k // 2, bias=bias)
+        self.gn = nn.GroupNorm(groups, cout, eps=1e-6)
+
+    def forward(self, x):
+        return _group_norm(_conv(x, self.conv, self.conv.padding), self.gn)
+
+
+class BasicResBlock(nn.Module):
+    """The double head's 3x3 + 1x1 block with a 1x1 projection
+    (double_bbox_head.py:10-70), GroupNorm for the reference's BatchNorm as
+    in the JAX package."""
+
+    def __init__(self, in_channels, out_channels, gn_groups=32):
+        super().__init__()
+        self.conv1 = _ConvGN(in_channels, in_channels, 3,
+                             min(gn_groups, in_channels))
+        self.conv2 = _ConvGN(in_channels, out_channels, 1, gn_groups)
+        self.conv_identity = _ConvGN(in_channels, out_channels, 1, gn_groups,
+                                     bias=True)
+
+    def forward(self, x):
+        h = self.conv2(torch.relu(self.conv1(x)))
+        return torch.relu(h + self.conv_identity(x))
+
+
+class ResBottleneckGN(nn.Module):
+    """The double head's 1x1-3x3-1x1 conv-branch bottleneck, GroupNorm."""
+
+    def __init__(self, channels, planes, gn_groups=32):
+        super().__init__()
+        self.conv1 = nn.Conv2d(channels, planes, 1, bias=False)
+        self.gn1 = nn.GroupNorm(min(gn_groups, planes), planes, eps=1e-6)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.gn2 = nn.GroupNorm(min(gn_groups, planes), planes, eps=1e-6)
+        self.conv3 = nn.Conv2d(planes, channels, 1, bias=False)
+        self.gn3 = nn.GroupNorm(gn_groups, channels, eps=1e-6)
+
+    def forward(self, x):
+        h = torch.relu(_group_norm(_conv(x, self.conv1), self.gn1))
+        h = torch.relu(_group_norm(_conv(h, self.conv2, 1), self.gn2))
+        return torch.relu(_group_norm(_conv(h, self.conv3), self.gn3) + x)
+
+
+class DoubleConvFCBBoxHead(nn.Module):
+    """Double-head RoI box head: a conv branch regresses, an fc branch
+    classifies (double_bbox_head.py:73-180, detectors/double_head_rcnn.py).
+    """
+
+    def __init__(self, num_classes=13, in_channels=256, num_convs=4,
+                 num_fcs=2, conv_out_channels=1024, fc_out_channels=1024,
+                 roi_size=7, reg_class_agnostic=False):
+        super().__init__()
+        self.res_block = BasicResBlock(in_channels, conv_out_channels)
+        self.conv_branch = nn.ModuleList(
+            ResBottleneckGN(conv_out_channels, conv_out_channels // 4)
+            for _ in range(num_convs))
+        self.fc_branch = nn.ModuleList(
+            nn.Linear(in_channels * roi_size * roi_size if i == 0
+                      else fc_out_channels, fc_out_channels)
+            for i in range(num_fcs))
+        self.fc_cls = nn.Linear(fc_out_channels, num_classes + 1)
+        self.fc_reg = nn.Linear(conv_out_channels,
+                                _reg_dim(num_classes, reg_class_agnostic))
+
+    def init_weights(self, gen):
+        """flax's defaults where the JAX head sets none: lecun normal
+        convs, unit GroupNorm scales, zero biases."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                init_variance_scaling_(m.weight, gen)
+        for fc in self.fc_branch:
+            init_xavier_uniform_(fc.weight, gen)
+        init_normal_(self.fc_cls.weight, 0.01, gen)
+        init_normal_(self.fc_reg.weight, 0.001, gen)
+        _zero_biases(self)
+
+    def forward(self, roi_feats):
+        lead = roi_feats.shape[:-3]
+        x = roi_feats.reshape(-1, *roi_feats.shape[-3:])
+        xc = self.res_block(x.permute(0, 3, 1, 2))
+        for block in self.conv_branch:
+            xc = block(xc)
+        reg = _linear(xc.mean((2, 3)), self.fc_reg)
+        xf = _flat_roi(x)
+        for fc in self.fc_branch:
+            xf = torch.relu(_linear(xf, fc))
+        cls = _linear(xf, self.fc_cls)
+        return cls.reshape(*lead, -1), reg.reshape(*lead, -1)
+
+
+class SharedResLayer(nn.Module):
+    """The C4 shared head: ResNet stage 4's bottlenecks over the RoI
+    features (shared_heads/res_layer.py), FrozenBatchNorm, under the
+    reference names shared_head.layer4.<i>.*; ``style='caffe'`` puts the
+    stride on the first 1x1. (N, roi, roi, C) -> (N, C', roi / 2, roi / 2)
+    NCHW."""
+
+    def __init__(self, depth=50, stride=2, style='pytorch'):
+        super().__init__()
+        in_ch = ResNet.stage_channels(depth)[2]
+        blocks = []
+        for i in range(ARCH_SETTINGS[depth][1][3]):
+            blocks.append(Bottleneck(in_ch, 512, stride if i == 0 else 1,
+                                     downsample=i == 0, style=style))
+            in_ch = 512 * Bottleneck.expansion
+        self.layer4 = nn.Sequential(*blocks)
+
+    def init_weights(self, gen):
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                init_he_normal_(m.weight, gen)
+
+    def forward(self, x):
+        return self.layer4(x.permute(0, 3, 1, 2))
+
+
+class AvgPoolBBoxHead(nn.Module):
+    """Global average pool + fc_cls / fc_reg (bbox_head.py with
+    with_avg_pool=True, no shared fcs). Takes NCHW."""
+
+    def __init__(self, num_classes=13, in_channels=2048,
+                 reg_class_agnostic=False):
+        super().__init__()
+        self.fc_cls = nn.Linear(in_channels, num_classes + 1)
+        self.fc_reg = nn.Linear(in_channels,
+                                _reg_dim(num_classes, reg_class_agnostic))
+
+    def init_weights(self, gen):
+        init_normal_(self.fc_cls.weight, 0.01, gen)
+        init_normal_(self.fc_reg.weight, 0.001, gen)
+        _zero_biases(self)
+
+    def forward(self, x):
+        x = x.mean((2, 3))
+        return _linear(x, self.fc_cls), _linear(x, self.fc_reg)
+
+
+# -------------------------------------------------------------- detectors
+def _refuse(cfg, what):
+    raise NotImplementedError(f'{what} of detector_type '
+                              f'{cfg.detector_type!r} waits for {ITEM6}')
+
+
+class TwoStageBase(nn.Module):
+    """backbone -> neck -> (RPN): the parts every two-stage detector
+    shares. forward returns the JAX module's dict."""
+
+    def __init__(self, cfg, num_proposals_train=512, num_proposals_test=1000,
+                 with_rpn=True):
+        from kgdet_tpu_torch.models.detector import build_backbone, \
+            build_neck, compute_dtype
+        super().__init__()
+        if cfg.rpn_type == 'ga_rpn' and with_rpn:
+            _refuse(cfg, 'GA-RPN (rpn_type ga_rpn)')
+        if cfg.with_semantic:
+            _refuse(cfg, 'the semantic branch')
+        self.cfg = cfg
+        self.dtype = compute_dtype(cfg)
+        self.num_proposals_train = num_proposals_train
+        self.num_proposals_test = num_proposals_test
+        self.plain = False
+        self.backbone = build_backbone(cfg.backbone)
+        self.neck = build_neck(cfg.neck)
+        h = cfg.head
+        if with_rpn:
+            self.rpn_head = RPNHead(
+                cfg.neck.out_channels, cfg.neck.out_channels,
+                len(h.anchor_scales) * len(h.anchor_ratios))
+        self._anchor_sets = {}      # the static anchors, once a shape
+
+    def heads(self):
+        return [m for n, m in self.named_children()
+                if n not in ('backbone', 'neck')]
+
+    def init_weights(self, seed: int = 0):
+        """Seeded random weights, with the distributions of the JAX
+        inits."""
+        gen = torch.Generator().manual_seed(seed)
+        for part in (self.backbone, self.neck, *self.heads()):
+            if part is None:
+                continue
+            if isinstance(part, nn.ModuleList):
+                for m in part:
+                    m.init_weights(gen)
+            else:
+                part.init_weights(gen)
+        return self
+
+    def use_plain_kernels(self, plain: bool = True):
+        """Swap the kernels of the path (the frozen prefix's, the DCN
+        stages', the RoI gather's) for their plain PyTorch versions, or
+        back."""
+        if isinstance(self.backbone, ResNet):
+            self.backbone.plain_prefix = plain
+        for m in self.modules():
+            if isinstance(m, DeformConv3x3):
+                m.plain = plain
+        self.plain = plain
+        return self
+
+    def features(self, images):
+        feats = self.backbone(images.to(self.dtype))
+        return list(feats if self.neck is None else self.neck(feats))
+
+    def anchors(self, feats):
+        h = self.cfg.head
+        key = tuple((f.shape[2], f.shape[3], f.device) for f in feats)
+        if key not in self._anchor_sets:
+            self._anchor_sets[key] = [
+                grid_anchors(base_anchors(s, list(h.anchor_scales),
+                                          h.anchor_ratios),
+                             f.shape[2], f.shape[3], s, device=f.device)
+                for f, s in zip(feats, h.point_strides)]
+        return self._anchor_sets[key]
+
+    def propose(self, feats, img_hw, train):
+        rpn_outs = self.rpn_head(feats)
+        anchors = self.anchors(feats)
+        n = self.num_proposals_train if train else self.num_proposals_test
+        proposals, scores, valid = rpn_proposals(rpn_outs, anchors, img_hw,
+                                                 max_num=n)
+        return dict(rpn_outs=rpn_outs, anchors=anchors, proposals=proposals,
+                    proposal_scores=scores, proposal_valid=valid)
+
+    def roi_feats(self, feats, proposals, valid, out_size=7):
+        return extract_roi_feats(
+            [f.permute(0, 2, 3, 1) for f in feats],
+            self.cfg.head.point_strides, proposals, valid,
+            out_size=out_size, plain=self.plain)
+
+    @staticmethod
+    def _img_hw(images, img_hw):
+        if img_hw is not None:
+            return img_hw.float()
+        return images.new_tensor([[images.shape[1], images.shape[2]]],
+                                 dtype=torch.float32).expand(
+                                     images.shape[0], 2)
+
+
+class RPNDetector(TwoStageBase):
+    """Standalone RPN: backbone -> neck -> RPN head -> padded proposals
+    (reference detectors/rpn.py; evaluated by recall)."""
+
+    def forward(self, images, img_hw=None, train=True):
+        return self.propose(self.features(images),
+                            self._img_hw(images, img_hw), train)
+
+
+class FasterRCNN(TwoStageBase):
+    """backbone -> neck -> RPN (or, Fast R-CNN, proposals as inputs) ->
+    RoI box head: the ConvFC head, the double head
+    (detector_type 'double_head_rcnn') or, with cfg.rcnn_head
+    'res_layer' (C4), the shared layer4 and the average-pool head on 14x14
+    RoIs."""
+
+    def __init__(self, cfg, external_proposals=False, **kw):
+        if cfg.detector_type in ('mask_rcnn', 'ms_rcnn'):
+            _refuse(cfg, 'the mask head')
+        if cfg.detector_type == 'grid_rcnn':
+            _refuse(cfg, 'the grid head')
+        super().__init__(cfg, with_rpn=not external_proposals, **kw)
+        self.external_proposals = external_proposals
+        h, c = cfg.head, cfg.neck.out_channels
+        self.roi_size = 7
+        if cfg.detector_type == 'double_head_rcnn':
+            self.bbox_head = DoubleConvFCBBoxHead(h.num_classes, c)
+        elif cfg.rcnn_head == 'res_layer':
+            self.shared_head = SharedResLayer(cfg.backbone.depth,
+                                              style=cfg.backbone.style)
+            self.bbox_head = AvgPoolBBoxHead(h.num_classes)
+            self.roi_size = 14
+        else:
+            self.bbox_head = ConvFCBBoxHead(h.num_classes, c)
+
+    def box_head(self, roi_feats):
+        if not hasattr(self, 'shared_head'):
+            return self.bbox_head(roi_feats)
+        lead = roi_feats.shape[:-3]
+        cls, reg = self.bbox_head(self.shared_head(
+            roi_feats.reshape(-1, *roi_feats.shape[-3:])))
+        return cls.reshape(*lead, -1), reg.reshape(*lead, -1)
+
+    def forward(self, images, img_hw=None, train=True, proposals=None,
+                proposals_valid=None):
+        img_hw = self._img_hw(images, img_hw)
+        feats = self.features(images)
+        if self.external_proposals:
+            if proposals is None:
+                raise ValueError('fast_rcnn requires proposals inputs (set '
+                                 'DataConfig.proposal_file)')
+            valid = proposals_valid if proposals_valid is not None \
+                else torch.ones(proposals.shape[:2], dtype=torch.bool,
+                                device=proposals.device)
+            out = dict(rpn_outs=None, anchors=None, proposals=proposals,
+                       proposal_scores=valid.float(), proposal_valid=valid)
+        else:
+            out = self.propose(feats, img_hw, train)
+        out['proposals'] = out['proposals'].float().detach()
+        roi_feats = self.roi_feats(feats, out['proposals'],
+                                   out['proposal_valid'], self.roi_size)
+        out['roi_cls'], out['roi_reg'] = self.box_head(roi_feats)
+        return out
+
+
+class CascadeRCNN(TwoStageBase):
+    """Cascade R-CNN, the box stages: a shared RPN and three ConvFC heads
+    with class-agnostic deltas; each stage's deltas, decoded with its stds,
+    clamped and detached, are the next stage's RoIs (cascade_rcnn.py)."""
+
+    def __init__(self, cfg, num_stages=3, **kw):
+        if cfg.detector_type == 'htc':
+            _refuse(cfg, 'the HTC mask stages')
+        super().__init__(cfg, **kw)
+        h, c = cfg.head, cfg.neck.out_channels
+        self.bbox_head = nn.ModuleList(
+            ConvFCBBoxHead(h.num_classes, c, reg_class_agnostic=True)
+            for _ in range(num_stages))
+
+    def forward(self, images, img_hw=None, train=True):
+        img_hw = self._img_hw(images, img_hw)
+        feats = self.features(images)
+        out = self.propose(feats, img_hw, train)
+        boxes, valid = out['proposals'], out['proposal_valid']
+        stages = []
+        for i, head in enumerate(self.bbox_head):
+            roi_cls, roi_reg = head(self.roi_feats(feats, boxes, valid))
+            stages.append(dict(proposals=boxes, roi_cls=roi_cls,
+                               roi_reg=roi_reg))
+            if i < len(self.bbox_head) - 1:
+                boxes = clamp_to_image(delta2bbox(
+                    boxes, roi_reg.detach().float(),
+                    stds=CASCADE_STAGE_STDS[i]), img_hw)
+        out['stages'] = stages
+        return out
+
+
+def build_two_stage(cfg):
+    """The detector of a two-stage ``cfg.detector_type``."""
+    dt = cfg.detector_type
+    kw = dict(num_proposals_train=cfg.num_proposals_train,
+              num_proposals_test=cfg.num_proposals_test)
+    if dt in ('cascade_rcnn', 'htc'):
+        return CascadeRCNN(cfg, **kw)
+    if dt == 'rpn':
+        return RPNDetector(cfg, **kw)
+    if dt in ('faster_rcnn', 'fast_rcnn', 'mask_rcnn', 'ms_rcnn',
+              'double_head_rcnn', 'grid_rcnn'):
+        return FasterRCNN(cfg, external_proposals=dt == 'fast_rcnn', **kw)
+    raise KeyError(f'unknown two-stage detector {dt}')

@@ -1,9 +1,11 @@
 """Training step, optimizer and LR schedule.
 
-Port of kgdet_tpu/parallel/train.py for the single-stage families:
-``make_lr_schedule``, ``frozen_param_mask``, ``paramwise_multipliers``,
-``make_optimizer``, ``build_level_geometry``, ``batch_valid_flags``,
-``compute_loss`` and ``make_train_step``. Parameters are addressed by their
+Port of kgdet_tpu/parallel/train.py: ``make_lr_schedule``,
+``frozen_param_mask``, ``paramwise_multipliers``, ``make_optimizer``,
+``build_level_geometry``, ``batch_valid_flags``, ``compute_loss``,
+``make_loss_fn`` (the single-stage families through their registry, the
+two-stage detectors through core/two_stage_loss.py on the RPN's anchor
+valid flags) and ``make_train_step``. Parameters are addressed by their
 ``named_parameters()`` names (the reference's torch names). The step updates
 the model in place and returns the logs. In a process group it is the
 data-parallel step of parallel/dist.py, which holds the counterparts of the
@@ -219,9 +221,28 @@ def compute_loss(outs, grids, valids, batch, cfg: KGDetConfig,
 
 BATCH_KEYS = ('image', 'valid_hw', 'gt_bboxes', 'gt_labels', 'gt_kpts',
               'gt_mask')
-# crowd regions, read by the refine assigner of the serial family when the
-# batch has them
-OPTIONAL_BATCH_KEYS = ('gt_bboxes_ignore', 'gt_ignore_mask')
+# crowd regions, read by the refine assigner of the serial family and the
+# two-stage assigners when the batch has them; Fast R-CNN's precomputed
+# proposals
+OPTIONAL_BATCH_KEYS = ('gt_bboxes_ignore', 'gt_ignore_mask', 'proposals',
+                       'proposals_valid')
+
+
+def two_stage_valid_flags(cfg: KGDetConfig, valid_hw, sizes):
+    """(B, H_l * W_l * A) per-level anchor validity of the RPN from padded
+    extents (pixels), on the levels' (H_l, W_l) ``sizes`` as the neck made
+    them. The JAX package takes ceil(canvas / stride) instead, the same
+    except where HRFPN pools a level down with floor division (800 / 64):
+    there its flags do not match its anchors and its HRNet configs raise
+    in the train step."""
+    from kgdet_tpu_torch.ops.anchors import anchor_valid_flags
+    A = len(cfg.head.anchor_scales) * len(cfg.head.anchor_ratios)
+    outs = []
+    for (fh, fw), stride in zip(sizes, cfg.head.point_strides):
+        vh = torch.ceil(valid_hw[:, 0] / stride).to(torch.int32)
+        vw = torch.ceil(valid_hw[:, 1] / stride).to(torch.int32)
+        outs.append(anchor_valid_flags(fh, fw, A, vh, vw))
+    return outs
 
 
 def make_loss_fn(model, cfg: KGDetConfig, canvas_hw):
@@ -230,20 +251,38 @@ def make_loss_fn(model, cfg: KGDetConfig, canvas_hw):
     valid_hw (B, 2), gt_bboxes (B, G, 4), gt_labels (B, G), gt_kpts
     (B, G, K, 3), gt_mask (B, G) and, optionally, gt_bboxes_ignore
     (B, Gi, 4) with gt_ignore_mask (B, Gi); tensors or numpy arrays.
-    BatchNorm stays frozen, as in the JAX train step."""
-    if cfg.detector_type != 'single_stage':
-        raise NotImplementedError(
-            f'detector_type {cfg.detector_type!r} is not ported yet; the '
-            'two-stage families are queued in ROADMAP Queue 1 item 6')
+    BatchNorm stays frozen, as in the JAX train step.
+
+    The two-stage detectors (models/families.py::is_two_stage) also read
+    the batch's scalar ``seed`` (0 where absent, as in the JAX package),
+    which seeds their samplers (core/two_stage_loss.py::sampler_draw), and
+    Fast R-CNN its ``proposals`` (B, R, 4) with ``proposals_valid``."""
+    from kgdet_tpu_torch.models.families import is_two_stage
+    two_stage = is_two_stage(cfg.detector_type)
+    if two_stage:
+        from kgdet_tpu_torch.core.two_stage_loss import sampler_draw, \
+            two_stage_loss_fn
+        loss = two_stage_loss_fn(cfg.detector_type)
     grids = {}
 
     def loss_fn(batch):
         dev = next(model.parameters()).device
         feed = {k: torch.as_tensor(batch[k]).to(dev) for k in BATCH_KEYS
                 + tuple(k for k in OPTIONAL_BATCH_KEYS if k in batch)}
+        image = device_normalize(feed['image'], feed['valid_hw'])
+        if two_stage:
+            kw = {k: feed[k] for k in ('proposals', 'proposals_valid')
+                  if k in feed}
+            fwd = model(image, feed['valid_hw'].float(), train=True, **kw)
+            # Fast R-CNN has no RPN and reads no anchor flags
+            valids = two_stage_valid_flags(
+                cfg, feed['valid_hw'],
+                [o['cls'].shape[2:4] for o in fwd['rpn_outs']]) \
+                if fwd['rpn_outs'] else None
+            draw = sampler_draw(int(batch.get('seed', 0)), len(image), dev)
+            return loss(fwd, feed, draw, cfg, valids)
         if dev not in grids:
             grids[dev] = build_level_geometry(cfg, canvas_hw, device=dev)
-        image = device_normalize(feed['image'], feed['valid_hw'])
         outs = model(image)
         valids = batch_valid_flags(cfg, canvas_hw, feed['valid_hw'])
         return compute_loss(outs, grids[dev], valids, feed, cfg,

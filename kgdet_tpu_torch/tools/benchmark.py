@@ -12,12 +12,18 @@ otherwise:
 
 Without ``--checkpoint`` (a checkpoint of the port, as tools/test.py
 --checkpoint reads it) the model has the config's seeded random weights.
+Every config the port builds runs, the two-stage ones included; Fast
+R-CNN's synthetic feed carries ``val_data.num_proposals`` random boxes an
+image as its proposals.
 Prints ``Overall fps: ...``; ``main(argv)`` also returns the numbers.
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+FEED_KEYS = ('image', 'img_hw', 'scale_factor', 'proposals',
+             'proposals_valid')
 
 
 def parse_args(argv=None):
@@ -55,17 +61,26 @@ def main(argv=None):
     rng = np.random.RandomState(0)
 
     def on_device(feed):
-        return {k: torch.as_tensor(np.asarray(feed[k])).to(device)
-                for k in ('image', 'img_hw', 'scale_factor')}
+        return {k: torch.as_tensor(np.asarray(v)).to(device)
+                for k, v in feed.items() if k in FEED_KEYS}
 
     def synth_feed():
-        return on_device({
+        feed = {
             'image': rng.randn(B, canvas[0], canvas[1], 3).astype(
                 np.float32),
             'img_hw': np.tile(np.asarray(
                 [[canvas[0] * 0.95, canvas[1] * 0.95]], np.float32), (B, 1)),
             'scale_factor': np.ones((B,), np.float32),
-        })
+        }
+        if cfg.detector_type == 'fast_rcnn':
+            # Fast R-CNN's input proposals: random boxes inside the image
+            n = cfg.val_data.num_proposals
+            xy = rng.uniform(0, 0.8, (B, n, 2)) * canvas[::-1]
+            wh = rng.uniform(0.05, 0.2, (B, n, 2)) * canvas[::-1]
+            feed['proposals'] = np.concatenate([xy, xy + wh], -1) \
+                .astype(np.float32)
+            feed['proposals_valid'] = np.ones((B, n), bool)
+        return on_device(feed)
 
     feeds = []
     if not args.synthetic:

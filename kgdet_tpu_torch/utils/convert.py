@@ -5,14 +5,18 @@ The inverse of kgdet_tpu/utils/torch_convert.py for the ported modules
 (the ResNet / ResNeXt backbones with their DCN blocks and plugins, HRNet,
 the SSDVGG trunk; the FPN, HRFPN, BFP and FPNBFP necks; the KGDet cascade
 heads, the serial / parallel / plain RepPoints heads, RetinaHead, SSDHead,
-FCOSHead and GARetinaHead): its layout maps are inverted, not re-derived.
-FCOS's flax ``scales`` vector becomes one ``scales.<level>.scale`` scalar a
-level (the inverse of its ``_scales_tmp`` pass).
+FCOSHead and GARetinaHead; the two-stage detectors' rpn_head, ConvFC,
+double and average-pool box heads, the cascade's bbox_head.<stage> and the
+C4 shared_head): its layout maps are inverted, not re-derived. FCOS's flax
+``scales`` vector becomes one ``scales.<level>.scale`` scalar a level (the
+inverse of its ``_scales_tmp`` pass).
   _conv_kernel  (Cout,Cin,kh,kw) -> (kh,kw,Cin,Cout)   inverse: (3,2,0,1)
   _dense_kernel (Cout,Cin,1,1)   -> (Cin,Cout)     inverse: .T[..., None, None]
   _dcn_kernel   (Cout,Cin,k,k)   -> tap-major (k*k,Cin,Cout)
                                                   inverse: (2,1,0) + reshape
   _fc_kernel    (Cout,Cin)       -> (Cin,Cout)     inverse: .T
+  _roi_flat_fc_kernel (Cout, C*r*r), inputs (C, r, r) -> (r*r*C, Cout),
+                inputs (r, r, C)     inverse: reshape, (3,2,0,1), reshape
 FrozenBatchNorm scale/bias and batch_stats mean/var map to
 weight/bias/running_mean/running_var (plus num_batches_tracked = 0, which
 reference checkpoints carry); GroupNorm scale/bias to weight/bias.
@@ -40,6 +44,13 @@ def _inv_dense(w):
 
 def _inv_fc(w):
     return np.transpose(w, (1, 0))
+
+
+def _inv_roi_flat_fc(w, roi=7):
+    in_f, out_f = w.shape
+    c = in_f // (roi * roi)
+    return np.transpose(w.reshape(roi, roi, c, out_f),
+                        (3, 2, 0, 1)).reshape(out_f, in_f)
 
 
 def _inv_ln(w):                 # the context block's LayerNorm([C, 1, 1])
@@ -219,9 +230,56 @@ def _head_name(path):
     raise KeyError(f'head/{"/".join(path)}')
 
 
+def _box_head_name(base, path):
+    """A two-stage box head's leaf under ``base`` (bbox_head, or
+    bbox_head.<stage> of the cascade): ConvFC, the double head, the
+    average-pool head."""
+    mod, leaf = path[0], path[-1]
+    m = re.match(r'(shared_fc|fc_branch|conv_branch)_(\d+)$', mod)
+    if m and m.group(1) == 'conv_branch':
+        sub = f'{base}.conv_branch.{m.group(2)}.{path[1]}'
+        return (sub + '.weight', _inv_conv) if leaf == 'kernel' \
+            else (sub + '.' + _NORM_LEAF[leaf], None)
+    if m:
+        name = f'{base}.{m.group(1).replace("shared_fc", "shared_fcs")}' \
+            f'.{m.group(2)}'
+        if leaf == 'bias':
+            return name + '.bias', None
+        return name + '.weight', \
+            _inv_roi_flat_fc if m.group(2) == '0' else _inv_fc
+    if mod in ('fc_cls', 'fc_reg'):
+        return (f'{base}.{mod}.weight', _inv_fc) if leaf == 'kernel' \
+            else (f'{base}.{mod}.bias', None)
+    if mod == 'res_block':          # ConvModules: conv<i>.conv, conv<i>.gn
+        sub = path[1]
+        if sub.startswith('gn'):
+            return (f'{base}.res_block.{sub.replace("gn", "conv")}.gn.'
+                    f'{_NORM_LEAF[leaf]}', None)
+        return (f'{base}.res_block.{sub}.conv.weight', _inv_conv) \
+            if leaf == 'kernel' else (f'{base}.res_block.{sub}.conv.bias',
+                                      None)
+    raise KeyError(f'{base}/{"/".join(path)}')
+
+
+def _two_stage_name(comp, path):
+    """rpn_head, bbox_head, bbox_head_<stage> and shared_head leaves."""
+    if comp == 'rpn_head':
+        return (f'rpn_head.{path[0]}.weight', _inv_conv) \
+            if path[1] == 'kernel' else (f'rpn_head.{path[0]}.bias', None)
+    if comp == 'shared_head':       # layer4.<i>, as the backbone's blocks
+        name, inv = _backbone_name(path)
+        return 'shared_head' + name[len('backbone'):], inv
+    m = re.match(r'bbox_head(?:_(\d+))?$', comp)
+    if not m:
+        raise KeyError(f'{comp}/{"/".join(path)}')
+    base = 'bbox_head' if m.group(1) is None else f'bbox_head.{m.group(1)}'
+    return _box_head_name(base, path)
+
+
 def state_dict_from_jax(variables: Dict) -> 'OrderedDict[str, torch.Tensor]':
-    """flax {'params', 'batch_stats'} of a KGDetDetector -> torch
-    state_dict under the reference names (f32 tensors)."""
+    """flax {'params', 'batch_stats'} of a KGDetDetector or a two-stage
+    detector -> torch state_dict under the reference names (f32
+    tensors)."""
     state = OrderedDict()
     trees = [variables['params']]
     if variables.get('batch_stats'):
@@ -241,7 +299,7 @@ def state_dict_from_jax(variables: Dict) -> 'OrderedDict[str, torch.Tensor]':
             elif comp == 'head':
                 name, inv = _head_name(rest)
             else:
-                raise KeyError('/'.join(path))
+                name, inv = _two_stage_name(comp, rest)
             state[name] = torch.from_numpy(
                 np.array(inv(v) if inv else v, dtype=np.float32))
             if name.endswith('.running_mean'):

@@ -13,6 +13,7 @@ cannot take.
 """
 import dataclasses
 import os
+import pickle
 import struct
 import zlib
 
@@ -409,14 +410,22 @@ def test_dataset_reads_png_without_cv2_as_jax_with_it(tmp_path, monkeypatch):
 
 
 def test_two_stage_inputs_raise_naming_item_6(synth_dir):
+    """The mask families' inputs (mask rasters, semantic maps) raise naming
+    item 6; Fast R-CNN's proposal file, ported with the box-only two-stage
+    detectors, loads (tests/test_torch_two_stage.py holds its samples
+    against the JAX package's)."""
     d, ann, _ = synth_dir
 
     def port(**kw):
         return tdataset.DeepFashion2Dataset(TDataConfig(
             ann_file=ann, img_prefix=d, img_scale=(128, 96),
             canvas_hw=((96, 128), (128, 96)), **kw))
-    with pytest.raises(NotImplementedError, match='item 6'):
-        port(proposal_file=os.path.join(d, 'proposals.pkl'))
+    path = os.path.join(d, 'proposals.pkl')
+    with open(path, 'wb') as f:
+        pickle.dump([np.zeros((3, 4), np.float32)] * 100, f)
+    sample = port(proposal_file=path, num_proposals=8).prepare_test(0)
+    assert sample['proposals'].shape == (8, 4)
+    assert sample['proposals_valid'].tolist() == [True] * 3 + [False] * 5
     for kw in (dict(with_mask=True), dict(seg_prefix=d)):
         with pytest.raises(NotImplementedError, match='item 6'):
             port(**kw).prepare_train(0, np.random.RandomState(0))

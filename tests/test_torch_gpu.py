@@ -17,7 +17,9 @@ their three tiles, FMA), K8 and K5 bit for bit in bf16 at width 64, the
 ResNet per-block route (K8) against the chain (K4+K5), K6 and K3 at the
 DCN backbone's stride-2 shapes, at GA-Retina's P3 and at ResNeXt-101's
 grouped DCN shapes (up to 1024 channels), the grouped DCN module, the DCN
-cascade's served launch counts and one served SSD300 batch. f32
+cascade's served launch counts, one served SSD300 batch, RoIAlign on K6 /
+K3 at Faster R-CNN's P2 and the C4 map, and Faster R-CNN's served and
+trained launch counts. f32
 tolerance rtol 1e-5, atol 1e-4 (chip_smoke.py's); K3's gradient map is
 summed with f32 atomics in an order that changes from run to run, which that
 tolerance covers. bf16: the kernel's error against the plain version in
@@ -1170,3 +1172,99 @@ def test_ssd300_served_batch(gen):
     assert dets['det_bboxes'].shape == (2, 200, 5)
     assert dets['det_kpts'].shape == (2, 200, 3)
     assert torch.isfinite(dets['det_bboxes']).all()
+
+
+@pytest.mark.parametrize('H,W,C,stride,out,b', [
+    (200, 336, 256, 4, 7, 2),       # Faster R-CNN's P2, 196 samples a RoI
+    (50, 84, 1024, 16, 14, 1),      # the C4 map, 784 samples a RoI
+])
+def test_roi_align_on_k6_k3_at_the_rcnn_shapes(gen, H, W, C, stride, out,
+                                               b):
+    """ops/roi.py::roi_align on the card, one K6 launch forward and one K3
+    backward, against its plain versions at chip_smoke.py's phase 1 RoI
+    shapes, 1000 RoIs an image: f32 output within TOL and the map's
+    gradient within 1e-4 of its largest value; bf16 output and gradient
+    within twice the plain version's error (or 1e-4 of the largest
+    gradient, the f32 atomics' order)."""
+    from kgdet_tpu_torch.ops.roi import roi_align
+    R = 1000
+    xy = torch.rand((b, R, 2), generator=gen) \
+        * torch.tensor([W * stride - 64.0, H * stride - 64.0])
+    wh = 16.0 + torch.rand((b, R, 2), generator=gen) * 48 * stride / 4
+    boxes = torch.cat([xy, xy + wh], -1).cuda()
+    feat = _randn(gen, b, H, W, C)
+    cot = _randn(gen, b, R, out, out, C)
+
+    def run(dtype, plain):
+        f = feat.to(dtype).requires_grad_(True)
+        y = roi_align(f, boxes, out, 1.0 / stride, 2, plain=plain)
+        g, = torch.autograd.grad((y.float() * cot).sum(), f)
+        return y.detach().float(), g.float()
+    k6, k3 = dk.deform_sample_cols.launches, dk.deform_sample_bwd.launches
+    got = run(torch.float32, False)
+    assert (dk.deform_sample_cols.launches, dk.deform_sample_bwd.launches) \
+        == (k6 + 1, k3 + 1)
+    want = run(torch.float32, True)
+    assert (dk.deform_sample_cols.launches, dk.deform_sample_bwd.launches) \
+        == (k6 + 1, k3 + 1)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5,
+                               atol=1e-4 * want[1].abs().max().item())
+    for k, p, w in zip(run(torch.bfloat16, False), run(torch.bfloat16, True),
+                       want):
+        assert (k - w).abs().max() <= max(2 * (p - w).abs().max().item(),
+                                          1e-4 * w.abs().max().item())
+
+
+def _two_stage_cfg(name):
+    import dataclasses
+    import os
+
+    from kgdet_tpu_torch.config import load_config
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, 'configs',
+                                   f'{name}_1x_deepfashion2.py'))
+    return cfg.replace(test=dataclasses.replace(cfg.test, score_thr=0.0))
+
+
+def test_faster_rcnn_served_batch_and_step_launch_counts(gen):
+    """configs/faster_rcnn_r50_fpn_1x_deepfashion2.py (bf16) on the card at
+    256x384, batch 2: a served batch launches K4 1, K5 3, K6 5 (one a FPN
+    level) and nothing else, with finite detections; a train step through
+    init_trainer launches K4 1, K5 3, K6 5, K3 5 with finite logs."""
+    import numpy as np
+
+    from kgdet_tpu_torch.api import build_model, init_trainer, \
+        make_predict_fn
+    cfg = _two_stage_cfg('faster_rcnn_r50_fpn')
+    canvas = (256, 384)
+    wrappers = (dk.deform_conv_fused, sk.stem_pool, sk.frozen_bottleneck,
+                dk.deform_sample_cols, dk.deform_sample_split,
+                dk.deform_sample_bwd, rb.fused_bottleneck)
+    model = build_model(cfg).init_weights(0).eval()
+    batch = {'image': torch.randint(0, 256, (2, *canvas, 3),
+                                    generator=gen).to(torch.uint8),
+             'img_hw': torch.tensor([[256.0, 380.0], [240.0, 384.0]]),
+             'scale_factor': torch.tensor([1.0, 0.5])}
+    before = [w.launches for w in wrappers]
+    dets = make_predict_fn(model, cfg, canvas)(batch)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [0, 1, 3, 5, 0, 0, 0]
+    assert torch.isfinite(dets['det_bboxes']).all() and dets['valid'].any()
+    del model
+    model, _, step = init_trainer(cfg, canvas, 100)
+    rng = np.random.RandomState(0)
+    xy = rng.uniform(0, 200, (2, 8, 2))
+    train = {'image': batch['image'].numpy(),
+             'valid_hw': np.asarray([[256, 380], [240, 384]], np.int32),
+             'gt_bboxes': np.concatenate(
+                 [xy, xy + rng.uniform(24, 160, (2, 8, 2))], -1)
+             .astype(np.float32),
+             'gt_labels': rng.randint(1, 14, (2, 8)).astype(np.int32),
+             'gt_kpts': np.zeros((2, 8, cfg.head.num_keypts, 3), np.float32),
+             'gt_mask': np.ones((2, 8), bool)}
+    before = [w.launches for w in wrappers]
+    logs = step(train)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [0, 1, 3, 5, 0, 5, 0]
+    assert all(torch.isfinite(v) for v in logs.values())

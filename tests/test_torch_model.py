@@ -146,14 +146,15 @@ def test_detector_single_image(models):
 
 
 def test_other_families_raise():
-    """The two-stage families still raise NotImplementedError naming
-    ROADMAP Queue 1 item 6; GA-Retina and FCOS build (their heads the
-    port's modules of the same name); an unknown head name raises
+    """The two-stage families with masks still raise NotImplementedError
+    naming ROADMAP Queue 1 item 6 (the box-only ones build:
+    tests/test_torch_two_stage.py); GA-Retina and FCOS build (their heads
+    the port's modules of the same name); an unknown head name raises
     KeyError, as the JAX registry does."""
     from kgdet_tpu.models.families import get_head_family as jget_family
     from kgdet_tpu_torch.models.fcos_head import FCOSHead
     from kgdet_tpu_torch.models.ga_head import GARetinaHead
-    cfg = tiny_r50_cfg().replace(detector_type='faster_rcnn')
+    cfg = tiny_r50_cfg().replace(detector_type='mask_rcnn')
     with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
         build_model(cfg, device='cpu')
     cfg = tiny_r50_cfg()
@@ -175,7 +176,8 @@ def test_port_runs_without_jax_flax_cv2():
     a train step (the KGDet cascade, then each of the serial, parallel,
     plain RepPoints and single-column families, RetinaNet, SSD, the
     cascade on the DCN backbone, FCOS and GA-Retina; runs the backbones
-    and necks of the four two-stage configs and the three plugins; then
+    and necks of the four two-stage configs and the three plugins; Faster
+    R-CNN, Cascade R-CNN and RPN serve a batch and take a step; then
     the cascade in a process group of one), after importing every module
     of the port, with jax, flax, cv2 and kgdet_tpu unavailable, as on the
     GPU machine."""
@@ -274,6 +276,18 @@ def test_port_runs_without_jax_flax_cv2():
         'for plugin in (ContextBlock(16), NonLocal2D(16), '
         'GeneralizedAttention(16, num_heads=4)):',
         '    assert plugin(torch.ones(1, 16, 4, 6)).shape == (1, 16, 4, 6)',
+        # the box-only two-stage detectors on the same trunk
+        "for dt in ('faster_rcnn', 'cascade_rcnn', 'rpn'):",
+        "    tcfg = cfg.replace(detector_type=dt, num_proposals_train=16, "
+        "num_proposals_test=16, neck=dataclasses.replace(cfg.neck, "
+        "start_level=1, num_outs=3, select_out=None), "
+        "head=dataclasses.replace(cfg.head, point_strides=(8, 16, 32)))",
+        "    tmodel, _, tstep = init_trainer(tcfg, (64, 96), 10, "
+        "device='cpu')",
+        "    tlogs = tstep(dict(train_batch, seed=np.int32(1)))",
+        "    assert torch.isfinite(tlogs['loss']), dt",
+        "    tdets = make_predict_fn(tmodel.eval(), tcfg, (64, 96))(batch)",
+        "    assert torch.isfinite(tdets['det_bboxes']).all(), dt",
         "ssd = load_config('configs/ssd300_vgg16_deepfashion2.py')",
         "smodel = build_model(ssd, device='cpu').init_weights(0).eval()",
         "sbatch = {'image': rng.randint(0, 256, (1, 300, 300, 3))"
