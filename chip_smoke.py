@@ -222,10 +222,31 @@ at the shipped batch of 8, 4 validation PNGs at batch 2; finite records,
 a checkpoint, the bbox copypaste line), tools/test.py on RPN (its
 proposal_AR_copypaste line) and on Fast R-CNN with a .pkl of jittered box
 proposals written by the phase (the bbox copypaste line).
+Phase 15, the mask families and GA-RPN, batch 2 at 800x1344: (a)
+configs/mask_rcnn_r50_fpn_1x_deepfashion2.py (f32) served with masks (K4 1
+/ K5 3 / K6 10 a forward: 5 levels for the boxes, 5 for the masks;
+detections with (B, 100, 28, 28) mask probabilities), profiled by stage
+(phase 14's stages and the mask RoIs and mask head), held against its
+plain kernels with the proposals pinned (in f32 the box head and the mask
+logits within 1e-5 of scale, the RPN's maps within MODEL_F32_REL), one
+train step with 16
+ground-truth masks an image (K6 11: one more for the mask targets, the
+32 masks as the channels of one map; K3 10), its gradients on K6+K3
+against their plain versions (the whole-model rule, the prefix the same on
+both sides). (b) Mask Scoring R-CNN and HTC (with random stuff maps) as
+they ship, Grid R-CNN and the GA-RPN Faster R-CNN built from the Faster
+R-CNN config: one served batch and one step each with their launch
+counts (HTC K6 24 a forward, 25 and K3 24 a step). (c) Segm evaluation on
+20 synthetic PNGs with polygon annotations: the evaluator scores the
+ground truth's masks as detections at AP 1.0, and tools/test.py --eval
+bbox segm runs Mask R-CNN (both copypaste lines, a segm result an image
+with detections). Phase 1 also holds K6 / K3 at the mask RoIs (P2 200x336x256,
+2 x 512 RoIs x 784 samples) and the mask targets' map (200x336x32, 512 RoIs
+x 3136 samples).
 
 Prints the card's name and power limit, one line per check, a JSON line of
 the seven kernels (launches on each main path, the evaluation CLI's
-and phases 12 to 14 included, error, wrapper and device times, bound), and as
+and phases 12 to 15 included, error, wrapper and device times, bound), and as
 its last line {"ok": true, "device": {...}}. Exits
 nonzero, with no result line, when a check fails or no CUDA device is
 present. Imports nothing of JAX and nothing of the JAX package.
@@ -786,34 +807,39 @@ def phase_kernels(torch, gen):
         del feat, pos, g, a16
     torch.cuda.empty_cache()
 
-    # RoIAlign's gather (phase 14): each RoI's n*n bilinear samples (n =
-    # out_size * sample_num) on its own image's map, as ops/roi.py hands
-    # them to K6 (forward) and K3 (backward): Faster R-CNN's P2 (map
-    # 200x336x256, 1000 RoIs x 196 samples, scale 1/4, batch 2) and the
-    # C4 map (50x84x1024, 1000 RoIs x 784 samples, scale 1/16; batch 1:
-    # the plain version's f32 check of a batch of 2 would hold ~58 GB)
-    for label, (H, W, C_r), stride, out, b, size in (
-            ('roi_p2', (200, 336, 256), 4, 7, B, (16.0, 100.0)),
-            ('roi_c4', (50, 84, 1024), 16, 14, 1, (32.0, 600.0))):
+    # RoIAlign's gather (phases 14 and 15): each RoI's n*n bilinear samples
+    # (n = out_size * sample_num) on its own image's map, as ops/roi.py
+    # hands them to K6 (forward) and K3 (backward): Faster R-CNN's P2 (map
+    # 200x336x256, 1000 RoIs x 196 samples, scale 1/4, batch 2), the C4
+    # map (50x84x1024, 1000 RoIs x 784 samples, scale 1/16; batch 1: the
+    # plain version's f32 check of a batch of 2 would hold ~58 GB), Mask
+    # R-CNN's mask RoIs on P2 (a training step's 512 RoIs an image x 784
+    # samples, 14x14) and its mask targets' map (the 32 ground-truth masks
+    # as channels at 1/4, 512 RoIs x 3136 samples, 28x28)
+    for label, (H, W, C_r), stride, out, b, size, R in (
+            ('roi_p2', (200, 336, 256), 4, 7, B, (16.0, 100.0), ROI_COUNT),
+            ('roi_c4', (50, 84, 1024), 16, 14, 1, (32.0, 600.0), ROI_COUNT),
+            ('mask_p2', (200, 336, 256), 4, 14, B, (16.0, 100.0), 512),
+            ('mask_targets', (200, 336, 32), 4, 28, B, (16.0, 400.0), 512)):
         K = (out * 2) ** 2
-        xy = torch.rand((b, ROI_COUNT, 2), generator=gen) \
+        xy = torch.rand((b, R, 2), generator=gen) \
             * torch.tensor([CANVAS[1] - 64.0, CANVAS[0] - 64.0])
-        wh = size[0] + torch.rand((b, ROI_COUNT, 2), generator=gen) \
+        wh = size[0] + torch.rand((b, R, 2), generator=gen) \
             * (size[1] - size[0])
         pos = roi_positions(torch.cat([xy, xy + wh], -1), out, 1 / stride,
                             2).to(dev)
         feat = randn(b, H, W, C_r)
-        g = randn(b, ROI_COUNT, K, C_r)
+        g = randn(b, R, K, C_r)
         lib_fwd, lib_bwd, lib_err, lib_dtype = library_sampling(feat, pos, g)
         name = f'K6 deform_sample_cols RoIAlign {label} map {H}x{W}x{C_r}, ' \
-            f'{ROI_COUNT} RoIs x {K} samples, batch {b}'
+            f'{R} RoIs x {K} samples, batch {b}'
         m, a16 = check_pair(name, dk.deform_sample_cols,
                             dk.deform_sample_cols_ref, [feat, pos],
                             lambda a: [a[0].to(bf16), a[1]])
         one_launch(name, m)
         results['deform_sample_cols'][label] = entry(m, *bound(
             nbytes(*a16) + out_bytes(dk.deform_sample_cols, a16),
-            7 * b * ROI_COUNT * K * C_r, 'f32'), library_ms=lib_fwd)
+            7 * b * R * K * C_r, 'f32'), library_ms=lib_fwd)
         del a16
         results['deform_sample_bwd'][label] = check_bwd(
             f'RoIAlign {label} map {H}x{W}x{C_r}, batch {b}', feat, pos, g,
@@ -944,7 +970,7 @@ def phase_kernels(torch, gen):
         for case in ('near', 'b8_42x25', 'serial', 'serial_near',
                      'width128', 'dcn_layer2_0', 'dcn_layer4_0', 'dcn_ga_p3',
                      'dcn_x101_layer2_0', 'dcn_x101_layer4_0', 'roi_p2',
-                     'roi_c4'):
+                     'roi_c4', 'mask_p2', 'mask_targets'):
             if case in r:
                 q = r[case]
                 lib = '' if q.get('library_ms') is None \
@@ -3750,8 +3776,9 @@ def hold_trunk_against_plain(torch, trunk, x):
 
 def phase_extras(torch, gpu):
     """(d) The backbones and necks of the four two-stage configs, built by
-    build_backbone / build_neck from the files as they ship (build_model
-    refuses two-stage until item 6), each one bf16 step at batch B on the
+    build_backbone / build_neck from the files as they ship (their trunks
+    alone: phases 14 and 15 step the whole detectors), each one bf16 step
+    at batch B on the
     canvas (K4 1 / K5 3 where the frozen prefix applies: the caffe C4
     ResNet-50 and Libra's ResNet-50; none for ResNeXt and HRNet); then
     ResNeXt-101 32x4d with grouped DCN in c3-c5 (K6 30 a forward, K3 30 a
@@ -3948,22 +3975,29 @@ def two_stage_serving(torch, gpu, name, n_reqs=SERVED):
     return model, cfg, reqs, got
 
 
-def two_stage_profile(torch, model, cfg, req, gpu, steps=2):
-    """Faster R-CNN's served batch by stage under torch.profiler (the
-    stages labelled around the model's parts): per stage its device span
-    and busy time, the device's idle share of the window, the top kernels.
-    The proposals stage holds the RPN's top-k and its NMS loop."""
+def two_stage_profile(torch, model, cfg, req, gpu, steps=2,
+                      name='faster_rcnn'):
+    """A Faster R-CNN-style served batch by stage under torch.profiler
+    (the stages labelled around the model's parts): per stage its device
+    span and busy time, the device's idle share of the window, the top
+    kernels. The proposals stage holds the RPN's top-k and its NMS loop;
+    Mask R-CNN adds the mask RoIs (the refined boxes and their 14x14
+    gather) and the mask head."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from kgdet_tpu_torch.models.families import two_stage_decoder
-    from kgdet_tpu_torch.models.two_stage import rpn_proposals
+    from kgdet_tpu_torch.models.two_stage import best_class_boxes, \
+        rpn_proposals
     from kgdet_tpu_torch.ops.image import device_normalize
 
     decode = two_stage_decoder(cfg.detector_type)
     img = torch.as_tensor(req['image']).cuda()
     img_hw = torch.as_tensor(req['img_hw']).cuda()
     sf = torch.as_tensor(req['scale_factor']).cuda()
+    masks = getattr(model, 'with_mask', False)
+    stages = TWO_STAGE_STAGES[:-1] + (MASK_STAGES if masks else ()) \
+        + ('decode',)
 
     @torch.inference_mode()
     def run():
@@ -3983,10 +4017,18 @@ def two_stage_profile(torch, model, cfg, req, gpu, steps=2):
             roi = model.roi_feats(feats, props, valid, model.roi_size)
         with record_function('box_head'):
             cls, reg = model.box_head(roi)
+        fwd = dict(proposals=props, proposal_valid=valid, roi_cls=cls,
+                   roi_reg=reg)
+        if masks:
+            with record_function('mask_rois'):
+                boxes, _ = best_class_boxes(props, cls, reg)
+                mfeats = model.roi_feats(feats, boxes, valid, 14)
+            with record_function('mask_head'):
+                logits = model.mask_head(mfeats.flatten(0, 1))
+            fwd.update(refined_boxes=boxes, mask_logits=logits.reshape(
+                *props.shape[:2], *logits.shape[1:]))
         with record_function('decode'):
-            return decode(dict(proposals=props, proposal_valid=valid,
-                               roi_cls=cls, roi_reg=reg), img_hw, sf,
-                          cfg.test, cfg.head.num_classes)
+            return decode(fwd, img_hw, sf, cfg.test, cfg.head.num_classes)
 
     run()
     torch.cuda.synchronize()
@@ -3997,36 +4039,43 @@ def two_stage_profile(torch, model, cfg, req, gpu, steps=2):
             run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
-    span_ms, busy_ms, kern = stage_times(prof, TWO_STAGE_STAGES,
-                                         DeviceType.CUDA, steps)
+    span_ms, busy_ms, kern = stage_times(prof, stages, DeviceType.CUDA,
+                                         steps)
     busy = sum(busy_ms.values())
     if busy <= 0:
         fail('the profiler saw no device time in the served batch')
-    print(f'faster_rcnn profile: {steps} batches of {len(img)} at '
+    print(f'{name} profile: {steps} batches of {len(img)} at '
           f'{CANVAS[0]}x{CANVAS[1]} under torch.profiler: {wall:.3f} ms per '
           f'batch, device busy {busy:.3f} ms, idle share '
           f'{1 - busy / wall:.3f} ({gpu})', flush=True)
     print('  stage device span / busy ms per batch: ' + ', '.join(
-        f'{s} {span_ms[s]:.3f}/{busy_ms[s]:.3f}' for s in TWO_STAGE_STAGES),
+        f'{s} {span_ms[s]:.3f}/{busy_ms[s]:.3f}' for s in stages),
         flush=True)
     print_top_kernels(kern, steps, 8)
     print_own_kernels(kern, steps, 'batch')
 
 
-def hold_two_stage_against_plain(torch, model, req):
-    """Faster R-CNN on its kernels against on their plain versions, with
-    the proposals pinned (a rounding difference can swap proposals at the
-    top-k and the NMS): the RPN's maps compared directly, then the RoI
-    head fed the kernel run's proposals through the external-proposal
-    input on both sides. f32 within MODEL_F32_REL of each output's scale;
-    bf16 error against the f32 plain run within BF16_RATIO x the plain
-    bf16 run's."""
+def hold_two_stage_against_plain(torch, model, req, name='faster_rcnn',
+                                 keys=('roi_cls', 'roi_reg'),
+                                 rel=MODEL_F32_REL, floor=1.0,
+                                 rpn_rel=MODEL_F32_REL):
+    """A Faster R-CNN-style model on its kernels against on their plain
+    versions, with the proposals pinned (a rounding difference can swap
+    proposals at the top-k and the NMS): the RPN's maps compared directly,
+    then the RoI heads' ``keys`` fed the kernel run's proposals through
+    the external-proposal input on both sides. f32 within ``rpn_rel``
+    (the RPN's maps: the frozen prefix's kernels against cuDNN through the
+    whole trunk) and ``rel`` (the heads' ``keys``) of each output's scale
+    (its largest magnitude, at least ``floor``); bf16 error against the
+    f32 plain run within BF16_RATIO x the plain bf16 run's. The model's
+    dtype is restored."""
     from kgdet_tpu_torch.ops.image import device_normalize
 
     image = device_normalize(torch.as_tensor(req['image']).cuda(),
                              torch.as_tensor(req['img_hw']).cuda())
     img_hw = torch.as_tensor(req['img_hw']).cuda().float()
     f32, bf16 = torch.float32, torch.bfloat16
+    dtype0 = model.dtype
 
     def run(dtype, plain, props=None):
         model.dtype = dtype
@@ -4035,7 +4084,7 @@ def hold_two_stage_against_plain(torch, model, req):
         kw = {} if props is None else dict(proposals=props[0],
                                            proposals_valid=props[1])
         fwd = model(image, img_hw, train=False, **kw)
-        return fwd, {k: fwd[k] for k in ('roi_cls', 'roi_reg')}
+        return fwd, {k: fwd[k] for k in keys}
 
     def rpn_maps(fwd):
         return {f'rpn {k} level {i}': o[k][-1]
@@ -4053,26 +4102,25 @@ def hold_two_stage_against_plain(torch, model, req):
             _, ref16 = run(f32, True, pinned[bf16])
             _, head_p16 = run(bf16, True, pinned[bf16])
     finally:
-        model.dtype = bf16
+        model.dtype = dtype0
         model.use_plain_kernels(False)
         model.external_proposals = False
     cases = [(rpn_maps(k32), rpn_maps(p32), rpn_maps(k16), rpn_maps(p16),
-              rpn_maps(p32)),
-             (head_k32, head_p32, head_k16, head_p16, ref16)]
-    for got32, want32, got16, plain16, ref in cases:
+              rpn_maps(p32), rpn_rel),
+             (head_k32, head_p32, head_k16, head_p16, ref16, rel)]
+    for got32, want32, got16, plain16, ref, bound_rel in cases:
         for k in want32:
-            scale = max(1.0, want32[k].float().abs().max().item())
+            scale = max(floor, want32[k].float().abs().max().item())
             e32 = max_err(got32[k], want32[k])
             ek, ep = max_err(got16[k], ref[k]), max_err(plain16[k], ref[k])
-            print(f'faster_rcnn {k}: f32 kernels vs plain {e32:.3e} (bound '
-                  f'{MODEL_F32_REL * scale:.3e}); bf16 vs f32 plain: '
-                  f'kernels {ek:.3e}, plain {ep:.3e} (bound {BF16_RATIO} x '
-                  f'plain)', flush=True)
-            if not e32 <= MODEL_F32_REL * scale:
-                fail(f'faster_rcnn {k}: f32 kernel model differs by '
-                     f'{e32:.3e}')
+            print(f'{name} {k}: f32 kernels vs plain {e32:.3e}, '
+                  f'{e32 / scale:.2e} of scale (bound {bound_rel:.0e}); '
+                  f'bf16 vs f32 plain: kernels {ek:.3e}, plain {ep:.3e} '
+                  f'(bound {BF16_RATIO} x plain)', flush=True)
+            if not e32 <= bound_rel * scale:
+                fail(f'{name} {k}: f32 kernel model differs by {e32:.3e}')
             if not ek <= BF16_RATIO * ep:
-                fail(f'faster_rcnn {k}: bf16 kernel model err {ek:.3e} > '
+                fail(f'{name} {k}: bf16 kernel model err {ek:.3e} > '
                      f'{BF16_RATIO} x plain {ep:.3e}')
 
 
@@ -4335,7 +4383,370 @@ def phase_two_stage(torch, gpu):
     return launches
 
 
-PHASE_GROUPS = ('1', '2', '6', '9', '10', '11', '12', '13', '14')
+# ------------------------------------- phase 15: the mask families, GA-RPN
+# by path: the config file, the fields replaced in it, K6 a forward, K6 and
+# K3 a step (K4 1 / K5 3 on each: R-50, frozen_stages=1). Mask R-CNN: the
+# boxes' 5 levels and the masks' 5, a step one more for the mask targets
+# (no gradient: no K3); HTC: 3 box stages x (5 levels + the semantic
+# embedding's RoIs) + 5 + 1 for the masks; Grid R-CNN: the boxes' 5 and
+# the grid RoIs' 5; GA-RPN: its feature adaption, one a level, and the
+# boxes' 5
+MASK_PATHS = {
+    'mask_rcnn': ('mask_rcnn_r50_fpn', {}, 10, 11, 10),
+    'ms_rcnn': ('ms_rcnn_r50_fpn', {}, 10, 11, 10),
+    'htc': ('htc_r50_fpn', {}, 24, 25, 24),
+    'grid_rcnn': ('faster_rcnn_r50_fpn', dict(detector_type='grid_rcnn'),
+                  10, 10, 10),
+    'ga_rpn': ('faster_rcnn_r50_fpn', dict(rpn_type='ga_rpn'), 10, 10, 10),
+}
+MASK_STAGES = ('mask_rois', 'mask_head')
+MASK_GRAD_GROUPS = TWO_STAGE_GRAD_GROUPS + ('mask_head.',)
+MASK_LOGS = {'mask_rcnn': ('loss_mask',), 'ms_rcnn': ('loss_mask',
+                                                       'loss_mask_iou'),
+             'htc': ('loss_semantic_seg', 'loss_mask_s0', 'loss_mask_s2'),
+             'grid_rcnn': ('loss_grid',),
+             'ga_rpn': ('loss_anchor_loc', 'loss_anchor_shape')}
+MASK_FREE = {'mask_rcnn': 'mask_head.conv_logits.weight',
+             'ms_rcnn': 'mask_iou_head.fc_mask_iou.weight',
+             'htc': 'mask_head.2.conv_res.conv.weight',
+             'grid_rcnn': 'grid_head.convs.0.conv.weight',
+             'ga_rpn': 'rpn_head.conv_shape.weight'}
+SEGM_IMAGES = 20
+# the mask targets' map: the ground truths laid out as channels
+MASK_GTS = 32
+# Mask R-CNN's RPN maps, f32, its kernels against their plain versions,
+# relative to each map's scale: only the frozen prefix differs (K4 / K5
+# against cuDNN), and the whole f32 trunk carries it. Three runs on an
+# NVIDIA H100 80GB HBM3 at 700 W read at most 1.02e-5, 8.31e-6 and
+# 9.57e-6; the bound is three times the largest
+MASK_RPN_F32_REL = 3e-5
+
+
+def mask_config(name):
+    """The shipped config of path ``name`` with its replaced fields and
+    test.score_thr 0."""
+    from kgdet_tpu_torch.api import load_config
+    file, over, _, _, _ = MASK_PATHS[name]
+    cfg = load_config(two_stage_path(file)).replace(**over)
+    return cfg.replace(test=dataclasses.replace(cfg.test, score_thr=0.0))
+
+
+def mask_launches(name, step):
+    _, _, fwd, k6, k3 = MASK_PATHS[name]
+    return launch_counts(stem_pool=1, frozen_bottleneck=3,
+                         deform_sample_cols=k6 if step else fwd,
+                         deform_sample_bwd=k3 if step else 0)
+
+
+def mask_train_batches(cfg, n):
+    """make_train_batches with what the mask families read: each box's
+    ellipse as its ground-truth mask at 1 / mask_stride (16 an image, in
+    (B, MASK_GTS, H / 4, W / 4) rasters), and for HTC a random stuff map
+    of 183 classes at 1 / seg_stride with a 255 (ignored) border."""
+    import numpy as np
+    batches = make_train_batches(n, SEED + 5, cfg.head.num_keypts)
+    rng = np.random.RandomState(SEED + 6)
+    s = cfg.train_data.mask_stride
+    h, w = CANVAS[0] // s, CANVAS[1] // s
+    ys, xs = np.mgrid[:h, :w] + 0.5
+    for b in batches:
+        boxes = b['gt_bboxes'] / s
+        G = boxes.shape[1]
+        masks = np.zeros((B, MASK_GTS, h, w), np.float32)
+        cx, cy = (boxes[..., 0] + boxes[..., 2]) / 2, \
+            (boxes[..., 1] + boxes[..., 3]) / 2
+        rx, ry = (boxes[..., 2] - boxes[..., 0]) / 2, \
+            (boxes[..., 3] - boxes[..., 1]) / 2
+        dx = (xs - cx[..., None, None]) / rx[..., None, None]
+        dy = (ys - cy[..., None, None]) / ry[..., None, None]
+        masks[:, :G] = dx ** 2 + dy ** 2 <= 1
+        pad = np.zeros((B, MASK_GTS - G), bool)
+        b.update(gt_masks=masks,
+                 gt_bboxes=np.concatenate(
+                     [b['gt_bboxes'], np.zeros((B, MASK_GTS - G, 4),
+                                               np.float32)], 1),
+                 gt_labels=np.concatenate(
+                     [b['gt_labels'], np.ones((B, MASK_GTS - G), np.int32)],
+                     1),
+                 gt_kpts=np.concatenate(
+                     [b['gt_kpts'], np.zeros((B, MASK_GTS - G,
+                                              *b['gt_kpts'].shape[2:]),
+                                             np.float32)], 1),
+                 gt_mask=np.concatenate([b['gt_mask'], pad], 1))
+        if cfg.with_semantic:
+            ss = cfg.train_data.seg_stride
+            seg = rng.randint(0, cfg.head.num_stuff_classes,
+                              (B, CANVAS[0] // ss, CANVAS[1] // ss))
+            seg[:, :4] = seg[:, -4:] = 255
+            b['gt_semantic_seg'] = seg.astype(np.int32)
+    return batches
+
+
+def mask_serving(torch, gpu, name, n_reqs=SERVED):
+    """Serve ``n_reqs`` requests of B images at full width through
+    make_predict_fn (seeded random weights, test.score_thr 0): the launches
+    of each forward; finite detections of the padded shapes, with mask
+    probabilities (B, M, 28, 28) in [0, 1] for the mask families (and mask
+    scores not above the box scores for Mask Scoring R-CNN); img/s and
+    peak memory. Returns (model, cfg, requests, launches)."""
+    from kgdet_tpu_torch.api import build_model, make_predict_fn
+
+    cfg = mask_config(name)
+    model = build_model(cfg).init_weights(SEED).eval()
+    if next(model.parameters()).device.type != 'cuda':
+        fail(f'{name}: build_model did not place the model on the card')
+    predict = make_predict_fn(model, cfg, CANVAS)
+    reqs = make_requests(n_reqs, SEED)
+    predict(reqs[0])                      # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    dets, secs = serve(torch, predict, reqs)
+    got = read_launches()
+    want = {k: v * len(reqs) for k, v in mask_launches(name, False).items()}
+    if got != want:
+        fail(f'{name} serving: launch counts {got} != {want} for '
+             f'{len(reqs)} forwards')
+    m = cfg.test.max_per_img
+    n_valid = 0
+    for d in dets:
+        if not all(torch.isfinite(v).all() for v in d.values()
+                   if v.is_floating_point()) or \
+                tuple(d['det_bboxes'].shape) != (B, m, 5):
+            fail(f'{name} detections {[tuple(v.shape) for v in d.values()]}')
+        if name in ('mask_rcnn', 'ms_rcnn', 'htc'):
+            mk = d['det_masks']
+            if tuple(mk.shape) != (B, m, 28, 28) or mk.min() < 0 or \
+                    mk.max() > 1:
+                fail(f'{name} det_masks {tuple(mk.shape)}')
+        if name == 'ms_rcnn' and (d['det_mask_scores']
+                                  > d['det_bboxes'][..., 4] + 1e-6).any():
+            fail('ms_rcnn: a mask score above its box score')
+        n_valid += int(d['valid'].sum())
+    if n_valid == 0:
+        fail(f'{name}: no detection at score_thr 0')
+    print(f'{name} serving: {cfg.detector_type} {cfg.rpn_type}, '
+          f'{cfg.compute_dtype}, {n_reqs} requests x {B} images at '
+          f'{CANVAS[0]}x{CANVAS[1]}, {n_valid} valid detections, launches '
+          f'{got}; {B * n_reqs / secs:.2f} img/s, peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB ({gpu})',
+          flush=True)
+    return model, cfg, reqs, got
+
+
+def mask_step(torch, gpu, name):
+    """init_trainer on the path's config, one warm-up and one timed step
+    at batch B with masks (and stuff maps): the step's launches, finite
+    logs with the family's own terms, every frozen parameter bit-equal,
+    the family's own head moved; prints the step's ms and peak memory.
+    Returns (model, cfg, optimizer, batches, launches)."""
+    import math
+
+    from kgdet_tpu_torch.api import init_trainer
+    from kgdet_tpu_torch.parallel.train import frozen_param_mask
+
+    cfg = mask_config(name)
+    model, optimizer, train_step = init_trainer(cfg, CANVAS,
+                                                steps_per_epoch=1000)
+    params = dict(model.named_parameters())
+    frozen = frozen_param_mask(model, cfg.backbone.frozen_stages)
+    kept = {n: p.detach().clone() for n, p in params.items() if frozen[n]}
+    batches = mask_train_batches(cfg, 2)
+    free = MASK_FREE[name]
+    start = params[free].detach().clone()
+    torch.cuda.reset_peak_memory_stats()
+    train_step(batches[0])                # warm-up: cuDNN plans, allocator
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = train_step(batches[1])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = read_launches()
+    want = mask_launches(name, True)
+    if got != want:
+        fail(f'{name} training: launch counts {got} != {want} for a step')
+    vals = {k: v.item() for k, v in logs.items()}
+    if not {'loss', 'grad_norm', *MASK_LOGS[name]} <= set(vals) \
+            or not all(math.isfinite(v) for v in vals.values()):
+        fail(f'{name} train step logs {vals}')
+    if any(not torch.equal(params[n], v) for n, v in kept.items()):
+        fail(f'{name}: a frozen parameter changed')
+    if torch.equal(params[free], start):
+        fail(f'{name}: {free} did not move')
+    print(f'{name} training: one {cfg.compute_dtype} step x {B} images at '
+          f'{CANVAS[0]}x{CANVAS[1]}, launches {got}; {ms:.2f} ms a step, '
+          f'{B / ms * 1e3:.2f} img/s, peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; '
+          + ' '.join(f'{k} {v:.4f}' for k, v in vals.items())
+          + f'; {len(kept)} frozen parameters bit-equal ({gpu})', flush=True)
+    return model, cfg, optimizer, batches, got
+
+
+def phase_mask_rcnn(torch, gpu):
+    """(a) Mask R-CNN R-50 FPN as shipped (f32): served with masks,
+    profiled by stage, held against its plain kernels with the proposals
+    pinned (in f32 the box head and the mask logits within 1e-5 of scale,
+    the RPN's maps within MASK_RPN_F32_REL); one train step and its
+    gradients on K6+K3 against their plain versions (the whole-model rule,
+    the prefix the same on both sides; the plain step launches neither).
+    Returns the launches served and trained."""
+    from kgdet_tpu_torch.parallel.train import make_loss_fn
+
+    model, cfg, reqs, served = mask_serving(torch, gpu, 'mask_rcnn')
+    two_stage_profile(torch, model, cfg, reqs[0], gpu, name='mask_rcnn')
+    hold_two_stage_against_plain(
+        torch, model, reqs[0], name='mask_rcnn',
+        keys=('roi_cls', 'roi_reg', 'mask_logits'), rel=1e-5,
+        rpn_rel=MASK_RPN_F32_REL)
+    del model
+    torch.cuda.empty_cache()
+    model, cfg, optimizer, batches, trained = mask_step(torch, gpu,
+                                                        'mask_rcnn')
+    loss_fn = make_loss_fn(model, cfg, CANVAS)
+
+    def run(plain):
+        return loss_and_grads(model, optimizer, loss_fn, MASK_GRAD_GROUPS,
+                              torch.float32, plain, batches[0],
+                              plain_prefix=False)
+    kern32 = run(False)
+    reset_launches()
+    plain32 = run(True)
+    got = read_launches()
+    if got['deform_sample_cols'] or got['deform_sample_bwd']:
+        fail(f'mask_rcnn: the plain step launched {got}')
+    check_same_prefix_grads('K6+K3 in the box and mask RoI gathers and '
+                            'the mask targets', kern32, plain32)
+    optimizer.zero_grad()
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return served, trained
+
+
+def phase_other_masks(torch, gpu, launches):
+    """(b) Mask Scoring R-CNN and HTC as shipped, Grid R-CNN and the GA-RPN
+    Faster R-CNN built from the Faster R-CNN config: one served batch and
+    one step each (launch counts, finiteness, img/s, step ms, peak
+    memory); launches by path into ``launches``."""
+    for name in MASK_PATHS:
+        if name == 'mask_rcnn':
+            continue
+        model, _, _, launches[f'{name}_serving'] = mask_serving(
+            torch, gpu, name, n_reqs=1)
+        del model
+        torch.cuda.empty_cache()
+        model, _, optimizer, _, launches[f'{name}_training'] = mask_step(
+            torch, gpu, name)
+        del model, optimizer
+        torch.cuda.empty_cache()
+
+
+def add_polygons(root, seed, split='validation'):
+    """Each annotation of make_eval_set's JSON under ``root`` gains a
+    polygon inside its box (an octagon of random radii), the crowd regions
+    too."""
+    import numpy as np
+    path = os.path.join(root, f'{split}-coco_style.json')
+    with open(path) as f:
+        coco = json.load(f)
+    rng = np.random.RandomState(seed)
+    t = np.linspace(0, 2 * np.pi, 9)[:-1]
+    for a in coco['annotations']:
+        x, y, w, h = a['bbox']
+        r = rng.uniform(0.7, 1.0, 8)
+        pts = np.stack([x + w / 2 + r * (w / 2 - 1) * np.cos(t),
+                        y + h / 2 + r * (h / 2 - 1) * np.sin(t)], 1)
+        a['segmentation'] = [pts.reshape(-1).round(2).tolist()]
+    with open(path, 'w') as f:
+        json.dump(coco, f)
+    return coco
+
+
+def phase_segm(torch, gpu):
+    """(c) Segm evaluation on SEGM_IMAGES synthetic PNGs with polygon
+    annotations: the evaluator scores the ground truth's masks as
+    detections at segm AP 1.0; tools/test.py --eval bbox segm on Mask R-CNN
+    (the bbox and segm copypaste lines, one segm result an image with
+    detections). Returns the CLI's launches."""
+    import shutil
+    import tempfile
+
+    from kgdet_tpu_torch.eval.coco import CocoIndex
+    from kgdet_tpu_torch.eval.cocoeval import CocoEvaluator, ann_to_rle
+
+    root = tempfile.mkdtemp(prefix='kgdet_segm_')
+    try:
+        t0 = time.perf_counter()
+        make_eval_set(root, SEED + 40, n_images=SEGM_IMAGES)
+        coco = add_polygons(root, SEED + 41)
+        gt = CocoIndex(os.path.join(root, 'validation-coco_style.json'))
+        dets = []
+        for a in coco['annotations']:
+            if a['iscrowd']:
+                continue
+            im = gt.imgs[a['image_id']]
+            rle = ann_to_rle(a, im['height'], im['width'])
+            dets.append({'image_id': a['image_id'],
+                         'category_id': a['category_id'], 'score': 1.0,
+                         'segmentation': {'size': [rle.h, rle.w],
+                                          'counts': rle.to_string()
+                                          .decode()}})
+        ev = CocoEvaluator(gt, gt.load_results(dets), 'segm')
+        ev.evaluate()
+        ev.accumulate()
+        stats = ev.summarize(verbose=False)
+        if abs(stats['AP'] - 1.0) > 1e-9:
+            fail(f'segm evaluator on the ground truth: AP {stats["AP"]}')
+        print(f'segm evaluator: the ground truth of {SEGM_IMAGES} images '
+              f'as {len(dets)} detections scores AP {stats["AP"]:.4f}',
+              flush=True)
+        reset_launches()
+        out, printed = run_cli([
+            cli_config(root, 'mask_rcnn_r50_fpn', val=[('batch_size', 2)]),
+            '--eval', 'bbox', 'segm', '--batch-size', '2',
+            '--json-out', os.path.join(root, 'out')])
+        got = read_launches()
+        copypaste(printed, 'bbox', 12)
+        copypaste(printed, 'segm', 12)
+        with open(out['files']['segm']) as f:
+            segm = json.load(f)
+        with_dets = {i for i, r in out['results'].items() if len(r[0])}
+        if len(out['results']) != SEGM_IMAGES or \
+                {r['image_id'] for r in segm} != with_dets or \
+                not all(len(r) == 4 for r in out['results'].values()):
+            fail(f'Mask R-CNN tools/test.py --eval segm: '
+                 f'{len(out["results"])} images, {len(segm)} segm results')
+        print(f'Mask R-CNN tools/test.py --eval bbox segm: {SEGM_IMAGES} '
+              f'PNGs, {len(segm)} segm results, launches {got}, '
+              f'{time.perf_counter() - t0:.1f} s with the PNGs ({gpu})',
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_masks(torch, gpu):
+    """Phase 15: (a) Mask R-CNN, (b) Mask Scoring R-CNN, HTC, Grid R-CNN
+    and the GA-RPN Faster R-CNN, (c) segm evaluation ((d) is in phase 1).
+    Returns the launches of each path."""
+    t = [time.perf_counter()]
+    launches = {}
+    launches['mask_rcnn_serving'], launches['mask_rcnn_training'] = \
+        phase_mask_rcnn(torch, gpu)
+    t.append(time.perf_counter())
+    phase_other_masks(torch, gpu, launches)
+    t.append(time.perf_counter())
+    launches['mask_rcnn_test_cli'] = phase_segm(torch, gpu)
+    t.append(time.perf_counter())
+    print('phase 15 seconds: ' + ', '.join(
+        f'{k} {b - a:.1f}' for k, a, b in zip(
+            ('(a) Mask R-CNN', '(b) four paths', '(c) segm'), t, t[1:]))
+        + f' ({gpu})', flush=True)
+    return launches
+
+
+PHASE_GROUPS = ('1', '2', '6', '9', '10', '11', '12', '13', '14', '15')
 
 
 def import_every_module():
@@ -4432,6 +4843,10 @@ def main(argv=None):
     # the box-only two-stage detectors: served, trained, their CLIs
     if '14' in phases:
         launches.update(phase_two_stage(torch, gpu))
+
+    # the mask families and GA-RPN: served, trained, segm evaluation
+    if '15' in phases:
+        launches.update(phase_masks(torch, gpu))
 
     if phases != set(PHASE_GROUPS):
         print(f'chip_smoke: phases {sorted(phases, key=int)} passed; no '

@@ -6,7 +6,9 @@ multi-scale / flip ``aug_call``, inference_detector, make_predict_fn) plus
 ``make_raw_predict_fn`` (the pre-NMS decode of test-time augmentation) and
 ``init_trainer``. ``predict(batch)`` returns the same
 padded dict as the JAX package's ``eval_loop.make_predict_fns``: det_bboxes
-(B, M, 5), det_labels (B, M), det_kpts (B, M, K*3), valid (B, M).
+(B, M, 5), det_labels (B, M), det_kpts (B, M, K*3), valid (B, M); the mask
+families add det_masks (B, M, S, S) and Mask Scoring R-CNN
+det_mask_scores (B, M).
 
 Every entry point that places a model takes ``device=None``, which means the
 CUDA card and raises where there is none; the CPU is used only when asked
@@ -42,8 +44,10 @@ def build_model(cfg: KGDetConfig, device=None):
     """The detector of ``cfg`` on ``device`` (None: the CUDA card), with
     the constructors' default weights; ``init_weights`` seeds them: a
     single-stage KGDetDetector, or by ``cfg.detector_type`` a two-stage
-    RPNDetector, FasterRCNN (Fast R-CNN with external proposals) or
-    CascadeRCNN (models/two_stage.py)."""
+    RPNDetector, FasterRCNN (Fast R-CNN with external proposals; Mask R-CNN
+    and Mask Scoring R-CNN with mask heads, Grid R-CNN with the grid head,
+    GA-RPN with cfg.rpn_type 'ga_rpn') or CascadeRCNN (HTC with its mask
+    stages and semantic branch) (models/two_stage.py)."""
     if is_two_stage(cfg.detector_type):
         from kgdet_tpu_torch.models.two_stage import build_two_stage
         model = build_two_stage(cfg)
@@ -165,7 +169,10 @@ class Detector:
         """img: BGR uint8 (H, W, 3) array or image path. Returns (dets (N, 5)
         xyxy+score, labels (N,), kpts (N, K, 3)) in original image
         coordinates; K is 1, a zero keypoint, for the box families
-        (RetinaNet, SSD, FCOS, GA-Retina)."""
+        (RetinaNet, SSD, FCOS, GA-Retina) and the two-stage detectors. The
+        mask families add masks (N, H, W) uint8, each detection's mask
+        pasted into the image, and Mask Scoring R-CNN its mask scores
+        (N,)."""
         from kgdet_tpu_torch.data.transforms import (
             imnormalize, imrescale, pad_to_canvas)
 
@@ -181,11 +188,23 @@ class Detector:
             'scale_factor': np.asarray([sf], np.float32),
         })
         valid = dets['valid'][0].cpu().numpy()
-        boxes = dets['det_bboxes'][0].cpu().numpy()[valid]
-        labels = dets['det_labels'][0].cpu().numpy()[valid]
-        kpts = dets['det_kpts'][0].cpu().numpy()[valid]
+
+        def host(k):
+            return dets[k][0].cpu().numpy()[valid]
+        boxes, labels, kpts = (host(k) for k in ('det_bboxes', 'det_labels',
+                                                 'det_kpts'))
         # (N, K, 3); the box families carry one dummy keypoint a box
-        return boxes, labels, kpts.reshape(len(kpts), -1, 3)
+        out = (boxes, labels, kpts.reshape(len(kpts), -1, 3))
+        if 'det_masks' not in dets:
+            return out
+        from kgdet_tpu_torch.models.mask_head import paste_masks
+        h, w = img.shape[:2]
+        masks = np.stack(paste_masks(boxes, host('det_masks'), h, w)) \
+            if len(boxes) else np.zeros((0, h, w), np.uint8)
+        out += (masks,)
+        if 'det_mask_scores' in dets:
+            out += (host('det_mask_scores'),)
+        return out
 
     def _raw_predict_for(self, canvas):
         """The pre-NMS decode for one canvas (the TTA merge path)."""

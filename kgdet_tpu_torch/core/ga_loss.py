@@ -1,6 +1,6 @@
-"""Guided-anchoring targets, losses and decode (GA-Retina).
+"""Guided-anchoring targets, losses and decodes (GA-Retina, GA-RPN).
 
-Port of the GA-Retina half of kgdet_tpu/core/ga_loss.py, with the batch
+Port of kgdet_tpu/core/ga_loss.py, with the batch
 dimension written out where the JAX package uses ``vmap``:
 - location targets as region masks of each GT's shrunk centre (positive)
   and ignore band on its own level, the band also on the adjacent levels;
@@ -17,10 +17,14 @@ average factor (its share of the global batch's positions), the shape
 loss's positive count and the cls / reg positive count are summed over the
 processes (``global_sum``), as the JAX ``dp`` mesh counts the global batch.
 
+GA-RPN (ga_rpn_head.py) shares the location and shape terms and adds
+binary objectness and class-agnostic regression on the guided anchors with
+the RPN's sampling (``ga_rpn_loss``: its uniforms come from the two-stage
+loss's ``draw``, the RPN role), and decodes its proposals as the RPN does,
+the location filter a zeroed score (``ga_rpn_proposals``).
+
 Where the JAX package departs from the published recipe the port follows
-it: ``target_stds`` of the cls / reg deltas default to 1.
-GA-RPN's loss and proposals wait for the two-stage families (ROADMAP Queue
-1 item 6).
+it: ``target_stds`` of GA-Retina's cls / reg deltas default to 1.
 """
 from __future__ import annotations
 
@@ -40,8 +44,7 @@ from kgdet_tpu_torch.ops.losses import bounded_iou_loss, \
 from kgdet_tpu_torch.parallel.dist import global_sum
 
 ANCHORING_STDS = (0.07, 0.07, 0.14, 0.14)
-_ITEM6 = 'GA-RPN is queued with the two-stage families in ROADMAP Queue 1 ' \
-    'item 6'
+GA_RPN_TARGET_STDS = (0.07, 0.07, 0.11, 0.11)
 
 
 def ga_squares(stride, octave_base, fh, fw, device=None):
@@ -290,11 +293,84 @@ def decode_detections_ga(level_outs, head_cfg: HeadConfig, canvas_hw,
                           soft_min_score=cfg.soft_nms_min_score)
 
 
-def ga_rpn_loss(*args, **kwargs):
-    """GA-RPN's loss: not ported yet."""
-    raise NotImplementedError(_ITEM6)
+def ga_rpn_loss(level_outs, batch, head_cfg: HeadConfig, assign_cfg,
+                canvas_hw, u, num_samples=256, pos_fraction=0.5,
+                pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3,
+                target_stds=GA_RPN_TARGET_STDS):
+    """The GA-RPN loss (ga_rpn_head.py:35-58): the location and shape terms,
+    then binary objectness and class-agnostic smooth-L1 (beta 1/9) on the
+    guided anchors, MaxIoU(0.7 / 0.3, min 0.3) targets, 256 sampled at a
+    positive fraction of 0.5. u: (B, 4, P) sampler uniforms over the
+    levels' positions. Returns (total, logs)."""
+    from kgdet_tpu_torch.core.two_stage_loss import bce_loss, \
+        sample_pos_neg
+    l_loc, l_shape, guided, valid = ga_loc_shape_losses(
+        level_outs, batch, head_cfg, assign_cfg, canvas_hw)
+    cls, reg = _flat(level_outs, 'cls', 1)[..., 0], \
+        _flat(level_outs, 'bbox', 4)
+    gts = batch['gt_bboxes'].float()
+    with torch.no_grad():
+        a = assign_max_iou(guided, valid, gts, batch['gt_mask'],
+                           pos_iou_thr, neg_iou_thr, min_pos_iou)
+        neg = valid & ~a.pos_mask & ~a.ignore_mask
+        pos_sel, neg_sel = sample_pos_neg(u, a.pos_mask, neg, num_samples,
+                                          pos_fraction)
+        cls_w = (pos_sel | neg_sel).float()
+        deltas = bbox2delta(guided, torch.gather(
+            gts, 1, a.assigned_gt[..., None].expand(-1, -1, 4)),
+            stds=target_stds)
+    avg = global_sum(cls_w.sum())
+    l_cls = bce_loss(cls, pos_sel.float(), cls_w, avg)
+    l_reg = smooth_l1_loss(reg, deltas, pos_sel.float()[..., None],
+                           beta=1.0 / 9.0, avg_factor=avg.clamp(min=1.0))
+    total = l_cls + l_reg + l_loc + l_shape
+    return total, {'loss_rpn_cls': l_cls, 'loss_rpn_bbox': l_reg,
+                   'loss_anchor_loc': l_loc, 'loss_anchor_shape': l_shape}
 
 
-def ga_rpn_proposals(*args, **kwargs):
-    """GA-RPN's proposals: not ported yet."""
-    raise NotImplementedError(_ITEM6)
+@torch.no_grad()
+def ga_rpn_proposals(level_outs, head_cfg: HeadConfig, canvas_hw, img_hw,
+                     nms_pre=1000, max_num=1000, nms_thr=0.7,
+                     min_bbox_size=0.0, loc_filter_thr=0.01,
+                     anchoring_stds=ANCHORING_STDS,
+                     target_stds=GA_RPN_TARGET_STDS, squares=None):
+    """GA-RPN's fixed-size padded proposals (ga_rpn_head.py
+    get_bboxes_single): per level the guided anchors, objectness zeroed
+    where the location probability is under ``loc_filter_thr``, the top
+    ``nms_pre`` by a stable descending sort, decoded, clamped, boxes not
+    wider and taller than ``min_bbox_size`` dropped; then one greedy NMS
+    over the levels (models/two_stage.py::proposals_nms). ``squares``: the
+    levels' ``ga_squares`` on the outputs' device, made here when None.
+    Returns (proposals (B, max_num, 4), scores, valid)."""
+    from kgdet_tpu_torch.models.two_stage import proposals_nms
+    from kgdet_tpu_torch.ops.nms import NEG_INF
+    strides = head_cfg.point_strides
+    H, W = canvas_hw
+    B = level_outs[0]['cls'].shape[1]
+    dev = level_outs[0]['cls'].device
+    if squares is None:
+        squares = [ga_squares(s, head_cfg.octave_base_scale, -(-H // s),
+                              -(-W // s), device=dev) for s in strides]
+    lvl_boxes, lvl_scores = [], []
+    for o, sq in zip(level_outs, squares):
+        P = sq.shape[0]
+        guided = _guided(sq, o['shape'][-1].float().reshape(B, P, 2),
+                         anchoring_stds)
+        loc = torch.sigmoid(o['loc'][-1].float().reshape(B, P))
+        scores = torch.sigmoid(o['cls'][-1].float().reshape(B, P))
+        scores = torch.where(loc >= loc_filter_thr, scores, 0.0)
+        k = min(nms_pre, P)
+        top_scores, topk = torch.sort(scores, dim=-1, descending=True,
+                                      stable=True)
+        top_scores, topk = top_scores[:, :k], topk[:, :k]
+        idx = topk[..., None].expand(B, k, 4)
+        reg = o['bbox'][-1].float().reshape(B, P, 4)
+        boxes = clamp_to_image(delta2bbox(
+            guided.gather(1, idx), reg.gather(1, idx), stds=target_stds),
+            img_hw)
+        ok = (boxes[..., 2] - boxes[..., 0] > min_bbox_size) \
+            & (boxes[..., 3] - boxes[..., 1] > min_bbox_size)
+        lvl_scores.append(torch.where(ok, top_scores, NEG_INF))
+        lvl_boxes.append(boxes)
+    return proposals_nms(torch.cat(lvl_boxes, dim=1),
+                         torch.cat(lvl_scores, dim=1), nms_thr, max_num)

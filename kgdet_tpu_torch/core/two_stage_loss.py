@@ -8,10 +8,19 @@ smooth-L1 (beta 1/9) deltas. The RCNN stage: MaxIoU(0.5 / 0.5) over the
 proposals, 512 sampled at 0.25, softmax cross entropy, smooth-L1 on the
 labelled class's deltas (target stds 0.1 / 0.1 / 0.2 / 0.2), top-1 accuracy.
 Cascade R-CNN runs three RCNN stages with rising IoU, tightening stds and
-decaying weights. Decodes: the per-class softmax and NMS over the padded
-proposals (Faster and Fast R-CNN), the stage-averaged scores on the last
-stage's boxes (cascade), and the score-ranked proposals (RPN), every image
-of the batch in one call.
+decaying weights. The mask families add: Mask R-CNN's per-pixel BCE on
+each positive RoI's own-class mask against its ground truth cropped by
+mask_head.py::mask_targets; Mask Scoring R-CNN's MSE (weight 0.5) of the
+assigned class's mask IoU; Grid R-CNN's heatmap BCE on its leading RoIs
+(MaxIoU 0.5, no sampling); HTC's semantic cross entropy and its per-stage
+mask losses on its leading RoIs, weighted as the stages. GA-RPN replaces
+the RPN terms with core/ga_loss.py::ga_rpn_loss. Decodes: the per-class
+softmax and NMS over the padded proposals (Faster and Fast R-CNN; Mask
+R-CNN's refined boxes, each detection carrying its mask probabilities and,
+for Mask Scoring R-CNN, its rescored mask score), the stage-averaged
+scores on the last stage's boxes (cascade), HTC's top boxes with their
+stage-averaged masks, the grid-refined boxes, and the score-ranked
+proposals (RPN), every image of the batch in one call.
 
 The samplers draw a fixed quota per role (top-k over random priorities),
 as the JAX package's do, so sample counts are static; the loss divides by
@@ -24,9 +33,9 @@ draws with ``jax.random`` (threefry), which this does not reproduce: the
 samples differ from the JAX package's for the same seed (ROADMAP Queue 3);
 given JAX's uniforms, the masks are the same.
 
-In a process group the average factors (sampled counts) are summed over the
-processes, as in core/anchor_loss.py. Every term is computed in f32. The
-mask, grid, GA-RPN and HTC terms wait for ROADMAP Queue 1 item 6.
+In a process group the average factors (sampled counts, positive RoIs,
+valid stuff pixels) are summed over the processes, as in
+core/anchor_loss.py. Every term is computed in f32.
 """
 from __future__ import annotations
 
@@ -49,8 +58,6 @@ CASCADE_STAGE_STDS = ((0.1, 0.1, 0.2, 0.2),
                       (0.05, 0.05, 0.1, 0.1),
                       (0.033, 0.033, 0.067, 0.067))
 CASCADE_STAGE_WEIGHTS = (1.0, 0.5, 0.25)
-
-ITEM6 = 'ROADMAP Queue 1 item 6'
 
 
 # ---------------------------------------------------------------- samplers
@@ -255,13 +262,22 @@ def rcnn_targets_and_loss(proposals, prop_valid, roi_cls, roi_reg, batch, u,
     return l_cls, l_reg, aux
 
 
-def _rpn_terms(fwd, batch, draw, cfg, valids_per_level):
-    if cfg.rpn_type == 'ga_rpn':
-        raise NotImplementedError(f'the GA-RPN loss waits for {ITEM6}')
+def _rpn_terms(fwd, batch, draw, cfg, valids_per_level, canvas_hw=None,
+               ga=False):
+    """The RPN's terms, or with ``ga`` GA-RPN's: (total, logs)."""
+    if ga:
+        from kgdet_tpu_torch.core.ga_loss import ga_rpn_loss
+        n = sum(o['cls'].shape[2] * o['cls'].shape[3]
+                for o in fwd['rpn_outs'])
+        return ga_rpn_loss(fwd['rpn_outs'], batch, cfg.head,
+                           cfg.refine_assigner or cfg.assigner,
+                           canvas_hw or tuple(batch['image'].shape[1:3]),
+                           draw(RPN_ROLE, n))
     n = sum(v.shape[1] for v in valids_per_level)
-    return rpn_loss(fwd['rpn_outs'], fwd['anchors'], valids_per_level,
-                    batch, draw(RPN_ROLE, n),
-                    ignore_iof_thr=cfg.assigner.ignore_iof_thr)
+    l_cls, l_reg = rpn_loss(fwd['rpn_outs'], fwd['anchors'],
+                            valids_per_level, batch, draw(RPN_ROLE, n),
+                            ignore_iof_thr=cfg.assigner.ignore_iof_thr)
+    return l_cls + l_reg, {'loss_rpn_cls': l_cls, 'loss_rpn_bbox': l_reg}
 
 
 def _rcnn_terms(fwd, batch, draw, cfg, stage=0, **kw):
@@ -273,38 +289,110 @@ def _rcnn_terms(fwd, batch, draw, cfg, stage=0, **kw):
         ignore_iof_thr=cfg.assigner.ignore_iof_thr, **kw)
 
 
-def faster_rcnn_loss(fwd, batch, draw, cfg, valids_per_level):
-    """RPN terms + RCNN terms: (total, logs)."""
-    l_rpn_cls, l_rpn_reg = _rpn_terms(fwd, batch, draw, cfg,
-                                      valids_per_level)
+def _assign_leading(props, batch):
+    """MaxIoU(0.5 / 0.5) of the leading RoIs (B, K, 4), all valid, no
+    sampling (Grid R-CNN's and HTC's mask RoIs): (assigned GT, positive,
+    1-based labels, 0 where not positive)."""
+    with torch.no_grad():
+        a = assign_max_iou(props, torch.ones(props.shape[:2], dtype=torch.bool,
+                                             device=props.device),
+                           batch['gt_bboxes'].float(), batch['gt_mask'],
+                           0.5, 0.5, 0.0)
+        labels = torch.where(a.pos_mask,
+                             _take(batch['gt_labels'], a.assigned_gt), 0)
+    return a.assigned_gt, a.pos_mask, labels.long()
+
+
+def grid_terms(fwd, batch):
+    """Grid R-CNN's heatmap loss on its leading RoIs."""
+    from kgdet_tpu_torch.models.grid_head import grid_loss, grid_targets
+    props = fwd['grid_props']
+    assigned, pos, _ = _assign_leading(props, batch)
+    gt_sel = _take(batch['gt_bboxes'].float(), assigned)
+    with torch.no_grad():
+        targets, valid_roi = grid_targets(props.reshape(-1, 4),
+                                          gt_sel.reshape(-1, 4))
+    wgt = (pos.reshape(-1) & valid_roi).float()
+    return grid_loss(fwd['grid_fused'].flatten(0, 1),
+                     fwd['grid_unfused'].flatten(0, 1), targets, wgt)
+
+
+def mask_terms(fwd, batch, cfg, aux, plain=False):
+    """Mask R-CNN's mask loss on the sampled positives and, with a
+    mask-IoU head, Mask Scoring R-CNN's IoU regression: a dict of terms.
+    ``plain``: the targets' gather in its plain version on the card too."""
+    from kgdet_tpu_torch.models.mask_head import _pick_class, mask_loss, \
+        mask_targets, maskiou_targets
+    logits = fwd['mask_logits']
+    targets = mask_targets(batch['gt_masks'], aux['assigned_gt'],
+                           fwd['proposals'], cfg.train_data.mask_stride,
+                           out_size=logits.shape[2], plain=plain)
+    pos_w = aux['pos_weights']
+    out = {'loss_mask': mask_loss(logits, targets, aux['labels'], pos_w)}
+    if 'maskiou_pred' in fwd:
+        labels = aux['labels']
+        iou_t = maskiou_targets(_pick_class(logits.detach(), labels),
+                                targets)
+        C = logits.shape[-1]
+        pred = fwd['maskiou_pred'].float().gather(
+            -1, (labels - 1).clamp(0, C - 1)[..., None])[..., 0]
+        wgt = pos_w * (iou_t > 0)
+        out['loss_mask_iou'] = 0.5 * ((pred - iou_t) ** 2 * wgt).sum() \
+            / global_sum(wgt.sum()).clamp(min=1.0)
+    return out
+
+
+def faster_rcnn_loss(fwd, batch, draw, cfg, valids_per_level,
+                     canvas_hw=None, plain=False):
+    """RPN (or GA-RPN) terms + RCNN terms, and the grid, mask and mask-IoU
+    terms where the model has those heads (and the batch gt_masks):
+    (total, logs). ``plain``: the mask targets' gather in its plain
+    version on the card too, as the model's use_plain_kernels."""
+    total, logs = _rpn_terms(fwd, batch, draw, cfg, valids_per_level,
+                             canvas_hw, ga=cfg.rpn_type == 'ga_rpn')
     l_cls, l_reg, aux = _rcnn_terms(fwd, batch, draw, cfg)
-    total = l_rpn_cls + l_rpn_reg + l_cls + l_reg
-    return total, {'loss_rpn_cls': l_rpn_cls, 'loss_rpn_bbox': l_rpn_reg,
-                   'loss_cls': l_cls, 'loss_bbox': l_reg, 'acc': aux['acc']}
+    total = total + l_cls + l_reg
+    logs.update(loss_cls=l_cls, loss_bbox=l_reg, acc=aux['acc'])
+    extra = {}
+    if 'grid_fused' in fwd:
+        extra['loss_grid'] = grid_terms(fwd, batch)
+    if 'mask_logits' in fwd and 'gt_masks' in batch:
+        extra.update(mask_terms(fwd, batch, cfg, aux, plain=plain))
+    for k, v in extra.items():
+        total = total + v
+        logs[k] = v
+    return total, logs
 
 
-def rpn_only_loss(fwd, batch, draw, cfg, valids_per_level):
+def rpn_only_loss(fwd, batch, draw, cfg, valids_per_level, canvas_hw=None,
+                  plain=False):
     """Standalone RPN (reference detectors/rpn.py forward_train): the RPN
-    terms only."""
-    l_cls, l_reg = _rpn_terms(fwd, batch, draw, cfg, valids_per_level)
-    return l_cls + l_reg, {'loss_rpn_cls': l_cls, 'loss_rpn_bbox': l_reg}
+    terms only (no gather: ``plain`` changes nothing)."""
+    return _rpn_terms(fwd, batch, draw, cfg, valids_per_level)
 
 
-def fast_rcnn_loss(fwd, batch, draw, cfg, valids_per_level):
+def fast_rcnn_loss(fwd, batch, draw, cfg, valids_per_level,
+                   canvas_hw=None, plain=False):
     """Fast R-CNN (reference detectors/fast_rcnn.py): the RCNN terms only;
-    the proposals are inputs."""
+    the proposals are inputs (no gather: ``plain`` changes nothing)."""
     l_cls, l_reg, aux = _rcnn_terms(fwd, batch, draw, cfg)
     return l_cls + l_reg, {'loss_cls': l_cls, 'loss_bbox': l_reg,
                            'acc': aux['acc']}
 
 
-def cascade_rcnn_loss(fwd, batch, draw, cfg, valids_per_level):
+def cascade_rcnn_loss(fwd, batch, draw, cfg, valids_per_level,
+                      canvas_hw=None, plain=False):
     """RPN terms + each stage's RCNN terms with the cascade's IoU / std /
-    weight schedule (cascade_rcnn.py forward_train)."""
-    l_rpn_cls, l_rpn_reg = _rpn_terms(fwd, batch, draw, cfg,
-                                      valids_per_level)
-    total = l_rpn_cls + l_rpn_reg
-    logs = {'loss_rpn_cls': l_rpn_cls, 'loss_rpn_bbox': l_rpn_reg}
+    weight schedule (cascade_rcnn.py forward_train); HTC adds the semantic
+    loss and each stage's mask loss on the leading RoIs, weighted as the
+    stage. ``plain``: the mask targets' gather in its plain version on the
+    card too."""
+    total, logs = _rpn_terms(fwd, batch, draw, cfg, valids_per_level)
+    if 'semantic_pred' in fwd and 'gt_semantic_seg' in batch:
+        from kgdet_tpu_torch.models.mask_head import semantic_loss
+        l_sem = semantic_loss(fwd['semantic_pred'], batch['gt_semantic_seg'])
+        total = total + l_sem
+        logs['loss_semantic_seg'] = l_sem
     for i, st in enumerate(fwd['stages']):
         iou = CASCADE_STAGE_IOUS[i]
         l_cls, l_reg, aux = _rcnn_terms(
@@ -315,63 +403,142 @@ def cascade_rcnn_loss(fwd, batch, draw, cfg, valids_per_level):
         logs[f'loss_cls_s{i}'] = l_cls
         logs[f'loss_bbox_s{i}'] = l_reg
         logs[f'acc_s{i}'] = aux['acc']
+    if 'mask_logits_stages' in fwd and 'gt_masks' in batch:
+        from kgdet_tpu_torch.models.mask_head import mask_loss, mask_targets
+        mprops = fwd['mask_props']
+        assigned, pos, labels = _assign_leading(mprops, batch)
+        stages = fwd['mask_logits_stages']
+        targets = mask_targets(batch['gt_masks'], assigned, mprops,
+                               cfg.train_data.mask_stride,
+                               out_size=stages[0].shape[2], plain=plain)
+        for i, logits in enumerate(stages):
+            l_mask = mask_loss(logits, targets, labels, pos.float()) \
+                * CASCADE_STAGE_WEIGHTS[i]
+            total = total + l_mask
+            logs[f'loss_mask_s{i}'] = l_mask
     return total, logs
 
 
 LOSSES = {
     'faster_rcnn': faster_rcnn_loss,
+    'mask_rcnn': faster_rcnn_loss,
+    'ms_rcnn': faster_rcnn_loss,
     'double_head_rcnn': faster_rcnn_loss,
+    'grid_rcnn': faster_rcnn_loss,
     'fast_rcnn': fast_rcnn_loss,
     'cascade_rcnn': cascade_rcnn_loss,
+    'htc': cascade_rcnn_loss,
     'rpn': rpn_only_loss,
 }
-# the detectors with masks or grids: their heads are not ported yet
-NOT_PORTED = ('mask_rcnn', 'ms_rcnn', 'grid_rcnn', 'htc')
 
 
 def two_stage_loss_fn(detector_type: str):
     """The loss entry of cfg.detector_type (the forward_train
-    equivalents): fn(fwd, batch, draw, cfg, valids_per_level) -> (total,
-    logs), ``draw`` as ``sampler_draw`` returns it."""
-    if detector_type in NOT_PORTED:
-        raise NotImplementedError(
-            f'the {detector_type} loss waits for {ITEM6}')
+    equivalents): fn(fwd, batch, draw, cfg, valids_per_level, canvas_hw,
+    plain) -> (total, logs), ``draw`` as ``sampler_draw`` returns it."""
     if detector_type not in LOSSES:
         raise KeyError(f'unknown two-stage detector {detector_type}')
     return LOSSES[detector_type]
 
 
 # ------------------------------------------------------------------ decodes
-def _nms(boxes, scores, scale_factor, test_cfg):
+def _nms(boxes, scores, scale_factor, test_cfg, src=None):
     """Rescale to the original images, multiclass NMS of every image at
-    once with a width-3 dummy keypoint: the padded detections."""
+    once: the padded detections with a width-3 dummy keypoint. ``src``
+    (B, N, 1), where given, rides the NMS in the keypoint slot and comes
+    back as ``det_src`` (each detection's row)."""
     boxes = boxes / scale_factor.float()[:, None, None]
-    det_bboxes, det_labels, det_kpts, valid = multiclass_nms_kp(
-        boxes, scores, boxes.new_zeros((*boxes.shape[:2], 3)),
-        test_cfg.score_thr, test_cfg.nms_iou_thr,
+    carry = boxes.new_zeros((*boxes.shape[:2], 3)) if src is None else src
+    det_bboxes, det_labels, det_carry, valid = multiclass_nms_kp(
+        boxes, scores, carry, test_cfg.score_thr, test_cfg.nms_iou_thr,
         max_per_class=test_cfg.max_per_class,
         max_per_img=test_cfg.max_per_img)
-    return {'det_bboxes': det_bboxes, 'det_labels': det_labels,
-            'det_kpts': det_kpts, 'valid': valid}
+    out = {'det_bboxes': det_bboxes, 'det_labels': det_labels,
+           'det_kpts': det_carry, 'valid': valid}
+    if src is not None:
+        out['det_kpts'] = det_bboxes.new_zeros((*det_labels.shape, 3))
+        out['det_src'] = det_carry[..., 0].long().clamp(
+            0, boxes.shape[1] - 1)
+    return out
+
+
+def _row_index(n, like):
+    """(B, n, 1) row numbers, each row's source through the NMS."""
+    return torch.arange(n, dtype=torch.float32, device=like.device)[
+        None, :, None].expand(like.shape[0], n, 1)
+
+
+def _det_masks(mask_logits, det_src, det_labels):
+    """Each detection's mask probabilities: the sigmoid of its source
+    row's logits (B, R, S, S, C) at its 0-based class -> (B, M, S, S)."""
+    per_det = _take(mask_logits.float(), det_src)
+    return torch.sigmoid(per_det.gather(-1, det_labels[
+        ..., None, None, None].expand(*per_det.shape[:-1], 1))[..., 0])
 
 
 def decode_rcnn_detections(fwd, img_hw, scale_factor, test_cfg,
                            num_classes):
     """Per-class softmax, each proposal's best-class box (NMS shares one
     box a proposal across classes, the fixed-shape form of the reference's
-    per-class boxes), clamp, rescale, NMS."""
+    per-class boxes; Mask R-CNN's forward has them as ``refined_boxes``),
+    clamp, rescale, NMS. With mask logits each detection carries its
+    mask probabilities (det_masks (B, M, S, S)) and, with a mask-IoU head,
+    its mask score, the box score times the predicted IoU of its class
+    clamped to [0, 1] (mask_scoring_rcnn.py's rescoring;
+    det_mask_scores)."""
     proposals, valid = fwd['proposals'], fwd['proposal_valid']
     B, R = proposals.shape[:2]
     scores = F.softmax(fwd['roi_cls'].float(), dim=-1)
     fg_scores = torch.where(valid[..., None], scores[..., 1:], 0.0)
-    reg = fwd['roi_reg'].float().reshape(B, R, -1, 4)
-    best = fg_scores.argmax(-1)
-    # slice 0 is background: foreground class c uses slice c + 1
-    reg_best = reg.gather(2, (best + 1)[..., None, None].expand(B, R, 1, 4)
-                          )[:, :, 0]
-    boxes = delta2bbox(proposals.float(), reg_best, stds=RCNN_TARGET_STDS)
-    return _nms(clamp_to_image(boxes, img_hw), fg_scores, scale_factor,
-                test_cfg)
+    if 'refined_boxes' in fwd:
+        boxes = fwd['refined_boxes']
+    else:
+        reg = fwd['roi_reg'].float().reshape(B, R, -1, 4)
+        best = fg_scores.argmax(-1)
+        # slice 0 is background: foreground class c uses slice c + 1
+        reg_best = reg.gather(2, (best + 1)[..., None, None].expand(
+            B, R, 1, 4))[:, :, 0]
+        boxes = delta2bbox(proposals.float(), reg_best,
+                           stds=RCNN_TARGET_STDS)
+    boxes = clamp_to_image(boxes, img_hw)
+    if 'mask_logits' not in fwd:
+        return _nms(boxes, fg_scores, scale_factor, test_cfg)
+    out = _nms(boxes, fg_scores, scale_factor, test_cfg,
+               src=_row_index(R, boxes))
+    src, labels = out.pop('det_src'), out['det_labels']
+    out['det_masks'] = _det_masks(fwd['mask_logits'], src, labels)
+    if 'maskiou_pred' in fwd:
+        iou = _take(fwd['maskiou_pred'].float(), src).gather(
+            -1, labels[..., None])[..., 0]
+        out['det_mask_scores'] = out['det_bboxes'][..., 4] \
+            * iou.clamp(0.0, 1.0)
+    return out
+
+
+def decode_htc_detections(fwd, img_hw, scale_factor, test_cfg,
+                          num_classes):
+    """HTC: NMS over the top last-stage boxes with their stage-mean
+    scores, each detection carrying its stage-averaged mask
+    probabilities."""
+    boxes = clamp_to_image(fwd['mask_boxes'], img_hw)
+    scores = torch.where(fwd['mask_valid'][..., None], fwd['mask_scores'],
+                         0.0)
+    out = _nms(boxes, scores, scale_factor, test_cfg,
+               src=_row_index(boxes.shape[1], boxes))
+    src = out.pop('det_src')
+    out['det_masks'] = _det_masks(fwd['mask_logits'], src,
+                                  out['det_labels'])
+    return out
+
+
+def decode_grid_detections(fwd, img_hw, scale_factor, test_cfg,
+                           num_classes):
+    """Grid R-CNN: NMS over the grid-refined top boxes with their
+    per-class scores (grid_rcnn.py simple_test order, fixed shapes)."""
+    boxes = clamp_to_image(fwd['grid_boxes'], img_hw)
+    scores = torch.where(fwd['grid_valid'][..., None], fwd['grid_scores'],
+                         0.0)
+    return _nms(boxes, scores, scale_factor, test_cfg)
 
 
 def decode_cascade_detections(fwd, img_hw, scale_factor, test_cfg,

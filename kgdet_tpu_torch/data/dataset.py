@@ -13,9 +13,12 @@ labels, (N, 294, 3) keypoints) and deepfashion2.py:8-99.
 The port's own copy of kgdet_tpu/data/dataset.py: NumPy, with images read
 and resized through data/image_io.py (no OpenCV needed). Every sample equals
 the JAX package's. Precomputed proposals (``DataConfig.proposal_file``,
-Fast R-CNN) ride the samples as ``proposals`` / ``proposals_valid``; mask
-rasters and semantic maps serve the mask families and raise until ROADMAP
-Queue 1 item 6.
+Fast R-CNN) ride the samples as ``proposals`` / ``proposals_valid``. The
+mask families' inputs, ``gt_masks`` (max_gts, H / mask_stride,
+W / mask_stride) polygon rasters (``DataConfig.with_mask``) and HTC's
+``gt_semantic_seg`` stuff maps at 1 / seg_stride (``DataConfig.seg_prefix``),
+fill polygons and resize with OpenCV, as the JAX package does; without cv2
+they raise naming it.
 """
 from __future__ import annotations
 
@@ -33,8 +36,6 @@ from kgdet_tpu_torch.data.transforms import (
     Expand, PhotoMetricDistortion, RandomCrop, flip_bboxes, flip_keypoints,
     imnormalize, imrescale, keep_ratio_scale, pad_to_canvas, rescale_size)
 from kgdet_tpu_torch.eval.coco import CocoIndex
-
-_ITEM6 = 'the mask families (ROADMAP Queue 1 item 6)'
 
 _GROUPS0 = None
 
@@ -153,9 +154,32 @@ class DeepFashion2Dataset:
         return out, valid
 
     def _semantic_seg(self, record, sf, flip, canvas):
-        """Stuff-label map of the HTC semantic branch."""
-        raise NotImplementedError(
-            f'DataConfig.seg_prefix serves {_ITEM6}, not ported yet')
+        """(canvas / seg_stride) int32 stuff-label map of the HTC semantic
+        branch from ``seg_prefix``/<image name>.png (or _seg.png), resized
+        by the image's scale at nearest neighbour, flipped with it; 255
+        pads and marks an image without a map (reference custom.py
+        seg_prefix + SegMapTransform)."""
+        s = self.cfg.seg_stride
+        hs, ws = canvas[0] // s, canvas[1] // s
+        out = np.full((hs, ws), 255, np.int32)
+        base = os.path.splitext(record.filename)[0]
+        for ext in ('.png', '_seg.png'):
+            path = os.path.join(self.cfg.seg_prefix, base + ext)
+            if os.path.exists(path):
+                cv2 = image_io.require_cv2('reading a stuff map')
+                seg = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+                if seg is None:
+                    break
+                nh = max(int(round(seg.shape[0] * sf / s)), 1)
+                nw = max(int(round(seg.shape[1] * sf / s)), 1)
+                seg = cv2.resize(seg, (nw, nh),
+                                 interpolation=cv2.INTER_NEAREST)
+                if flip:
+                    seg = seg[:, ::-1]
+                out[:min(nh, hs), :min(nw, ws)] = \
+                    seg[:min(nh, hs), :min(nw, ws)]
+                break
+        return out
 
     def __len__(self):
         return len(self.records)
@@ -332,9 +356,35 @@ class DeepFashion2Dataset:
         return sample
 
     def rasterize_masks(self, img_id, scale_factor, flip_width, canvas):
-        """GT polygons -> mask rasters of the Mask R-CNN family."""
-        raise NotImplementedError(
-            f'DataConfig.with_mask serves {_ITEM6}, not ported yet')
+        """The ground truths' polygons -> (max_gts, canvas_h / s,
+        canvas_w / s) float32 rasters, s = mask_stride, in the order of
+        parse_annotations (crowd and degenerate boxes skipped), by
+        cv2.fillPoly at the downsampled resolution. flip_width: the
+        resized image's width when the sample was flipped, else None."""
+        cv2 = image_io.require_cv2('rasterizing ground-truth masks')
+        s = self.cfg.mask_stride
+        mh, mw = canvas[0] // s, canvas[1] // s
+        out = np.zeros((self.cfg.max_gts, mh, mw), np.float32)
+        gi = 0
+        for ann in self.coco.anns_for_img(img_id):
+            if ann.get('iscrowd', 0):
+                continue
+            x1, y1, w, h = ann['bbox']
+            if ann.get('area', w * h) <= 0 or w < 1 or h < 1:
+                continue
+            if gi >= self.cfg.max_gts:
+                break
+            canvas_mask = np.zeros((mh, mw), np.uint8)
+            for poly in ann.get('segmentation') or []:
+                pts = np.asarray(poly, np.float64).reshape(-1, 2)
+                pts = pts * scale_factor
+                if flip_width is not None:
+                    pts[:, 0] = flip_width - pts[:, 0] - 1
+                cv2.fillPoly(canvas_mask,
+                             [np.round(pts / s).astype(np.int32)], 1)
+            out[gi] = canvas_mask
+            gi += 1
+        return out
 
     # ------------------------------------------------------------- test path
     def prepare_test(self, idx: int, flip: bool = False,

@@ -44,6 +44,16 @@ except ImportError:
 BACKEND = 'cv2' if cv2 is not None else 'numpy'
 
 
+def require_cv2(what: str):
+    """The cv2 module, for ``what``, a path that has no own code in the
+    port (the HSV round trip, polygon filling, the mask and stuff-map
+    resizes); ImportError naming cv2 where it does not import."""
+    if cv2 is None:
+        raise ImportError(f'{what} needs OpenCV (cv2), which does not '
+                          'import')
+    return cv2
+
+
 class ImageDecodeError(ValueError):
     """A file that the port's own reader does not decode."""
 

@@ -7,9 +7,9 @@ index from a list of detection dicts.
 Parity reference: the DeepFashion2 API's PythonAPI/pycocotools/coco.py
 (behavioral equivalent for the ann-index and loadRes paths).
 
-The port's own copy of kgdet_tpu/eval/coco.py, NumPy and the stdlib only.
-Segmentation results need the RLE code of ROADMAP Queue 1 item 6 and
-raise until it is ported.
+The port's own copy of kgdet_tpu/eval/coco.py, NumPy and the stdlib;
+segmentation results go through the port's RLE code
+(kgdet_tpu_torch/native/).
 """
 from __future__ import annotations
 

@@ -9,9 +9,9 @@ Parity reference: the DeepFashion2 API's PythonAPI/pycocotools/
 cocoeval.py:193-271 (computeOks), :272-342 (evaluateImg), :343-470
 (accumulate/summarize), :540-560 (Params).
 
-The port's own copy of kgdet_tpu/eval/cocoeval.py, NumPy and the stdlib only.
-The segm IoU and ``ann_to_rle`` need the RLE code of ROADMAP Queue 1
-item 6 and raise until it is ported.
+The port's own copy of kgdet_tpu/eval/cocoeval.py, NumPy and the stdlib; the
+segm IoU and ``ann_to_rle`` run on the port's RLE code
+(kgdet_tpu_torch/native/, built with g++ at first use).
 """
 from __future__ import annotations
 
@@ -105,11 +105,20 @@ def compute_oks(dts, gts, sigmas):
 
 
 def ann_to_rle(ann, h, w):
-    """Annotation segmentation -> RLE (parity: pycocotools annToRLE).
-    The RLE code (kgdet_tpu/native/) is not ported yet."""
-    raise NotImplementedError(
-        'segmentation evaluation needs the RLE code of kgdet_tpu/native/, '
-        'which the port has not yet (ROADMAP Queue 1 item 6)')
+    """Annotation segmentation (polygons / uncompressed / compressed RLE)
+    -> native RLE (parity: pycocotools annToRLE)."""
+    from kgdet_tpu_torch.native import RLE
+    seg = ann['segmentation']
+    if isinstance(seg, list):
+        rle = None
+        for poly in seg:
+            r = RLE.from_poly(poly, h, w)
+            rle = r if rle is None else rle.merge(r)
+        return rle
+    counts = seg['counts']
+    if isinstance(counts, list):
+        return RLE(seg['size'][0], seg['size'][1], counts)
+    return RLE.from_string(counts, seg['size'][0], seg['size'][1])
 
 
 class CocoEvaluator:
@@ -153,9 +162,13 @@ class CocoEvaluator:
             crowd = [gt.get('iscrowd', 0) for gt in gts]
             return bbox_iou_xywh(d, g, crowd)
         if p.iou_type == 'segm':
-            raise NotImplementedError(
-                'segm IoU needs the RLE code of kgdet_tpu/native/, which the '
-                'port has not yet (ROADMAP Queue 1 item 6)')
+            h = self.gt.imgs[img_id].get('height')
+            w = self.gt.imgs[img_id].get('width')
+            d = [ann_to_rle(dt, h, w) for dt in dts]
+            g = [ann_to_rle(gt, h, w) for gt in gts]
+            crowd = [bool(gt.get('iscrowd', 0)) for gt in gts]
+            from kgdet_tpu_torch.native import mask_iou_matrix
+            return mask_iou_matrix(d, g, crowd)
         return compute_oks(dts, gts, p.kpt_sigmas)
 
     # ---------------------------------------------------------------- per-img

@@ -1,4 +1,4 @@
-"""Dataset-level inference + COCO bbox/keypoint evaluation.
+"""Dataset-level inference + COCO bbox / keypoint / segm evaluation.
 
 Port of kgdet_tpu/eval_loop.py. Inference runs in canvas-bucketed batches
 (one predict function per canvas), the detections are copied to the host,
@@ -9,7 +9,10 @@ work only; every tensor op runs in the caller's thread on the model's
 device. In a process group each process infers its stride of the batches,
 the results are gathered onto every process and every process scores them,
 as the JAX package's run_eval does, so that none waits in a collective
-while another scores; process 0 alone writes the JSON files.
+while another scores; process 0 alone writes the JSON files. The mask
+families' detections carry their mask probabilities, which segm scoring
+pastes into the images on the host (models/mask_head.py::paste_masks)
+and encodes as RLE (native/).
 """
 from __future__ import annotations
 
@@ -136,7 +139,9 @@ def run_inference(model, cfg: KGDetConfig, loader: DataLoader,
     """Run the detector over a test loader; returns {img_id: detections}.
 
     Detections are (dets (N, 5), labels (N,), kpts (N, K*3)) numpy tuples in
-    original-image coordinates, deduped by img_id. A batch whose canvas has
+    original-image coordinates, deduped by img_id; the mask families add
+    their (N, S, S) mask probabilities and Mask Scoring R-CNN its (N,) mask
+    scores (4- and 5-tuples). A batch whose canvas has
     no predict function raises KeyError. ``timings``, where given, gathers
     the seconds spent waiting for batches (``data_s``) and in predict plus
     the copy to the host (``predict_s``), and the batches and images seen.
@@ -161,6 +166,8 @@ def run_inference(model, cfg: KGDetConfig, loader: DataLoader,
         det_bboxes = _host(dets['det_bboxes'])
         det_labels = _host(dets['det_labels'])
         det_kpts = _host(dets['det_kpts'])
+        extra = [_host(dets[k]) for k in ('det_masks', 'det_mask_scores')
+                 if k in dets]
         valid = _host(dets['valid'])
         clock['data_s'] += t_got - t_wait
         clock['predict_s'] += time.perf_counter() - t_got
@@ -170,8 +177,8 @@ def run_inference(model, cfg: KGDetConfig, loader: DataLoader,
             if img_id in results:
                 continue
             v = valid[i]
-            results[img_id] = (det_bboxes[i][v], det_labels[i][v],
-                               det_kpts[i][v])
+            results[img_id] = tuple(t[i][v] for t in (
+                det_bboxes, det_labels, det_kpts, *extra))
             n_done += 1
         if verbose:
             dt = time.time() - t0
@@ -206,25 +213,23 @@ def evaluate_results(results: Dict[int, tuple], dataset,
                      iou_types=('bbox', 'keypoints'), verbose: bool = True,
                      write: bool = True):
     """results -> COCO JSON -> AP stats dict (parity: coco_utils.coco_eval).
-    The JSON files go to ``out_prefix``.{bbox,keypoints}.json, by default
-    under the temporary directory, where ``write`` (process 0 of a group);
-    the scores are taken from the same lists in memory, so a process that
-    writes nothing returns the same (stats, files)."""
+    The JSON files go to ``out_prefix``.{bbox,keypoints,segm}.json, by
+    default under the temporary directory, where ``write`` (process 0 of a
+    group); the scores are taken from the same lists in memory, so a
+    process that writes nothing returns the same (stats, files)."""
     img_ids = sorted(results.keys())
     per_img = [results[i][:3] for i in img_ids]
     if out_prefix is None:
         out_prefix = os.path.join(tempfile.gettempdir(), 'kgdet_eval')
     dets = dict(zip(('bbox', 'keypoints'),
                     detections_to_json(per_img, img_ids, dataset.cat_ids)))
+    if 'segm' in iou_types:
+        dets['segm'] = segm_json(results, img_ids, dataset)
     files = {k: f'{out_prefix}.{k}.json' for k in dets}
     if write:
         os.makedirs(os.path.dirname(os.path.abspath(out_prefix)),
                     exist_ok=True)
         write_results(dets, files)
-
-    if 'segm' in iou_types:
-        files['segm'] = dets['segm'] = f'{out_prefix}.segm.json'
-        _write_segm_json(results, img_ids, dataset, files['segm'])
 
     stats = {}
     for iou_type in iou_types:
@@ -238,12 +243,32 @@ def evaluate_results(results: Dict[int, tuple], dataset,
     return stats, files
 
 
-def _write_segm_json(results, img_ids, dataset, path):
-    """Mask results as RLE JSON: the mask heads and the RLE code are not
-    ported yet (ROADMAP Queue 1 item 6)."""
-    raise NotImplementedError(
-        'segm results need the mask heads and RLE code of ROADMAP Queue 1 '
-        'item 6')
+def segm_json(results, img_ids, dataset):
+    """The segm result list: each detection's mask probabilities pasted
+    at its box in the original image and RLE-encoded (parity:
+    fcn_mask_head.get_seg_masks + segm2json). The score is the box's, or
+    Mask Scoring R-CNN's mask score where the result carries one (a
+    5-tuple); results without masks (3-tuples) add nothing."""
+    from kgdet_tpu_torch.models.mask_head import paste_masks
+    from kgdet_tpu_torch.native import RLE
+    out = []
+    for img_id in img_ids:
+        entry = results[img_id]
+        if len(entry) < 4:
+            continue
+        dets, labels, _, masks = entry[:4]
+        scores = entry[4] if len(entry) > 4 else dets[:, 4]
+        info = dataset.coco.imgs[img_id]
+        h, w = info['height'], info['width']
+        for i, full in enumerate(paste_masks(dets, masks, h, w)):
+            out.append({
+                'image_id': int(img_id),
+                'category_id': int(dataset.cat_ids[int(labels[i])]),
+                'score': round(float(scores[i]), 4),
+                'segmentation': {'size': [h, w], 'counts':
+                                 RLE.encode(full).to_string().decode()},
+            })
+    return out
 
 
 def infer_dataset(model, cfg: KGDetConfig, dataset,

@@ -8,9 +8,8 @@ whose anchors are static per canvas and made once a device; of the
 anchor-free ``FCOSHead`` (on the level grids) and of ``GARetinaHead``
 (guided anchors). ``get_head_family`` raises ``KeyError`` for any other
 name, as the JAX registry does. The two-stage detectors dispatch on
-``cfg.detector_type`` instead (``two_stage_decoder``, ``is_two_stage``):
-the box-only ones decode through core/two_stage_loss.py; the mask, grid
-and HTC decoders wait for ROADMAP Queue 1 item 6.
+``cfg.detector_type`` instead (``two_stage_decoder``, ``is_two_stage``),
+each decoding through core/two_stage_loss.py.
 """
 from __future__ import annotations
 
@@ -333,13 +332,14 @@ def two_stage_decoder(detector_type: str):
     table = {
         'faster_rcnn': tsl.decode_rcnn_detections,
         'fast_rcnn': tsl.decode_rcnn_detections,
+        'mask_rcnn': tsl.decode_rcnn_detections,
+        'ms_rcnn': tsl.decode_rcnn_detections,
         'double_head_rcnn': tsl.decode_rcnn_detections,
         'cascade_rcnn': tsl.decode_cascade_detections,
+        'grid_rcnn': tsl.decode_grid_detections,
+        'htc': tsl.decode_htc_detections,
         'rpn': tsl.decode_rpn_proposals,
     }
-    if detector_type in tsl.NOT_PORTED:
-        raise NotImplementedError(
-            f'the {detector_type} decode waits for {tsl.ITEM6}')
     if detector_type not in table:
         raise KeyError(f'unknown two-stage detector {detector_type}')
     return table[detector_type]

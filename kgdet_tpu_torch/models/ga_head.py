@@ -1,4 +1,4 @@
-"""Guided-anchoring head (GA-Retina).
+"""Guided-anchoring heads (GA-Retina, GA-RPN).
 
 Port of kgdet_tpu/models/ga_head.py: RetinaNet towers, then a 1x1
 ``conv_loc`` (anchor location logit, its bias at the focal-loss prior) off
@@ -18,8 +18,12 @@ their plain versions.
 Where the JAX package departs from the published recipe, the port follows
 the JAX package: one deformable group (18 offset channels; the reference
 has 4, 72 channels, so a reference checkpoint's ``conv_offset`` does not
-load), and the reference's masked convs evaluated densely. GA-RPN
-(``GARPNHead``) waits for the two-stage families (ROADMAP Queue 1 item 6).
+load), and the reference's masked convs evaluated densely.
+
+``GARPNHead`` (ga_rpn_head.py) is the two-stage detectors' guided-anchor
+RPN: a shared 3x3 ``rpn_conv``, ``conv_loc`` and ``conv_shape`` off it,
+one ``feature_adaption``, then the 1x1 class-agnostic ``conv_cls`` /
+``conv_reg``.
 
 Output per level, in the JAX layout: cls (1, B, H, W, num_classes), bbox
 (1, B, H, W, 4) deltas on the guided anchor, shape (1, B, H, W, 2), loc
@@ -119,10 +123,39 @@ class GARetinaHead(nn.Module):
 
 
 class GARPNHead(nn.Module):
-    """GA-RPN, the two-stage families' guided-anchoring RPN: not ported
-    yet."""
+    """Guided-anchor RPN: per level cls (1, B, H, W, 1) objectness, bbox
+    (1, B, H, W, 4) deltas on the guided anchor, shape and loc."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            'GA-RPN is queued with the two-stage families in ROADMAP Queue '
-            '1 item 6')
+    def __init__(self, in_channels: int = 256, feat_channels: int = 256):
+        super().__init__()
+        self.rpn_conv = nn.Conv2d(in_channels, feat_channels, 3, padding=1)
+        self.conv_loc = nn.Conv2d(feat_channels, 1, 1)
+        self.conv_shape = nn.Conv2d(feat_channels, 2, 1)
+        self.feature_adaption = FeatureAdaption(feat_channels, feat_channels)
+        self.conv_cls = nn.Conv2d(feat_channels, 1, 1)
+        self.conv_reg = nn.Conv2d(feat_channels, 4, 1)
+
+    def init_weights(self, gen):
+        """N(0, 0.01) weights and zero biases, an N(0, 0.1) offset conv,
+        the loc bias at the focal-loss prior (p = 0.01)."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, DeformConv3x3)):
+                init_normal_(m.weight, 0.01, gen)
+                if getattr(m, 'bias', None) is not None:
+                    nn.init.zeros_(m.bias)
+        init_normal_(self.feature_adaption.conv_offset.weight, 0.1, gen)
+        nn.init.constant_(self.conv_loc.bias, bias_prior(0.01))
+
+    def forward(self, feats):
+        outs = []
+        for x in feats:
+            dt = x.dtype
+            t = torch.relu(F.conv2d(x, self.rpn_conv.weight.to(dt),
+                                    self.rpn_conv.bias.to(dt), padding=1))
+            loc = head_out(t, self.conv_loc)
+            shape = head_out(t, self.conv_shape)
+            t_a = self.feature_adaption(t, shape[0].permute(0, 3, 1, 2))
+            outs.append({'cls': head_out(t_a, self.conv_cls),
+                         'bbox': head_out(t_a, self.conv_reg),
+                         'shape': shape, 'loc': loc})
+        return outs

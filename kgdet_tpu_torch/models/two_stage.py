@@ -1,7 +1,9 @@
 """Two-stage detectors: RPN head, RoI box heads, RPN, Faster / Fast R-CNN
-and Cascade R-CNN.
+with the mask, mask-IoU and grid branches (Mask R-CNN, Mask Scoring R-CNN,
+Grid R-CNN), GA-RPN, and Cascade R-CNN with HTC's mask stages and
+semantic branch.
 
-Port of kgdet_tpu/models/two_stage.py for the box-only detectors.
+Port of kgdet_tpu/models/two_stage.py.
 Proposals are fixed-size padded tensors (per level a top-``nms_pre`` by a
 stable descending sort, as jax.lax.top_k orders ties, then one greedy NMS
 over the levels for every image at once, ops/nms.py) and are detached. RoI
@@ -17,8 +19,10 @@ shared_head.layer4.<i>.* for C4), so a reference .pth loads as it is:
 ``shared_fcs.0`` and the double head's ``fc_branch.0`` flatten the RoI
 features in the reference's (C, roi, roi) order. The heads compute in the
 detector's dtype from f32 parameters; activations are NCHW into the heads,
-NHWC into the RoI gather. Masks, grids, HTC's semantic branch and GA-RPN
-raise ``NotImplementedError`` naming ROADMAP Queue 1 item 6.
+NHWC into the RoI gather. The mask heads are models/mask_head.py, the grid
+head models/grid_head.py, GA-RPN models/ga_head.py::GARPNHead with
+core/ga_loss.py::ga_rpn_proposals; every RoI gather (boxes at 7x7, masks
+and grids at 14x14, HTC's semantic RoIs) goes through ops/roi.py.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ import torch.nn.functional as F
 
 from kgdet_tpu_torch.core.anchor_loss import clamp_to_image
 from kgdet_tpu_torch.core.bbox_transforms import delta2bbox
-from kgdet_tpu_torch.core.two_stage_loss import CASCADE_STAGE_STDS, ITEM6
+from kgdet_tpu_torch.core.two_stage_loss import CASCADE_STAGE_STDS, \
+    RCNN_TARGET_STDS, _take
 from kgdet_tpu_torch.models.layers import head_out, init_he_normal_, \
     init_normal_, init_variance_scaling_, init_xavier_uniform_
 from kgdet_tpu_torch.models.resnet import ARCH_SETTINGS, Bottleneck, \
@@ -36,6 +41,12 @@ from kgdet_tpu_torch.models.resnet import ARCH_SETTINGS, Bottleneck, \
 from kgdet_tpu_torch.ops.anchors import base_anchors, grid_anchors
 from kgdet_tpu_torch.ops.nms import NEG_INF, greedy_nms
 from kgdet_tpu_torch.ops.roi import roi_align
+
+# RoIs the Grid R-CNN and HTC heads take (the JAX modules' num_grid_* and
+# num_mask_* fields, kgdet_tpu/models/two_stage.py:367-368 and :544-545):
+# the leading proposals in training, the top best-class boxes at test.
+NUM_HEAD_ROIS_TRAIN = 64
+NUM_HEAD_ROIS_TEST = 128
 
 
 def _linear(x, fc):
@@ -108,8 +119,15 @@ def rpn_proposals(rpn_outs, anchors_per_level, img_hw, nms_pre=1000,
             & (boxes[..., 3] - boxes[..., 1] > min_bbox_size)
         lvl_scores.append(torch.where(ok, top_scores, NEG_INF))
         lvl_boxes.append(boxes)
-    boxes = torch.cat(lvl_boxes, dim=1)
-    scores = torch.cat(lvl_scores, dim=1)
+    return proposals_nms(torch.cat(lvl_boxes, dim=1),
+                         torch.cat(lvl_scores, dim=1), nms_thr, max_num)
+
+
+def proposals_nms(boxes, scores, nms_thr, max_num):
+    """One greedy NMS of every image's candidates (B, N, 4) at once, kept
+    boxes gathered and padded: (proposals (B, max_num, 4), scores, valid);
+    a candidate scored NEG_INF is never kept."""
+    B = boxes.shape[0]
     keep_idx, keep_scores = greedy_nms(boxes, scores, nms_thr, max_num)
     valid = keep_scores > NEG_INF / 2
     safe = keep_idx.clamp(0, boxes.shape[1] - 1)
@@ -331,24 +349,36 @@ class AvgPoolBBoxHead(nn.Module):
 
 
 # -------------------------------------------------------------- detectors
-def _refuse(cfg, what):
-    raise NotImplementedError(f'{what} of detector_type '
-                              f'{cfg.detector_type!r} waits for {ITEM6}')
+def _top_k_stable(scores, k):
+    """Indices (B, k) of the k largest scores (B, R), ties in index order,
+    as jax.lax.top_k orders them."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True)[1][:, :k]
+
+
+def best_class_boxes(proposals, roi_cls, roi_reg):
+    """Each proposal refined by its best foreground class's deltas (the
+    reference layout: slice c + 1 for foreground class c), target stds
+    RCNN_TARGET_STDS. Returns (boxes (B, R, 4), fg scores (B, R, C))."""
+    B, R = proposals.shape[:2]
+    fg = F.softmax(roi_cls.float(), dim=-1)[..., 1:]
+    best = fg.argmax(-1)
+    reg = roi_reg.float().reshape(B, R, -1, 4)
+    reg_best = reg.gather(2, (best + 1)[..., None, None].expand(B, R, 1, 4)
+                          )[:, :, 0]
+    return delta2bbox(proposals.float(), reg_best,
+                      stds=RCNN_TARGET_STDS), fg
 
 
 class TwoStageBase(nn.Module):
-    """backbone -> neck -> (RPN): the parts every two-stage detector
-    shares. forward returns the JAX module's dict."""
+    """backbone -> neck -> (RPN, or GA-RPN where ``ga_rpn``): the parts
+    every two-stage detector shares. forward returns the JAX module's
+    dict."""
 
     def __init__(self, cfg, num_proposals_train=512, num_proposals_test=1000,
-                 with_rpn=True):
+                 with_rpn=True, ga_rpn=False):
         from kgdet_tpu_torch.models.detector import build_backbone, \
             build_neck, compute_dtype
         super().__init__()
-        if cfg.rpn_type == 'ga_rpn' and with_rpn:
-            _refuse(cfg, 'GA-RPN (rpn_type ga_rpn)')
-        if cfg.with_semantic:
-            _refuse(cfg, 'the semantic branch')
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
         self.num_proposals_train = num_proposals_train
@@ -356,11 +386,14 @@ class TwoStageBase(nn.Module):
         self.plain = False
         self.backbone = build_backbone(cfg.backbone)
         self.neck = build_neck(cfg.neck)
-        h = cfg.head
-        if with_rpn:
+        h, c = cfg.head, cfg.neck.out_channels
+        self.ga_rpn = with_rpn and ga_rpn
+        if self.ga_rpn:
+            from kgdet_tpu_torch.models.ga_head import GARPNHead
+            self.rpn_head = GARPNHead(c, c)
+        elif with_rpn:
             self.rpn_head = RPNHead(
-                cfg.neck.out_channels, cfg.neck.out_channels,
-                len(h.anchor_scales) * len(h.anchor_ratios))
+                c, c, len(h.anchor_scales) * len(h.anchor_ratios))
         self._anchor_sets = {}      # the static anchors, once a shape
 
     def heads(self):
@@ -383,8 +416,9 @@ class TwoStageBase(nn.Module):
 
     def use_plain_kernels(self, plain: bool = True):
         """Swap the kernels of the path (the frozen prefix's, the DCN
-        stages', the RoI gather's) for their plain PyTorch versions, or
-        back."""
+        stages' and GA-RPN's feature adaption's, the RoI gathers', and
+        through make_loss_fn the mask targets' gather) for their plain
+        PyTorch versions, or back."""
         if isinstance(self.backbone, ResNet):
             self.backbone.plain_prefix = plain
         for m in self.modules():
@@ -408,12 +442,34 @@ class TwoStageBase(nn.Module):
                 for f, s in zip(feats, h.point_strides)]
         return self._anchor_sets[key]
 
-    def propose(self, feats, img_hw, train):
+    def ga_squares(self, canvas, device):
+        """GA-RPN's square anchors of each level of ``canvas``, once a
+        canvas and device."""
+        from kgdet_tpu_torch.core.ga_loss import ga_squares
+        h = self.cfg.head
+        key = ('ga', tuple(canvas), device)
+        if key not in self._anchor_sets:
+            self._anchor_sets[key] = [
+                ga_squares(s, h.octave_base_scale, -(-canvas[0] // s),
+                           -(-canvas[1] // s), device=device)
+                for s in h.point_strides]
+        return self._anchor_sets[key]
+
+    def propose(self, feats, img_hw, train, canvas=None):
+        """The RPN's outputs and padded proposals; GA-RPN decodes on the
+        levels of ``canvas`` (the images' padded (H, W))."""
         rpn_outs = self.rpn_head(feats)
-        anchors = self.anchors(feats)
         n = self.num_proposals_train if train else self.num_proposals_test
-        proposals, scores, valid = rpn_proposals(rpn_outs, anchors, img_hw,
-                                                 max_num=n)
+        if self.ga_rpn:
+            from kgdet_tpu_torch.core.ga_loss import ga_rpn_proposals
+            anchors = None
+            proposals, scores, valid = ga_rpn_proposals(
+                rpn_outs, self.cfg.head, canvas, img_hw, max_num=n,
+                squares=self.ga_squares(canvas, img_hw.device))
+        else:
+            anchors = self.anchors(feats)
+            proposals, scores, valid = rpn_proposals(rpn_outs, anchors,
+                                                     img_hw, max_num=n)
         return dict(rpn_outs=rpn_outs, anchors=anchors, proposals=proposals,
                     proposal_scores=scores, proposal_valid=valid)
 
@@ -438,26 +494,37 @@ class RPNDetector(TwoStageBase):
 
     def forward(self, images, img_hw=None, train=True):
         return self.propose(self.features(images),
-                            self._img_hw(images, img_hw), train)
+                            self._img_hw(images, img_hw), train,
+                            canvas=images.shape[1:3])
 
 
 class FasterRCNN(TwoStageBase):
-    """backbone -> neck -> RPN (or, Fast R-CNN, proposals as inputs) ->
-    RoI box head: the ConvFC head, the double head
-    (detector_type 'double_head_rcnn') or, with cfg.rcnn_head
+    """backbone -> neck -> RPN or, with cfg.rpn_type 'ga_rpn', GA-RPN (or,
+    Fast R-CNN, proposals as inputs) -> RoI box head: the ConvFC head, the
+    double head (detector_type 'double_head_rcnn') or, with cfg.rcnn_head
     'res_layer' (C4), the shared layer4 and the average-pool head on 14x14
-    RoIs."""
+    RoIs.
+
+    Mask R-CNN (with_mask) adds a mask head on 14x14 RoIs: every proposal
+    in training, each proposal's best-class refined box at test (what the
+    NMS consumes); Mask Scoring R-CNN (with_maskiou) the mask-IoU head on
+    the best class's mask. Grid R-CNN (with_grid) trains the grid head on
+    the leading ``NUM_HEAD_ROIS_TRAIN`` proposals and at test refines the
+    top ``NUM_HEAD_ROIS_TEST`` best-class boxes by heatmap boundary voting
+    before the NMS (the reference refines the NMS survivors; a fixed top-K
+    keeps the shapes static, as in the JAX package)."""
 
     def __init__(self, cfg, external_proposals=False, **kw):
-        if cfg.detector_type in ('mask_rcnn', 'ms_rcnn'):
-            _refuse(cfg, 'the mask head')
-        if cfg.detector_type == 'grid_rcnn':
-            _refuse(cfg, 'the grid head')
-        super().__init__(cfg, with_rpn=not external_proposals, **kw)
+        super().__init__(cfg, with_rpn=not external_proposals,
+                         ga_rpn=cfg.rpn_type == 'ga_rpn', **kw)
         self.external_proposals = external_proposals
+        dt = cfg.detector_type
+        self.with_mask = dt in ('mask_rcnn', 'ms_rcnn')
+        self.with_maskiou = dt == 'ms_rcnn'
+        self.with_grid = dt == 'grid_rcnn'
         h, c = cfg.head, cfg.neck.out_channels
         self.roi_size = 7
-        if cfg.detector_type == 'double_head_rcnn':
+        if dt == 'double_head_rcnn':
             self.bbox_head = DoubleConvFCBBoxHead(h.num_classes, c)
         elif cfg.rcnn_head == 'res_layer':
             self.shared_head = SharedResLayer(cfg.backbone.depth,
@@ -466,6 +533,15 @@ class FasterRCNN(TwoStageBase):
             self.roi_size = 14
         else:
             self.bbox_head = ConvFCBBoxHead(h.num_classes, c)
+        if self.with_grid:
+            from kgdet_tpu_torch.models.grid_head import GridHead
+            self.grid_head = GridHead(in_channels=c)
+        if self.with_mask:
+            from kgdet_tpu_torch.models.mask_head import FCNMaskHead
+            self.mask_head = FCNMaskHead(h.num_classes, c)
+        if self.with_maskiou:
+            from kgdet_tpu_torch.models.mask_head import MaskIoUHead
+            self.mask_iou_head = MaskIoUHead(h.num_classes, c)
 
     def box_head(self, roi_feats):
         if not hasattr(self, 'shared_head'):
@@ -489,36 +565,123 @@ class FasterRCNN(TwoStageBase):
             out = dict(rpn_outs=None, anchors=None, proposals=proposals,
                        proposal_scores=valid.float(), proposal_valid=valid)
         else:
-            out = self.propose(feats, img_hw, train)
+            out = self.propose(feats, img_hw, train,
+                               canvas=images.shape[1:3])
         out['proposals'] = out['proposals'].float().detach()
         roi_feats = self.roi_feats(feats, out['proposals'],
                                    out['proposal_valid'], self.roi_size)
         out['roi_cls'], out['roi_reg'] = self.box_head(roi_feats)
+        if self.with_grid:
+            out.update(self.grid_forward(feats, out, train))
+        if self.with_mask:
+            out.update(self.mask_forward(feats, out, train))
         return out
+
+    def grid_forward(self, feats, out, train):
+        props, valid = out['proposals'], out['proposal_valid']
+        B, R = props.shape[:2]
+        if train:
+            K = min(NUM_HEAD_ROIS_TRAIN, R)
+            props = props[:, :K]
+            g = self.roi_feats(feats, props, valid[:, :K], 14)
+            fused, unfused = self.grid_head(g.flatten(0, 1), train=True)
+            hm = fused.shape[1:]
+            return dict(grid_fused=fused.reshape(B, K, *hm),
+                        grid_unfused=unfused.reshape(B, K, *hm),
+                        grid_props=props)
+        from kgdet_tpu_torch.models.grid_head import grid_refine_boxes
+        refined, fg = best_class_boxes(props, out['roi_cls'], out['roi_reg'])
+        best = torch.where(valid, fg.amax(-1), -1.0)
+        top = _top_k_stable(best, min(NUM_HEAD_ROIS_TEST, R))
+        refined, valid_k = _take(refined, top), valid.gather(1, top)
+        g = self.roi_feats(feats, refined.detach(), valid_k, 14)
+        heat, _ = self.grid_head(g.flatten(0, 1), train=False)
+        heat = heat.reshape(*top.shape, *heat.shape[1:])
+        return dict(grid_boxes=grid_refine_boxes(heat, refined),
+                    grid_scores=_take(fg, top), grid_valid=valid_k)
+
+    def mask_forward(self, feats, out, train):
+        props, valid = out['proposals'], out['proposal_valid']
+        B, R = props.shape[:2]
+        res = {}
+        if train:
+            boxes = props
+        else:
+            boxes, _ = best_class_boxes(props, out['roi_cls'],
+                                        out['roi_reg'])
+            res['refined_boxes'] = boxes
+        mfeats = self.roi_feats(feats, boxes.detach(), valid, 14)
+        logits = self.mask_head(mfeats.flatten(0, 1))
+        res['mask_logits'] = logits.reshape(B, R, *logits.shape[1:])
+        if self.with_maskiou:
+            fg = F.softmax(out['roi_cls'].float(), dim=-1)[..., 1:]
+            best = fg.argmax(-1)
+            best_mask = res['mask_logits'].gather(-1, best[
+                ..., None, None, None].expand(*res['mask_logits'].shape[:-1],
+                                              1))[..., 0]
+            res['maskiou_pred'] = self.mask_iou_head(mfeats, best_mask)
+        return res
 
 
 class CascadeRCNN(TwoStageBase):
-    """Cascade R-CNN, the box stages: a shared RPN and three ConvFC heads
-    with class-agnostic deltas; each stage's deltas, decoded with its stds,
-    clamped and detached, are the next stage's RoIs (cascade_rcnn.py)."""
+    """Cascade R-CNN: a shared RPN and three ConvFC heads with
+    class-agnostic deltas; each stage's deltas, decoded with its stds,
+    clamped and detached, are the next stage's RoIs (cascade_rcnn.py).
+
+    HTC (detector_type 'htc', htc.py) adds a mask head a stage with mask
+    information flow (stage i > 0 adds a 1x1 transform of stage i - 1's
+    pre-deconv features): in training on the leading
+    ``NUM_HEAD_ROIS_TRAIN`` proposals, at test on the
+    ``NUM_HEAD_ROIS_TEST`` best last-stage boxes by
+    the stages' mean score, the stages' logits averaged. With
+    cfg.with_semantic the semantic branch's embedding, RoI-aligned on its
+    fusion level (the second), is added to the box and mask RoI
+    features."""
 
     def __init__(self, cfg, num_stages=3, **kw):
-        if cfg.detector_type == 'htc':
-            _refuse(cfg, 'the HTC mask stages')
         super().__init__(cfg, **kw)
         h, c = cfg.head, cfg.neck.out_channels
         self.bbox_head = nn.ModuleList(
             ConvFCBBoxHead(h.num_classes, c, reg_class_agnostic=True)
             for _ in range(num_stages))
+        strides = h.point_strides
+        self.sem_stride = strides[1] if len(strides) > 1 else strides[0]
+        if cfg.with_semantic:
+            from kgdet_tpu_torch.models.mask_head import FusedSemanticHead
+            self.semantic_head = FusedSemanticHead(
+                num_ins=len(strides), in_channels=c, conv_channels=c,
+                num_classes=h.num_stuff_classes)
+        if cfg.detector_type == 'htc':
+            from kgdet_tpu_torch.models.mask_head import FCNMaskHead
+            self.mask_head = nn.ModuleList(
+                FCNMaskHead(h.num_classes, c, with_info_flow=i > 0)
+                for i in range(num_stages))
+
+    def add_semantic(self, roi_feats, sem_feat, rois, valid, out_size):
+        """roi_feats + the semantic embedding (B, H, W, C) RoI-aligned at
+        the fusion level's stride (htc.py:56-76), zero for an invalid
+        RoI."""
+        if sem_feat is None:
+            return roi_feats
+        s = roi_align(sem_feat, rois, out_size=out_size,
+                      spatial_scale=1.0 / self.sem_stride, sample_num=2,
+                      plain=self.plain)
+        return roi_feats + torch.where(valid[..., None, None, None], s,
+                                       torch.zeros_like(s))
 
     def forward(self, images, img_hw=None, train=True):
         img_hw = self._img_hw(images, img_hw)
         feats = self.features(images)
-        out = self.propose(feats, img_hw, train)
+        out = self.propose(feats, img_hw, train, canvas=images.shape[1:3])
         boxes, valid = out['proposals'], out['proposal_valid']
+        sem = None
+        if hasattr(self, 'semantic_head'):
+            out['semantic_pred'], sem = self.semantic_head(feats)
         stages = []
         for i, head in enumerate(self.bbox_head):
-            roi_cls, roi_reg = head(self.roi_feats(feats, boxes, valid))
+            roi = self.add_semantic(self.roi_feats(feats, boxes, valid),
+                                    sem, boxes, valid, 7)
+            roi_cls, roi_reg = head(roi)
             stages.append(dict(proposals=boxes, roi_cls=roi_cls,
                                roi_reg=roi_reg))
             if i < len(self.bbox_head) - 1:
@@ -526,7 +689,46 @@ class CascadeRCNN(TwoStageBase):
                     boxes, roi_reg.detach().float(),
                     stds=CASCADE_STAGE_STDS[i]), img_hw)
         out['stages'] = stages
+        if hasattr(self, 'mask_head'):
+            out.update(self.mask_forward(feats, sem, out, train))
         return out
+
+    def mask_forward(self, feats, sem, out, train):
+        props, valid = out['proposals'], out['proposal_valid']
+        stages = out['stages']
+        B, R = props.shape[:2]
+        res = {}
+        if train:
+            K = min(NUM_HEAD_ROIS_TRAIN, R)
+            mprops, mvalid = props[:, :K], valid[:, :K]
+            res['mask_props'] = mprops
+        else:
+            scores = sum(F.softmax(s['roi_cls'].float(), dim=-1)
+                         for s in stages) / len(stages)
+            fg = torch.where(valid[..., None], scores[..., 1:], 0.0)
+            last = stages[-1]
+            dec = delta2bbox(last['proposals'].float(),
+                             last['roi_reg'].float(),
+                             stds=CASCADE_STAGE_STDS[len(stages) - 1])
+            best = torch.where(valid, fg.amax(-1), -1.0)
+            top = _top_k_stable(best, min(NUM_HEAD_ROIS_TEST, R))
+            mprops, mvalid = _take(dec, top), valid.gather(1, top)
+            res.update(mask_boxes=mprops, mask_scores=_take(fg, top),
+                       mask_valid=mvalid)
+        mprops = mprops.detach()
+        mfeats = self.add_semantic(self.roi_feats(feats, mprops, mvalid, 14),
+                                   sem, mprops, mvalid, 14)
+        flat = mfeats.flatten(0, 1)
+        feat, logits = None, []
+        for head in self.mask_head:
+            lg, feat = head(flat, res_feat=feat, return_feat=True)
+            logits.append(lg.reshape(*mprops.shape[:2], *lg.shape[1:]))
+        if train:
+            res['mask_logits_stages'] = logits
+        else:
+            res['mask_logits'] = sum(lg.float() for lg in logits) \
+                / len(logits)
+        return res
 
 
 def build_two_stage(cfg):

@@ -223,9 +223,10 @@ BATCH_KEYS = ('image', 'valid_hw', 'gt_bboxes', 'gt_labels', 'gt_kpts',
               'gt_mask')
 # crowd regions, read by the refine assigner of the serial family and the
 # two-stage assigners when the batch has them; Fast R-CNN's precomputed
-# proposals
+# proposals; the mask families' ground-truth mask rasters and HTC's stuff
+# maps
 OPTIONAL_BATCH_KEYS = ('gt_bboxes_ignore', 'gt_ignore_mask', 'proposals',
-                       'proposals_valid')
+                       'proposals_valid', 'gt_masks', 'gt_semantic_seg')
 
 
 def two_stage_valid_flags(cfg: KGDetConfig, valid_hw, sizes):
@@ -256,7 +257,9 @@ def make_loss_fn(model, cfg: KGDetConfig, canvas_hw):
     The two-stage detectors (models/families.py::is_two_stage) also read
     the batch's scalar ``seed`` (0 where absent, as in the JAX package),
     which seeds their samplers (core/two_stage_loss.py::sampler_draw), and
-    Fast R-CNN its ``proposals`` (B, R, 4) with ``proposals_valid``."""
+    Fast R-CNN its ``proposals`` (B, R, 4) with ``proposals_valid``; the
+    mask families ``gt_masks`` (B, G, H / mask_stride, W / mask_stride)
+    and HTC ``gt_semantic_seg`` (B, H / seg_stride, W / seg_stride)."""
     from kgdet_tpu_torch.models.families import is_two_stage
     two_stage = is_two_stage(cfg.detector_type)
     if two_stage:
@@ -280,7 +283,8 @@ def make_loss_fn(model, cfg: KGDetConfig, canvas_hw):
                 [o['cls'].shape[2:4] for o in fwd['rpn_outs']]) \
                 if fwd['rpn_outs'] else None
             draw = sampler_draw(int(batch.get('seed', 0)), len(image), dev)
-            return loss(fwd, feed, draw, cfg, valids)
+            return loss(fwd, feed, draw, cfg, valids,
+                        canvas_hw=tuple(canvas_hw), plain=model.plain)
         if dev not in grids:
             grids[dev] = build_level_geometry(cfg, canvas_hw, device=dev)
         outs = model(image)

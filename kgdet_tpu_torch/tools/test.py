@@ -7,12 +7,15 @@ otherwise:
       configs/kgdet_moment_r50_fpn_1x_demo.py \
       [--checkpoint work_dirs/x/checkpoints/16 | --load-pth KGDet_epoch-12.pth] \
       [--json-out results] \
-      [--eval bbox keypoints] [--batch-size N] [--aug ...] \
-      [--device cpu] [--distributed]
+      [--eval bbox keypoints | --eval bbox segm] [--batch-size N] \
+      [--aug ...] [--device cpu] [--distributed]
 
 Emits {json_out}.bbox.json / {json_out}.keypoints.json in the reference's
-results2json format, scores them with the DeepFashion2 COCO evaluator and
-prints the ``bbox_mAP_copypaste:`` / ``keypoints_mAP_copypaste:`` lines.
+results2json format (and, for the mask families with ``--eval segm``,
+{json_out}.segm.json: each detection's mask pasted into its image and
+RLE-encoded), scores them with the DeepFashion2 COCO evaluator and prints
+the ``bbox_mAP_copypaste:`` / ``keypoints_mAP_copypaste:`` /
+``segm_mAP_copypaste:`` lines.
 Without ``--checkpoint`` or ``--load-pth`` the model has the config's
 seeded random weights.
 ``main(argv)`` runs in-process and returns the stats, the JSON files, the

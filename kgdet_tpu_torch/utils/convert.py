@@ -5,11 +5,15 @@ The inverse of kgdet_tpu/utils/torch_convert.py for the ported modules
 (the ResNet / ResNeXt backbones with their DCN blocks and plugins, HRNet,
 the SSDVGG trunk; the FPN, HRFPN, BFP and FPNBFP necks; the KGDet cascade
 heads, the serial / parallel / plain RepPoints heads, RetinaHead, SSDHead,
-FCOSHead and GARetinaHead; the two-stage detectors' rpn_head, ConvFC,
-double and average-pool box heads, the cascade's bbox_head.<stage> and the
-C4 shared_head): its layout maps are inverted, not re-derived. FCOS's flax
-``scales`` vector becomes one ``scales.<level>.scale`` scalar a level (the
-inverse of its ``_scales_tmp`` pass).
+FCOSHead and GARetinaHead; the two-stage detectors' rpn_head (GA-RPN's
+too), ConvFC, double and average-pool box heads, the cascade's
+bbox_head.<stage>, the C4 shared_head, mask_head (HTC's mask_head.<stage>),
+mask_iou_head, semantic_head and grid_head): its layout maps are inverted,
+not re-derived. FCOS's flax ``scales`` vector becomes one
+``scales.<level>.scale`` scalar a level (the inverse of its ``_scales_tmp``
+pass). The mask head's ``conv_logits`` gains the reference's background
+channel 0 as zeros (the JAX converter drops it); the grid head's per-point
+flax deconvs are stacked into the reference's grouped deconv1 / deconv2.
   _conv_kernel  (Cout,Cin,kh,kw) -> (kh,kw,Cin,Cout)   inverse: (3,2,0,1)
   _dense_kernel (Cout,Cin,1,1)   -> (Cin,Cout)     inverse: .T[..., None, None]
   _dcn_kernel   (Cout,Cin,k,k)   -> tap-major (k*k,Cin,Cout)
@@ -17,6 +21,8 @@ inverse of its ``_scales_tmp`` pass).
   _fc_kernel    (Cout,Cin)       -> (Cin,Cout)     inverse: .T
   _roi_flat_fc_kernel (Cout, C*r*r), inputs (C, r, r) -> (r*r*C, Cout),
                 inputs (r, r, C)     inverse: reshape, (3,2,0,1), reshape
+  _deconv_kernel (Cin,Cout,kh,kw) -> (kh,kw,Cin,Cout), spatially flipped
+                                  inverse: flip, (2,3,0,1)
 FrozenBatchNorm scale/bias and batch_stats mean/var map to
 weight/bias/running_mean/running_var (plus num_batches_tracked = 0, which
 reference checkpoints carry); GroupNorm scale/bias to weight/bias.
@@ -51,6 +57,17 @@ def _inv_roi_flat_fc(w, roi=7):
     c = in_f // (roi * roi)
     return np.transpose(w.reshape(roi, roi, c, out_f),
                         (3, 2, 0, 1)).reshape(out_f, in_f)
+
+
+def _inv_deconv(w):
+    return np.ascontiguousarray(np.transpose(w[::-1, ::-1], (2, 3, 0, 1)))
+
+
+def _inv_logits(w):
+    """The mask head's foreground conv_logits with a zero background
+    channel 0 in front (kernel or bias)."""
+    w = _inv_conv(w) if w.ndim == 4 else w
+    return np.concatenate([np.zeros_like(w[:1]), w], 0)
 
 
 def _inv_ln(w):                 # the context block's LayerNorm([C, 1, 1])
@@ -261,11 +278,110 @@ def _box_head_name(base, path):
     raise KeyError(f'{base}/{"/".join(path)}')
 
 
+def _conv_name(base, leaf, inv=_inv_conv):
+    """A plain conv's kernel or bias under ``base``."""
+    return (f'{base}.weight', inv) if leaf == 'kernel' \
+        else (f'{base}.bias', None)
+
+
+def _mask_head_name(base, path):
+    mod, leaf = path[0], path[-1]
+    m = re.match(r'conv_(\d+)$', mod)
+    if m:
+        return _conv_name(f'{base}.convs.{m.group(1)}.conv', leaf)
+    if mod == 'conv_res':
+        return _conv_name(f'{base}.conv_res.conv', leaf)
+    if mod == 'upsample':
+        return _conv_name(f'{base}.upsample', leaf, _inv_deconv)
+    if mod == 'conv_logits':
+        name, _ = _conv_name(f'{base}.conv_logits', leaf)
+        return name, _inv_logits
+    raise KeyError(f'{base}/{"/".join(path)}')
+
+
+def _maskiou_head_name(path):
+    mod, leaf = path[0], path[-1]
+    m = re.match(r'(conv|fc)_(\d+)$', mod)
+    if m and m.group(1) == 'conv':
+        return _conv_name(f'mask_iou_head.convs.{m.group(2)}', leaf)
+    if m:
+        inv = _inv_roi_flat_fc if m.group(2) == '0' else _inv_fc
+        return _conv_name(f'mask_iou_head.fcs.{m.group(2)}', leaf, inv)
+    if mod == 'fc_mask_iou':
+        return _conv_name('mask_iou_head.fc_mask_iou', leaf, _inv_fc)
+    raise KeyError(f'mask_iou_head/{"/".join(path)}')
+
+
+def _semantic_head_name(path):
+    mod, leaf = path[0], path[-1]
+    m = re.match(r'(lateral_convs|convs)_(\d+)$', mod)
+    if m:
+        return _conv_name(f'semantic_head.{m.group(1)}.{m.group(2)}.conv',
+                          leaf)
+    if mod == 'conv_embedding':
+        return _conv_name('semantic_head.conv_embedding.conv', leaf)
+    if mod == 'conv_logits':
+        return _conv_name('semantic_head.conv_logits', leaf)
+    raise KeyError(f'semantic_head/{"/".join(path)}')
+
+
+def _grid_head_name(path):
+    """The grid head's leaves but its per-point deconvs (``_grid_deconvs``
+    stacks those)."""
+    mod, leaf = path[0], path[-1]
+    m = re.match(r'convs_(gn_)?(\d+)$', mod)
+    if m and m.group(1):
+        return f'grid_head.convs.{m.group(2)}.gn.{_NORM_LEAF[leaf]}', None
+    if m:
+        return _conv_name(f'grid_head.convs.{m.group(2)}.conv', leaf)
+    m = re.match(r'(forder|sorder)_(\d+)_(\d+)$', mod)
+    if m:
+        seq = 0 if path[1] == 'dw' else 1
+        return _conv_name(f'grid_head.{m.group(1)}_trans.{m.group(2)}.'
+                          f'{m.group(3)}.{seq}', leaf)
+    if mod == 'deconv1_gn':
+        return f'grid_head.norm1.{_NORM_LEAF[leaf]}', None
+    raise KeyError(f'grid_head/{"/".join(path)}')
+
+
+def _grid_deconvs(tree):
+    """The flax per-point deconv1_<i> / deconv2_<i> of a grid head stacked
+    as the reference's grouped ConvTranspose2d weights and biases:
+    deconv1 (P * c, c, 4, 4), deconv2 (P * c, 1, 4, 4) with bias (P,)."""
+    out = {}
+    for name in ('deconv1', 'deconv2'):
+        pts = sorted((int(k.split('_')[1]), v) for k, v in tree.items()
+                     if re.match(rf'{name}_\d+$', k))
+        if not pts:
+            continue
+        out[f'grid_head.{name}.weight'] = np.concatenate(
+            [_inv_deconv(np.asarray(v['kernel'], np.float32))
+             for _, v in pts])
+        out[f'grid_head.{name}.bias'] = np.concatenate(
+            [np.asarray(v['bias'], np.float32) for _, v in pts])
+    return out
+
+
 def _two_stage_name(comp, path):
-    """rpn_head, bbox_head, bbox_head_<stage> and shared_head leaves."""
+    """rpn_head (GA-RPN's too), bbox_head, bbox_head_<stage>, shared_head,
+    mask_head, mask_head_<stage>, mask_iou_head, semantic_head and
+    grid_head leaves."""
     if comp == 'rpn_head':
-        return (f'rpn_head.{path[0]}.weight', _inv_conv) \
-            if path[1] == 'kernel' else (f'rpn_head.{path[0]}.bias', None)
+        if path[0] == 'feature_adaption':        # GA-RPN
+            base = f'rpn_head.feature_adaption.{path[1]}.weight'
+            return (base, _inv_conv) if path[1] == 'conv_offset' \
+                else (base, _inv_dcn)
+        return _conv_name(f'rpn_head.{path[0]}', path[1])
+    m = re.match(r'mask_head(?:_(\d+))?$', comp)
+    if m:
+        return _mask_head_name('mask_head' if m.group(1) is None
+                               else f'mask_head.{m.group(1)}', path)
+    if comp == 'mask_iou_head':
+        return _maskiou_head_name(path)
+    if comp == 'semantic_head':
+        return _semantic_head_name(path)
+    if comp == 'grid_head':
+        return _grid_head_name(path)
     if comp == 'shared_head':       # layer4.<i>, as the backbone's blocks
         name, inv = _backbone_name(path)
         return 'shared_head' + name[len('backbone'):], inv
@@ -285,8 +401,13 @@ def state_dict_from_jax(variables: Dict) -> 'OrderedDict[str, torch.Tensor]':
     if variables.get('batch_stats'):
         trees.append(variables['batch_stats'])
     for tree in trees:
+        for name, v in _grid_deconvs(tree.get('grid_head', {})).items():
+            state[name] = torch.from_numpy(v)
         for path, v in _flatten(tree):
             comp, rest = path[0], path[1:]
+            if comp == 'grid_head' and re.match(r'deconv[12]_\d+$',
+                                                rest[0]):
+                continue
             if (comp, rest) == ('head', ('scales',)):    # FCOS, a level each
                 for i, scale in enumerate(v):
                     state[f'bbox_head.scales.{i}.scale'] = torch.tensor(

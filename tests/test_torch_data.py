@@ -410,10 +410,13 @@ def test_dataset_reads_png_without_cv2_as_jax_with_it(tmp_path, monkeypatch):
 
 
 def test_two_stage_inputs_raise_naming_item_6(synth_dir):
-    """The mask families' inputs (mask rasters, semantic maps) raise naming
-    item 6; Fast R-CNN's proposal file, ported with the box-only two-stage
-    detectors, loads (tests/test_torch_two_stage.py holds its samples
-    against the JAX package's)."""
+    """The mask families' inputs, which raised naming ROADMAP item 6 until
+    they were ported: mask rasters (zero for annotations without polygons)
+    and stuff maps (255 where an image has none) equal to the JAX
+    dataset's, in training and at test (tests/test_torch_mask_families.py
+    holds them on polygons and stuff PNGs); Fast R-CNN's proposal file
+    loads (tests/test_torch_two_stage.py holds its samples against the JAX
+    package's)."""
     d, ann, _ = synth_dir
 
     def port(**kw):
@@ -426,9 +429,14 @@ def test_two_stage_inputs_raise_naming_item_6(synth_dir):
     sample = port(proposal_file=path, num_proposals=8).prepare_test(0)
     assert sample['proposals'].shape == (8, 4)
     assert sample['proposals_valid'].tolist() == [True] * 3 + [False] * 5
-    for kw in (dict(with_mask=True), dict(seg_prefix=d)):
-        with pytest.raises(NotImplementedError, match='item 6'):
-            port(**kw).prepare_train(0, np.random.RandomState(0))
+    for kw, key in ((dict(with_mask=True), 'gt_masks'),
+                    (dict(seg_prefix=d), 'gt_semantic_seg')):
+        jds, tds = _datasets(d, ann, True, **kw)
+        got = tds.prepare_train(0, np.random.RandomState(0))
+        assert_same(got, jds.prepare_train(0, np.random.RandomState(0)))
+        assert key in got
+        assert not got['gt_masks'].any() if key == 'gt_masks' \
+            else (got[key] == 255).all()
 
 
 # ------------------------------------------------------------------- loader

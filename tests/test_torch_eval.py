@@ -256,14 +256,30 @@ def test_iou_and_oks_match_jax():
 
 
 def test_segm_raises_naming_item_6(setup):
+    """Segm results, which raised naming ROADMAP item 6 until the RLE code
+    was ported: polygons, uncompressed and compressed RLE load into the
+    port's CocoIndex with the area and box the JAX index gives them."""
+    from kgdet_tpu_torch.native import RLE
     gt = tcoco.CocoIndex(setup['tcfg'].val_data.ann_file)
+    jgt = jcoco.CocoIndex(setup['jcfg'].val_data.ann_file)
+    img = gt.imgs[gt.img_ids[0]]
+    h, w = img['height'], img['width']
+    m = np.zeros((h, w), np.uint8)
+    m[10:40, 20:70] = 1
+    rle = RLE.encode(m)
     seg = [{'image_id': gt.img_ids[0], 'category_id': 1, 'score': 0.5,
-            'segmentation': [[0, 0, 10, 0, 10, 10]]}]
-    with pytest.raises(NotImplementedError, match='item 6'):
-        gt.load_results(seg)
-    with pytest.raises(NotImplementedError, match='item 6'):
-        teval_loop.evaluate_results(setup['jresults'], setup['tds'],
-                                    iou_types=('segm',), verbose=False)
+            'segmentation': [[0, 0, 10, 0, 10, 10], [30, 30, 50, 30, 40,
+                                                     60]]},
+           {'image_id': gt.img_ids[0], 'category_id': 2, 'score': 0.4,
+            'segmentation': {'size': [h, w],
+                             'counts': rle.to_string().decode()}},
+           {'image_id': gt.img_ids[0], 'category_id': 3, 'score': 0.3,
+            'segmentation': {'size': [h, w],
+                             'counts': rle.counts.tolist()}}]
+    got, want = gt.load_results(seg), jgt.load_results(seg)
+    assert_same(got.dataset['annotations'], want.dataset['annotations'])
+    assert [a['area'] for a in got.dataset['annotations'][1:]] == \
+        [1500.0, 1500.0]
 
 
 def test_recall_and_mean_ap_match_jax(setup):
@@ -550,3 +566,150 @@ def test_chip_smoke_png_writer_round_trips_through_cv2(tmp_path):
         image_io.write_png(path, img)
         assert_same(cv2.imread(path, cv2.IMREAD_COLOR), img)
         assert_same(image_io.np_imread(path), img)
+
+
+# ------------------------------------------------------------------- segm
+def _segm_set(d):
+    """make_eval_set's PNGs, each annotation (the crowd region too) with a
+    polygon inside its box: (annotation file, its JSON)."""
+    from tests.test_torch_mask_families import add_polygons
+    ann = add_polygons(make_eval_set(d))
+    with open(ann) as f:
+        return ann, json.load(f)
+
+
+def _gt_masks(coco, img_id):
+    from kgdet_tpu_torch.native import RLE
+    im = next(i for i in coco['images'] if i['id'] == img_id)
+    out = []
+    for a in coco['annotations']:
+        if a['image_id'] != img_id or a.get('iscrowd', 0):
+            continue
+        rle = None
+        for poly in a['segmentation']:
+            r = RLE.from_poly(poly, im['height'], im['width'])
+            rle = r if rle is None else rle.merge(r)
+        out.append((a, rle))
+    return out
+
+
+def test_segm_ground_truth_scores_ap_1_in_both_evaluators(tmp_path):
+    """The ground truth's polygons as segm detections (RLE strings of the
+    port's RLE): every segm stat equal in both evaluators, AP 1.0."""
+    ann, coco = _segm_set(str(tmp_path))
+    dets = [{'image_id': a['image_id'], 'category_id': a['category_id'],
+             'score': 1.0, 'segmentation': {
+                 'size': [rle.h, rle.w],
+                 'counts': rle.to_string().decode()}}
+            for im in coco['images'] for a, rle in _gt_masks(coco, im['id'])]
+    stats = []
+    for cindex, cev in ((tcoco, tcocoeval), (jcoco, jcocoeval)):
+        gt = cindex.CocoIndex(ann)
+        ev = cev.CocoEvaluator(gt, gt.load_results(dets), 'segm')
+        ev.evaluate()
+        ev.accumulate()
+        stats.append(ev.summarize(verbose=False))
+    assert stats[0] == stats[1]
+    assert stats[0]['AP'] == pytest.approx(1.0)
+
+
+def _mask_results(coco, seed=0, rescored=False):
+    """Per image: the ground truths as detections (boxes jittered, random
+    scores and one spurious detection), each with 28x28 mask probabilities
+    cropped from its own mask plus noise, and with ``rescored`` a mask
+    score (5-tuples)."""
+    rng = np.random.RandomState(seed)
+    cat_ids = sorted(c['id'] for c in coco['categories'])
+    out = {}
+    for im in coco['images']:
+        boxes, labels, probs = [], [], []
+        for a, rle in _gt_masks(coco, im['id']):
+            x, y, w, h = a['bbox']
+            boxes.append([x + rng.uniform(-2, 2), y + rng.uniform(-2, 2),
+                          x + w - 1, y + h - 1, rng.rand()])
+            labels.append(cat_ids.index(a['category_id']))
+            m = rle.decode()[int(y):int(y + h), int(x):int(x + w)]
+            yy = np.linspace(0, m.shape[0] - 1, 28).astype(int)
+            xx = np.linspace(0, m.shape[1] - 1, 28).astype(int)
+            probs.append(np.clip(m[yy][:, xx] * 0.8 + rng.rand(28, 28) * 0.3,
+                                 0, 1))
+        boxes.append([1, 1, 30, 40, 0.2])
+        labels.append(int(rng.randint(13)))
+        probs.append(rng.rand(28, 28))
+        entry = (np.asarray(boxes, np.float32), np.asarray(labels),
+                 np.zeros((len(boxes), 294 * 3), np.float32),
+                 np.asarray(probs, np.float32))
+        if rescored:
+            entry += (entry[0][:, 4] * rng.uniform(0.2, 1.0, len(boxes)),)
+        out[im['id']] = entry
+    return out
+
+
+@pytest.mark.parametrize('rescored', [False, True])
+def test_segm_json_and_stats_match_jax(tmp_path, rescored):
+    """evaluate_results with bbox and segm on results carrying mask
+    probabilities (4-tuples; Mask Scoring R-CNN's 5-tuples score the
+    masks by their own scores): the segm JSON file equal to the JAX
+    package's and every stat equal."""
+    d = str(tmp_path)
+    ann, coco = _segm_set(d)
+    data = dict(ann_file=ann, img_prefix=d, img_scale=(96, 64),
+                canvas_hw=CANVASES)
+    from kgdet_tpu.config import DataConfig as JDataConfig
+    from kgdet_tpu_torch.config import DataConfig as TDataConfig
+    jds = JDataset(JDataConfig(**data), train=False)
+    tds = TDataset(TDataConfig(**data), train=False)
+    results = _mask_results(coco, rescored=rescored)
+    got, gfiles = teval_loop.evaluate_results(
+        results, tds, os.path.join(d, 't'), iou_types=('bbox', 'segm'),
+        verbose=False)
+    want, wfiles = jeval_loop.evaluate_results(
+        results, jds, os.path.join(d, 'j'), iou_types=('bbox', 'segm'))
+    assert got == want
+    for k in ('bbox', 'segm'):
+        with open(gfiles[k]) as f, open(wfiles[k]) as g:
+            assert json.load(f) == json.load(g)
+    assert got['segm']['AP'] > 0.3
+
+
+def test_test_cli_segm_matches_jax_cli(tmp_path, monkeypatch, capsys):
+    """tools/test.py --eval bbox segm on a tiny Mask R-CNN with the JAX
+    package's weights in a .pth, against the JAX package's CLI on the
+    same file and the same polygon set: both copypaste lines within
+    1e-3, one segm result an image with detections."""
+    from kgdet_tpu.config import DataConfig as JDataConfig
+    from kgdet_tpu.tools import test as jtest_cli
+    from tests.test_torch_dist import write_port_config
+    from tests.test_torch_mask_families import HEAD_GAIN, _gain, kind_cfg
+    d = str(tmp_path)
+    ann, _ = _segm_set(d)
+    cfg = kind_cfg('mask').replace(val_data=JDataConfig(
+        ann_file=ann, img_prefix=d, img_scale=(96, 64), batch_size=2,
+        canvas_hw=CANVASES))
+    path = write_port_config(os.path.join(d, 'cfg.py'), cfg)
+    jmodel = jbuild_model(cfg)
+    variables = _gain(_perturb(init_variables(jmodel, cfg,
+                                              canvas_hw=CANVASES[0])))
+    assert HEAD_GAIN > 1
+    pth = os.path.join(d, 'w.pth')
+    torch.save({'state_dict': state_dict_from_jax(variables)}, pth)
+    got = ttest.main([path, '--load-pth', pth, '--device', 'cpu',
+                      '--eval', 'bbox', 'segm', '--json-out',
+                      os.path.join(d, 'out')])
+    monkeypatch.setattr(sys, 'argv', ['test.py', path, '--load-pth', pth,
+                                      '--eval', 'bbox', 'segm',
+                                      '--json-out', os.path.join(d, 'jout')])
+    jtest_cli.main()
+    out = capsys.readouterr().out
+    for iou_type in ('bbox', 'segm'):
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith(f'{iou_type}_mAP_copypaste: ')]
+        assert len(lines) == 2, out[-2000:]
+        a, b = ([float(v) for v in ln.split(': ')[1].split()]
+                for ln in lines)
+        np.testing.assert_allclose(a, b, atol=1e-3, err_msg=iou_type)
+    with open(got['files']['segm']) as f:
+        segm = json.load(f)
+    assert {r['image_id'] for r in segm} == {
+        i for i, r in got['results'].items() if len(r[0])}
+    assert all(len(r) == 4 for r in got['results'].values())

@@ -642,12 +642,17 @@ def test_family_trainer_steps_and_frozen_prefix(family):
 
 def test_registry_errors_and_ga_rpn():
     """get_head_family raises KeyError for an unknown name, as the JAX
-    registry; GA-RPN and its loss and proposals raise naming item 6."""
+    registry; GA-RPN, which raised naming item 6 until it was ported,
+    builds with the reference's module names and its loss and proposals
+    exist (tests/test_torch_mask_families.py holds them against the JAX
+    package)."""
     with pytest.raises(KeyError, match='unknown head family'):
         get_head_family('nope')
-    for fn in (lambda: GARPNHead(), lambda: ga_loss.ga_rpn_loss(),
-               lambda: ga_loss.ga_rpn_proposals()):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
-            fn()
+    head = GARPNHead(32, 16)
+    assert sorted(n for n, _ in head.named_children()) == [
+        'conv_cls', 'conv_loc', 'conv_reg', 'conv_shape',
+        'feature_adaption', 'rpn_conv']
+    assert callable(ga_loss.ga_rpn_loss) and \
+        callable(ga_loss.ga_rpn_proposals)
     grids = level_grids(family_cfg('FCOSHead'), CANVAS)
     assert [len(g) for g in grids] == [96, 24, 6]

@@ -18,8 +18,10 @@ ResNet per-block route (K8) against the chain (K4+K5), K6 and K3 at the
 DCN backbone's stride-2 shapes, at GA-Retina's P3 and at ResNeXt-101's
 grouped DCN shapes (up to 1024 channels), the grouped DCN module, the DCN
 cascade's served launch counts, one served SSD300 batch, RoIAlign on K6 /
-K3 at Faster R-CNN's P2 and the C4 map, and Faster R-CNN's served and
-trained launch counts. f32
+K3 at Faster R-CNN's P2 and the C4 map, Faster R-CNN's served and trained
+launch counts, RoIAlign on K6 / K3 at Mask R-CNN's mask RoIs and the mask
+targets' 32-channel map, the mask targets on K6, and Mask R-CNN's served
+launch counts. f32
 tolerance rtol 1e-5, atol 1e-4 (chip_smoke.py's); K3's gradient map is
 summed with f32 atomics in an order that changes from run to run, which that
 tolerance covers. bf16: the kernel's error against the plain version in
@@ -1268,3 +1270,87 @@ def test_faster_rcnn_served_batch_and_step_launch_counts(gen):
     assert [w.launches - b for w, b in zip(wrappers, before)] == \
         [0, 1, 3, 5, 0, 5, 0]
     assert all(torch.isfinite(v) for v in logs.values())
+
+
+@pytest.mark.parametrize('H,W,C,out,R', [
+    (200, 336, 256, 14, 512),   # Mask R-CNN's mask RoIs on P2, 784 samples
+    (200, 336, 32, 28, 512),    # the mask targets' map: 32 masks as channels
+])
+def test_roi_align_on_k6_k3_at_the_mask_shapes(gen, H, W, C, out, R):
+    """ops/roi.py::roi_align on the card at chip_smoke.py's phase 1 mask
+    shapes, batch 2, scale 1/4: one K6 launch forward and one K3 backward,
+    f32 within TOL of the plain versions and the map's gradient within
+    1e-4 of its largest value; bf16 within twice the plain version's error
+    (or 1e-4 of the largest gradient)."""
+    from kgdet_tpu_torch.ops.roi import roi_align
+    b, stride = 2, 4
+    xy = torch.rand((b, R, 2), generator=gen) \
+        * torch.tensor([W * stride - 64.0, H * stride - 64.0])
+    wh = 16.0 + torch.rand((b, R, 2), generator=gen) * 300
+    boxes = torch.cat([xy, xy + wh], -1).cuda()
+    feat = _randn(gen, b, H, W, C)
+    cot = _randn(gen, b, R, out, out, C)
+
+    def run(dtype, plain):
+        f = feat.to(dtype).requires_grad_(True)
+        y = roi_align(f, boxes, out, 1.0 / stride, 2, plain=plain)
+        g, = torch.autograd.grad((y.float() * cot).sum(), f)
+        return y.detach().float(), g.float()
+    k6, k3 = dk.deform_sample_cols.launches, dk.deform_sample_bwd.launches
+    got = run(torch.float32, False)
+    assert (dk.deform_sample_cols.launches, dk.deform_sample_bwd.launches) \
+        == (k6 + 1, k3 + 1)
+    want = run(torch.float32, True)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5,
+                               atol=1e-4 * want[1].abs().max().item())
+    for k, p, w in zip(run(torch.bfloat16, False), run(torch.bfloat16, True),
+                       want):
+        assert (k - w).abs().max() <= max(2 * (p - w).abs().max().item(),
+                                          1e-4 * w.abs().max().item())
+
+
+def test_mask_targets_on_k6_match_the_plain_gather(gen):
+    """models/mask_head.py::mask_targets on the card: the 32 ground-truth
+    masks of an image as the channels of one map, one K6 launch, equal to
+    the plain gather within TOL."""
+    from kgdet_tpu_torch.models.mask_head import mask_targets
+    masks = (torch.rand((2, 32, 200, 336), generator=gen) > 0.5).float() \
+        .cuda()
+    assigned = torch.randint(0, 32, (2, 512), generator=gen).cuda()
+    xy = torch.rand((2, 512, 2), generator=gen) * 1200
+    boxes = torch.cat([xy, xy + 16 + torch.rand((2, 512, 2),
+                                                generator=gen) * 400],
+                      -1).cuda()
+    k6 = dk.deform_sample_cols.launches
+    got = mask_targets(masks, assigned, boxes, 4)
+    assert dk.deform_sample_cols.launches == k6 + 1
+    want = mask_targets(masks, assigned, boxes, 4, plain=True)
+    assert got.shape == (2, 512, 28, 28)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def test_mask_rcnn_served_batch_launch_counts(gen):
+    """configs/mask_rcnn_r50_fpn_1x_deepfashion2.py (f32) on the card at
+    256x384, batch 2: a served batch launches K4 1, K5 3, K6 10 (5 levels
+    for the boxes, 5 for the masks) and nothing else, with finite
+    detections and mask probabilities in [0, 1]."""
+    from kgdet_tpu_torch.api import build_model, make_predict_fn
+    cfg = _two_stage_cfg('mask_rcnn_r50_fpn')
+    canvas = (256, 384)
+    wrappers = (dk.deform_conv_fused, sk.stem_pool, sk.frozen_bottleneck,
+                dk.deform_sample_cols, dk.deform_sample_split,
+                dk.deform_sample_bwd, rb.fused_bottleneck)
+    model = build_model(cfg).init_weights(0).eval()
+    batch = {'image': torch.randint(0, 256, (2, *canvas, 3),
+                                    generator=gen).to(torch.uint8),
+             'img_hw': torch.tensor([[256.0, 380.0], [240.0, 384.0]]),
+             'scale_factor': torch.tensor([1.0, 0.5])}
+    before = [w.launches for w in wrappers]
+    dets = make_predict_fn(model, cfg, canvas)(batch)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [0, 1, 3, 10, 0, 0, 0]
+    assert torch.isfinite(dets['det_bboxes']).all() and dets['valid'].any()
+    masks = dets['det_masks']
+    assert masks.shape == (2, 100, 28, 28)
+    assert masks.min() >= 0 and masks.max() <= 1

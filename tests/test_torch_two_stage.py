@@ -424,25 +424,28 @@ def test_decodes_match_jax(detector_type):
 
 
 def test_mask_grid_htc_and_ga_rpn_raise_naming_item_6():
-    """The detectors with masks or grids, HTC and GA-RPN raise
-    NotImplementedError naming item 6 wherever they are reached; unknown
-    names raise KeyError, as in the JAX package."""
+    """The detectors with masks or grids, HTC and GA-RPN, which raised
+    NotImplementedError naming item 6 until they were ported, now build
+    (the three mask config files as they ship, Grid R-CNN and the GA-RPN
+    Faster R-CNN in code) and have the JAX package's loss and decode
+    entries; unknown names raise KeyError, as in the JAX package."""
     cfg = load_config(os.path.join(
         ROOT, 'configs', 'faster_rcnn_r50_fpn_1x_deepfashion2.py'))
-    for path in ('mask_rcnn', 'ms_rcnn', 'htc'):
+    for path, cls in (('mask_rcnn', ts.FasterRCNN), ('ms_rcnn',
+                                                      ts.FasterRCNN),
+                      ('htc', ts.CascadeRCNN)):
         other = load_config(os.path.join(
             ROOT, 'configs', f'{path}_r50_fpn_1x_deepfashion2.py'))
-        with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
-            build_model(other, device='cpu')
-    for bad in (cfg.replace(detector_type='grid_rcnn'),
-                cfg.replace(rpn_type='ga_rpn')):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
-            build_model(bad, device='cpu')
-    for dt in tsl.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
-            tsl.two_stage_loss_fn(dt)
-        with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
-            families.two_stage_decoder(dt)
+        assert type(build_model(other, device='cpu')) is cls
+    grid = build_model(cfg.replace(detector_type='grid_rcnn'), device='cpu')
+    ga = build_model(cfg.replace(rpn_type='ga_rpn'), device='cpu')
+    assert hasattr(grid, 'grid_head') and type(ga.rpn_head).__name__ == \
+        'GARPNHead'
+    for dt in ('mask_rcnn', 'ms_rcnn', 'grid_rcnn', 'htc'):
+        assert tsl.two_stage_loss_fn(dt).__name__ == \
+            jtsl.two_stage_loss_fn(dt).__name__
+        assert families.two_stage_decoder(dt).__name__ == \
+            jfamilies.two_stage_decoder(dt).__name__
     with pytest.raises(KeyError, match='unknown two-stage detector'):
         families.two_stage_decoder('nope')
     with pytest.raises(KeyError, match='unknown two-stage detector'):
