@@ -243,10 +243,24 @@ bbox segm runs Mask R-CNN (both copypaste lines, a segm result an image
 with detections). Phase 1 also holds K6 / K3 at the mask RoIs (P2 200x336x256,
 2 x 512 RoIs x 784 samples) and the mask targets' map (200x336x32, 512 RoIs
 x 3136 samples).
+Phase 16, the utilities on the cascade config at full width (seeded random
+weights): (a) utils/bn_calibration.py::calibrate_frozen_bn over two
+synthetic batches of 2 (every FrozenBatchNorm set, finite stats, the
+stem's away from (0, 1)), then one served batch on the refolded prefix (K1
+12 / K4 1 / K5 3) and the calibrated prefix on K4 / K5 against the plain
+prefix on the same weights (F32_TOL of the output's scale in f32,
+BF16_RATIO in bf16); (b)
+tools/test_robustness.py in-process on 8 synthetic PNGs, 2 corruptions x
+2 severities (K1 12 / K4 1 / K5 3 a forward, the JSON's five settings);
+(c) tools/profile.py --mode infer and --mode train at batch 2, 2 steps
+(the Chrome trace names K1, K4, K5, resp. K2, K3, K4, K5 among its device
+kernels); (d) tools/get_flops.py at 1280x800 (K1's 12 calls
+by PERF.md section 6's formula); (e) tools/visualize.py on one PNG (the
+output differs from the input on every drawn box's outline).
 
 Prints the card's name and power limit, one line per check, a JSON line of
 the seven kernels (launches on each main path, the evaluation CLI's
-and phases 12 to 15 included, error, wrapper and device times, bound), and as
+and phases 12 to 16 included, error, wrapper and device times, bound), and as
 its last line {"ok": true, "device": {...}}. Exits
 nonzero, with no result line, when a check fails or no CUDA device is
 present. Imports nothing of JAX and nothing of the JAX package.
@@ -4746,7 +4760,290 @@ def phase_masks(torch, gpu):
     return launches
 
 
-PHASE_GROUPS = ('1', '2', '6', '9', '10', '11', '12', '13', '14', '15')
+UTILITY_IMAGES = 8
+ROBUSTNESS = ('gaussian_noise', 'motion_blur')
+ROBUSTNESS_SEVERITIES = ('1', '3')
+
+
+def phase_calibration(torch, gpu):
+    """(a) calibrate_frozen_bn on the cascade at full width over two
+    synthetic batches of 2: every FrozenBatchNorm set, its stats finite,
+    the stem's away from (0, 1); a served batch then runs K4 x1 and K5 x3
+    on the refolded weights, and the calibrated prefix on K4 / K5 is held
+    against the plain prefix on the same weights (f32 within F32_TOL in
+    units of the output's scale, bf16 within BF16_RATIO x the plain bf16
+    prefix's error). Returns the served batch's launches."""
+    from kgdet_tpu_torch.api import build_model, make_predict_fn
+    from kgdet_tpu_torch.models.layers import FrozenBatchNorm
+    from kgdet_tpu_torch.ops.image import device_normalize
+    from kgdet_tpu_torch.utils.bn_calibration import calibrate_frozen_bn
+
+    cfg, name = config_of(CONFIG)
+    cfg = cfg.replace(test=dataclasses.replace(cfg.test, score_thr=0.0))
+    model = build_model(cfg).init_weights(SEED).eval()
+    backbone = model.backbone
+    predict = make_predict_fn(model, cfg, CANVAS)
+    reqs = make_requests(3, SEED + 16)
+    predict(reqs[2])                # keeps the prefix folded from (0, 1)
+    kept_before = backbone._kept[0]
+    bns = [m for m in model.modules() if isinstance(m, FrozenBatchNorm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = calibrate_frozen_bn(model, [r['image'] for r in reqs[:2]],
+                            passes=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if n != len(bns):
+        fail(f'calibration set {n} BNs, the forward reaches {len(bns)}')
+    stats = torch.stack([t.abs().max() for m in bns
+                         for t in (m.running_mean, m.running_var)])
+    if not torch.isfinite(stats).all():
+        fail('calibration: non-finite statistics')
+    bn1 = backbone.bn1
+    if not ((bn1.running_mean.abs().max() > 1e-3)
+            and ((bn1.running_var - 1).abs().max() > 1e-3)):
+        fail('calibration left the stem BN at (0, 1)')
+    print(f'calibration: {name}, {n} FrozenBatchNorms over 2 batches of '
+          f'{B} at {CANVAS[0]}x{CANVAS[1]} in {secs:.2f} s, largest stat '
+          f'{stats.max().item():.4g}, stem BN mean |max| '
+          f'{bn1.running_mean.abs().max().item():.4g} ({gpu})', flush=True)
+
+    reset_launches()
+    dets = predict(reqs[0])
+    torch.cuda.synchronize()
+    got = read_launches()
+    want = launch_counts(deform_fused=12, stem_pool=1, frozen_bottleneck=3)
+    if got != want:
+        fail(f'calibrated serving: launches {got} != {want}')
+    if backbone._kept[0] == kept_before:
+        fail('the served batch ran the prefix folded before calibration')
+    if not torch.isfinite(dets['det_bboxes']).all():
+        fail('calibrated serving: non-finite detections')
+
+    x32 = device_normalize(torch.as_tensor(reqs[0]['image']).cuda())
+    outs = {}
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            for plain in (False, True):
+                backbone.plain_prefix = plain
+                outs[dtype, plain] = backbone.frozen_prefix(x32.to(dtype))
+    finally:
+        backbone.plain_prefix = False
+    ref = outs[torch.float32, True]
+    e32 = max_err(outs[torch.float32, False], ref)
+    # one pass measures every BN under its upstream BNs' old stats, so the
+    # random-weight trunk's layer1 output grows to ~1e5 (the JAX
+    # package's single pass does the same), where an f32 ulp is ~1e-2:
+    # F32_TOL's atol counts in units of the output's scale, as phase 1's
+    # scaled rule does
+    scale = max(1.0, ref.abs().max().item())
+    atol = F32_TOL['atol'] * scale
+    if not torch.allclose(outs[torch.float32, False], ref,
+                          rtol=F32_TOL['rtol'], atol=atol):
+        fail(f'calibrated prefix f32: K4 / K5 vs plain {e32:.3e} over atol '
+             f'{atol:.3e}')
+    ek = max_err(outs[torch.bfloat16, False], ref)
+    ep = max_err(outs[torch.bfloat16, True], ref)
+    if not ek <= BF16_RATIO * ep:
+        fail(f'calibrated prefix bf16: K4 / K5 err {ek:.3e} > '
+             f'{BF16_RATIO} x plain {ep:.3e}')
+    print(f'calibrated prefix on K4 / K5 vs plain: output scale '
+          f'{scale:.4g}, f32 {e32:.3e} (bound {atol:.3e}); bf16 vs f32 '
+          f'plain: kernels {ek:.3e}, plain {ep:.3e} (bound {BF16_RATIO} x '
+          f'plain); served launches {got} ({gpu})', flush=True)
+    del model, outs
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_robustness(torch, gpu, root):
+    """(b) tools/test_robustness.py in-process on the cascade config over
+    UTILITY_IMAGES synthetic PNGs: K1 12 / K4 1 / K5 3 a forward, the JSON
+    with the clean set and every corruption x severity. Returns the CLI's
+    launches."""
+    from kgdet_tpu_torch.tools import test_robustness
+
+    out = os.path.join(root, 'robustness.json')
+    reset_launches()
+    t0 = time.perf_counter()
+    table, batches = test_robustness.main(
+        [eval_config(root, 'robust_cfg.py'), '--corruptions', *ROBUSTNESS,
+         '--severities', *ROBUSTNESS_SEVERITIES, '--out', out])
+    secs = time.perf_counter() - t0
+    got = read_launches()
+    want = launch_counts(deform_fused=12 * batches, stem_pool=batches,
+                         frozen_bottleneck=3 * batches)
+    if got != want or batches < 5:
+        fail(f'robustness CLI: launches {got} != {want} for {batches} '
+             'forwards')
+    with open(out) as f:
+        saved = json.load(f)
+    keys = ['clean'] + [f'{c}/s{s}' for c in ROBUSTNESS
+                        for s in ROBUSTNESS_SEVERITIES]
+    if sorted(saved) != sorted(keys) or saved != table:
+        fail(f'robustness JSON keys {sorted(saved)}, want {sorted(keys)}')
+    print(f'robustness CLI: {UTILITY_IMAGES} PNGs x {len(keys)} settings, '
+          f'{batches} forwards in {secs:.1f} s, launches {got}; bbox AP '
+          + ', '.join(f'{k} {v["bbox"]:.4f}' for k, v in saved.items())
+          + f' ({gpu})', flush=True)
+    return got
+
+
+PROFILE_NAMES = {
+    'infer': {'K1': 'deform_fused', 'K4': 'stem_pool',
+              'K5': 'bottleneck'},
+    'train': {'K2': 'deform_split', 'K3': 'deform_bwd', 'K4': 'stem_pool',
+              'K5': 'bottleneck'},
+}
+
+
+def phase_profile_cli(torch, gpu, root):
+    """(c) tools/profile.py for both modes at batch 2, 2 steps: the Chrome
+    trace read back must name the port's device kernels (kgdet::...) of
+    the mode; launch counts over the warm-up and the traced steps.
+    Returns the launches of each mode."""
+    from kgdet_tpu_torch.tools import profile
+
+    steps, launches = 2, {}
+    per_run = {
+        'infer': launch_counts(deform_fused=12, stem_pool=1,
+                               frozen_bottleneck=3),
+        'train': launch_counts(deform_sample_split=2, deform_sample_bwd=2,
+                               stem_pool=1, frozen_bottleneck=3)}
+    for mode in ('infer', 'train'):
+        reset_launches()
+        t0 = time.perf_counter()
+        path = profile.main([CONFIG, '--mode', mode, '--batch-size', str(B),
+                             '--steps', str(steps), '--trace-dir',
+                             os.path.join(root, f'trace_{mode}')])
+        secs = time.perf_counter() - t0
+        got = read_launches()
+        want = {k: v * (1 + steps) for k, v in per_run[mode].items()}
+        if got != want:
+            fail(f'profile --mode {mode}: launches {got} != {want}')
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+        device = {e['name'] for e in events
+                  if e.get('cat') == 'kernel' and 'kgdet::' in e['name']}
+        for k, pattern in PROFILE_NAMES[mode].items():
+            if not any(pattern in n for n in device):
+                fail(f'profile --mode {mode}: no {k} ({pattern}) among the '
+                     f'device kernels {sorted(device)}')
+        print(f'profile --mode {mode}: {os.path.getsize(path)} bytes of '
+              f'trace, {len(events)} events, the port\'s device kernels '
+              f'{sorted(short_name(n) for n in device)}, launches {got}, '
+              f'{secs:.1f} s ({gpu})', flush=True)
+        launches[mode] = got
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_flops(torch, gpu):
+    """(d) tools/get_flops.py on the card at its default shape: the K1
+    FLOPs it registers equal PERF.md section 6's formula over the 12
+    calls. Returns the forward's launches."""
+    from kgdet_tpu_torch.config import load_config
+    from kgdet_tpu_torch.tools import get_flops
+
+    reset_launches()
+    out = get_flops.main([CONFIG])
+    got = read_launches()
+    if got != launch_counts(deform_fused=12, stem_pool=1,
+                            frozen_bottleneck=3):
+        fail(f'get_flops: launches {got}')
+    cfg = load_config(CONFIG)
+    _, H, W, _ = out['shape']
+    P, C = (H // 32) * (W // 32), cfg.head.feat_channels
+    k1 = sum(4 * (2 * P * t * C * C + 7 * P * t * C) for t in (9, 25, 49))
+    got_k1 = out['kernels']['K1 deform_conv_fused']
+    if got_k1['flops'] != k1 or got_k1['calls'] != 12:
+        fail(f'get_flops: K1 {got_k1} != {k1} FLOPs in 12 calls')
+    print(f'get_flops: {out["shape"]}, {out["params"]} parameters, '
+          f'{out["flops"] / 1e9:.2f} GFLOPs ({out["kernel_flops"] / 1e9:.2f} '
+          f'in the port\'s kernels, K1 {k1 / 1e9:.3f} by the formula), '
+          f'{out["kernel_bytes"] / 1e9:.4f} GB moved by the port\'s kernels '
+          f'({gpu})', flush=True)
+    return got
+
+
+def phase_visualize(torch, gpu, root):
+    """(e) tools/visualize.py on one synthetic PNG at score_thr 0: the
+    output PNG is written and differs from the input on every drawn box's
+    outline. Returns the launches."""
+    import numpy as np
+
+    from kgdet_tpu_torch.api import init_detector
+    from kgdet_tpu_torch.data.image_io import imread
+    from kgdet_tpu_torch.tools import visualize
+
+    cfg_path = eval_config(root, 'vis_cfg.py')
+    image = os.path.join(root, 'validation', 'image', '000001.png')
+    out_png = os.path.join(root, 'vis.png')
+    reset_launches()
+    drawn, n = visualize.main([cfg_path, image, '--out', out_png,
+                               '--score-thr', '0.0'])
+    got = read_launches()
+    if got != launch_counts(deform_fused=12, stem_pool=1,
+                            frozen_bottleneck=3):
+        fail(f'visualize: launches {got}')
+    if not os.path.exists(out_png) or \
+            not np.array_equal(imread(out_png), drawn):
+        fail('visualize: the output PNG is missing or not the drawing')
+    src = imread(image)
+    boxes = init_detector(cfg_path)(src)[0]
+    h, w = src.shape[:2]
+    for b in boxes:
+        x1, y1, x2, y2 = (int(v) for v in b[:4])
+        ring = np.zeros((h, w), bool)
+        ring[max(y1, 0):min(y2, h - 1) + 1,
+             [c for c in (x1, x2) if 0 <= c < w]] = True
+        ring[[r for r in (y1, y2) if 0 <= r < h],
+             max(x1, 0):min(x2, w - 1) + 1] = True
+        if ring.any() and not (drawn[ring] != src[ring]).any():
+            fail(f'visualize: box {b[:4]} left the image unchanged')
+    if n != len(boxes) or n == 0:
+        fail(f'visualize: {n} boxes drawn, {len(boxes)} detections')
+    print(f'visualize: {n} boxes drawn on a {w}x{h} PNG, launches {got} '
+          f'({gpu})', flush=True)
+    return got
+
+
+def phase_utilities(torch, gpu):
+    """Phase 16: the utilities on the card on the main recipe at full
+    width: (a) calibration, (b) the robustness CLI, (c) the profiler CLI,
+    (d) the FLOP count, (e) visualization. Returns the launches of each
+    path."""
+    import shutil
+    import tempfile
+
+    t = [time.perf_counter()]
+    launches = {'calibrated_serving': phase_calibration(torch, gpu)}
+    t.append(time.perf_counter())
+    root = tempfile.mkdtemp(prefix='kgdet_tools_')
+    try:
+        make_eval_set(root, SEED + 16, n_images=UTILITY_IMAGES)
+        launches['robustness_cli'] = phase_robustness(torch, gpu, root)
+        t.append(time.perf_counter())
+        for mode, got in phase_profile_cli(torch, gpu, root).items():
+            launches[f'profile_{mode}'] = got
+        t.append(time.perf_counter())
+        launches['get_flops'] = phase_flops(torch, gpu)
+        t.append(time.perf_counter())
+        launches['visualize'] = phase_visualize(torch, gpu, root)
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print('phase 16 seconds: ' + ', '.join(
+        f'{k} {b - a:.1f}' for k, a, b in zip(
+            ('(a) calibration', '(b) robustness', '(c) profile',
+             '(d) flops', '(e) visualize'), t, t[1:]))
+        + f' ({gpu})', flush=True)
+    return launches
+
+
+PHASE_GROUPS = ('1', '2', '6', '9', '10', '11', '12', '13', '14', '15',
+                '16')
 
 
 def import_every_module():
@@ -4847,6 +5144,10 @@ def main(argv=None):
     # the mask families and GA-RPN: served, trained, segm evaluation
     if '15' in phases:
         launches.update(phase_masks(torch, gpu))
+
+    # the utilities: calibration, robustness, profile, FLOPs, visualize
+    if '16' in phases:
+        launches.update(phase_utilities(torch, gpu))
 
     if phases != set(PHASE_GROUPS):
         print(f'chip_smoke: phases {sorted(phases, key=int)} passed; no '

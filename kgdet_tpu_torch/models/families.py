@@ -284,7 +284,18 @@ def _make_ga_decode(cfg, canvas):
     return decode
 
 
-HEAD_FAMILIES: Dict[str, HeadFamily] = {
+HEAD_FAMILIES: Dict[str, HeadFamily] = {}
+
+
+def register_head_family(name: str, family: HeadFamily):
+    """Add ``family`` to the registry under ``name``; KeyError if the name
+    is taken, as in the JAX package."""
+    if name in HEAD_FAMILIES:
+        raise KeyError(f'head family {name} already registered')
+    HEAD_FAMILIES[name] = family
+
+
+for _name, _family in {
     'KGDetHead': _point_family(_build_kgdet, _kgdet_loss),
     'KGDetHead1Rep': _point_family(_build_kgdet_1rep, _kgdet_loss),
     'SerialKpHead': _point_family(_build_serial(), _serial_loss),
@@ -301,7 +312,8 @@ HEAD_FAMILIES: Dict[str, HeadFamily] = {
                            make_decode=_make_fcos_decode),
     'GARetinaHead': HeadFamily(build=_build_ga_retina, loss=_ga_retina_loss,
                                make_decode=_make_ga_decode),
-}
+}.items():
+    register_head_family(_name, _family)
 
 # the families whose detections carry a width-3 dummy keypoint
 BOX_FAMILIES = ('RetinaHead', 'SSDHead', 'FCOSHead', 'GARetinaHead')

@@ -1,4 +1,5 @@
-"""Shared building blocks: FrozenBatchNorm, ConvModule and seeded inits.
+"""Shared building blocks: FrozenBatchNorm, ConvModule, ConvWS and seeded
+inits.
 
 Port of kgdet_tpu/models/layers.py. Parameters are stored in f32 under the
 reference's torch names; each module casts its weights to the activation
@@ -48,8 +49,9 @@ def same_pad(x, k: int, stride: int):
 
 
 class ConvModule(nn.Module):
-    """conv -> (GroupNorm) -> (ReLU); bias off when a norm follows. 'SAME'
-    padding. GN statistics are taken in f32."""
+    """conv -> (GroupNorm ``gn`` | FrozenBatchNorm ``bn``) -> (ReLU); bias
+    off whenever ``norm`` is set (any other name, as in the JAX module,
+    adds no norm layer). 'SAME' padding. GN statistics are taken in f32."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, norm=None,
@@ -60,10 +62,10 @@ class ConvModule(nn.Module):
         self.act = act
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
                               stride, bias=norm is None)
-        if norm not in (None, 'gn'):
-            raise NotImplementedError(f'ConvModule norm {norm!r}')
         self.gn = nn.GroupNorm(gn_groups, out_channels, eps=1e-5) \
             if norm == 'gn' else None
+        self.bn = FrozenBatchNorm(out_channels) \
+            if norm == 'frozen_bn' else None
 
     def forward(self, x):
         dt = x.dtype
@@ -77,7 +79,42 @@ class ConvModule(nn.Module):
         if self.gn is not None:
             y = F.group_norm(y.float(), self.gn.num_groups, self.gn.weight,
                              self.gn.bias, self.gn.eps).to(dt)
+        elif self.bn is not None:
+            y = self.bn(y)
         return torch.relu(y) if self.act else y
+
+
+class ConvWS(nn.Module):
+    """Weight-standardized conv (the reference's conv_ws.py): the weight is
+    normalized to zero mean and unit (population) std over (Cin, kh, kw)
+    per output channel, in f32, before the convolution. ``padding`` 'SAME'
+    as flax pads, or an int on every side."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, padding='SAME',
+                 bias: bool = True, eps: float = 1e-5):
+        super().__init__()
+        self.stride = stride
+        self.padding = padding
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias \
+            else None
+        nn.init.kaiming_normal_(self.weight, mode='fan_out')
+
+    def forward(self, x):
+        w = self.weight
+        mean = w.mean(dim=(1, 2, 3), keepdim=True)
+        std = w.std(dim=(1, 2, 3), keepdim=True, unbiased=False)
+        w = ((w - mean) / (std + self.eps)).to(x.dtype)
+        k = w.shape[-1]
+        if self.padding == 'SAME':
+            x, pad = same_pad(x, k, self.stride), 0
+        else:
+            pad = self.padding
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, w, b, stride=self.stride, padding=pad)
 
 
 def head_out(x, conv):

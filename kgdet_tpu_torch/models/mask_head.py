@@ -41,7 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from kgdet_tpu_torch.models.layers import init_normal_, \
+from kgdet_tpu_torch.models.layers import ConvModule, init_normal_, \
     init_variance_scaling_
 from kgdet_tpu_torch.ops.roi import roi_align
 from kgdet_tpu_torch.parallel.dist import global_sum
@@ -66,26 +66,17 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-class ConvModule(nn.Module):
-    """A norm-free conv under the reference ConvModule's name (conv)."""
-
-    def __init__(self, cin, cout, k):
-        super().__init__()
-        self.conv = nn.Conv2d(cin, cout, k, padding=k // 2)
-
-    def forward(self, x):
-        return _conv(x, self.conv, padding=self.conv.padding)
-
-
 class FCNMaskHead(nn.Module):
     def __init__(self, num_classes=13, in_channels=256, conv_channels=256,
                  num_convs=4, with_info_flow=False):
         super().__init__()
         if with_info_flow:
-            self.conv_res = ConvModule(conv_channels, in_channels, 1)
+            self.conv_res = ConvModule(conv_channels, in_channels, 1,
+                                       act=False)
         self.convs = nn.ModuleList(
             ConvModule(in_channels if i == 0 else conv_channels,
-                       conv_channels, 3) for i in range(num_convs))
+                       conv_channels, 3, act=False)
+            for i in range(num_convs))
         self.upsample = nn.ConvTranspose2d(conv_channels, conv_channels, 2,
                                            stride=2)
         self.conv_logits = nn.Conv2d(conv_channels, num_classes + 1, 1)
@@ -191,12 +182,14 @@ class FusedSemanticHead(nn.Module):
         super().__init__()
         self.fusion_level = fusion_level
         self.lateral_convs = nn.ModuleList(
-            ConvModule(in_channels, conv_channels, 1) for _ in range(num_ins))
+            ConvModule(in_channels, conv_channels, 1, act=False)
+            for _ in range(num_ins))
         self.convs = nn.ModuleList(
-            ConvModule(conv_channels, conv_channels, 3)
+            ConvModule(conv_channels, conv_channels, 3, act=False)
             for _ in range(num_convs))
         self.conv_logits = nn.Conv2d(conv_channels, num_classes, 1)
-        self.conv_embedding = ConvModule(conv_channels, conv_channels, 1)
+        self.conv_embedding = ConvModule(conv_channels, conv_channels, 1,
+                                         act=False)
 
     def init_weights(self, gen):
         for m in self.modules():

@@ -38,6 +38,7 @@ import torch
 from kgdet_tpu_torch.ops import _build
 from kgdet_tpu_torch.ops.deform import bilinear_gather, pad_min2, \
     prep_indices_bwd
+from kgdet_tpu_torch.ops.kernel_cost import counted, nbytes, sample_ops
 
 
 def _f32_positions(pos_yx):
@@ -55,6 +56,18 @@ def deform_conv_fused_ref(feat, pos_yx, weight):
     return torch.einsum('bpkc,kcf->bpf', cols, weight.to(feat.dtype))
 
 
+def _k1_cost(feat, pos_yx, weight, plain=False):
+    """The contraction, 2 a multiply-add, and the lerp of every sampled
+    value; the map, f32 positions, the weight and the output in the map's
+    dtype."""
+    B, P, K = pos_yx.shape[:3]
+    C, Fo, e = feat.shape[-1], weight.shape[-1], feat.element_size()
+    return (2 * B * P * K * C * Fo + sample_ops(B * P * K * C),
+            nbytes(feat) + 4 * pos_yx.numel() + e * weight.numel()
+            + e * B * P * Fo)
+
+
+@counted('K1 deform_conv_fused', _k1_cost)
 def deform_conv_fused(feat, pos_yx, weight, plain: bool = False):
     """out[b,p,:] = sum_k sum_c bilinear(feat[b], pos[b,p,k])[c] *
     weight[k,c,:]. feat (B,H,W,C) f32|bf16, pos_yx (B,P,K,2) absolute
@@ -144,6 +157,15 @@ def deform_sample_split_ref(cls_feat, pts_feat, pos_yx, taps):
     return cols
 
 
+def _k2_cost(cls_feat, pts_feat, pos_yx, taps):
+    """Every tap sampled on both maps; both maps, f32 positions, and the
+    columns written once."""
+    n = pos_yx.shape[:3].numel() * 2 * cls_feat.shape[-1]
+    return (sample_ops(n), nbytes(cls_feat, pts_feat) + 4 * pos_yx.numel()
+            + n * cls_feat.element_size())
+
+
+@counted('K2 deform_sample_split', _k2_cost)
 def deform_sample_split(cls_feat, pts_feat, pos_yx, taps):
     """Sample both branch maps at shared taps, outputs split per column.
 
@@ -220,6 +242,14 @@ def deform_sample_bwd_ref(feat, pos_yx, g):
     return grad_feat, grad_pos.to(pos_yx.dtype)
 
 
+def _k3_cost(feat, pos_yx, g):
+    """A sampled value's scatter (8 operations) and its position dot
+    products (18); the map, f32 positions and the cotangent read, the map's
+    and the positions' gradients written."""
+    return 26 * g.numel(), nbytes(feat, g, feat) + 8 * pos_yx.numel()
+
+
+@counted('K3 deform_sample_bwd', _k3_cost)
 def deform_sample_bwd(feat, pos_yx, g):
     """Backward of ``bilinear_gather(feat, pos_yx)`` for a cotangent g.
 
@@ -270,6 +300,15 @@ deform_sample_bwd.launches = 0
 deform_sample_cols_ref = bilinear_gather
 
 
+def _k6_cost(feat, pos_yx):
+    """Every tap sampled on the map; the map, f32 positions and the columns
+    written once."""
+    n = pos_yx.shape[:3].numel() * feat.shape[-1]
+    return (sample_ops(n), nbytes(feat) + 4 * pos_yx.numel()
+            + n * feat.element_size())
+
+
+@counted('K6 deform_sample_cols', _k6_cost)
 def deform_sample_cols(feat, pos_yx):
     """The bilinear columns of one map: feat (B,H,W,C) f32|bf16, pos_yx
     (B,P,K,2) absolute (y, x) -> (B,P,K,C) in feat's dtype; out-of-bounds

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from kgdet_tpu_torch.ops import _build
+from kgdet_tpu_torch.ops.kernel_cost import bottleneck_cost, counted
 
 # dynamic shared memory a block can ask for on the H100 (227 KB)
 MAX_SHARED_BYTES = 232448
@@ -76,6 +77,7 @@ def prepare_resblock(blk, dtype):
                  .contiguous() for k in BLOCK_KEYS)
 
 
+@counted('K8 fused_bottleneck', bottleneck_cost)
 def fused_bottleneck_prepared(x, blk):
     """fused_bottleneck on weights from ``prepare_resblock(.., x.dtype)``:
     one K8 launch. Raises on shapes the kernel does not take and on a width
@@ -121,6 +123,7 @@ def fused_bottleneck_prepared(x, blk):
     return out
 
 
+@counted('K8 fused_bottleneck', bottleneck_cost)
 def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None):
     """One frozen stride-1 bottleneck block in one launch, conv1's and
     conv2's activations in shared memory.

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from kgdet_tpu_torch.ops import _build
+from kgdet_tpu_torch.ops.kernel_cost import bottleneck_cost, counted, \
+    nbytes
 from kgdet_tpu_torch.ops.resblock import BLOCK_KEYS, bottleneck_reference, \
     prepare_resblock
 
@@ -73,6 +75,19 @@ def prepare_stem(w, b, dtype):
     return wt, b.float().contiguous(), kernel_w
 
 
+def _k4_cost(x, w, b=None):
+    """The 7x7/2 conv, 2 a multiply-add over its 147 taps (ReLU and pool
+    not counted); the image, the weight the kernel reads (prepared: the
+    packed one), the bias and the pooled output."""
+    B, H, W, _ = x.shape
+    H2, W2 = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+    H4, W4 = _pool_hw(H, W)
+    weights = (w[2], w[1]) if b is None else (w, b)
+    return (2 * B * H2 * W2 * STEM_CH * 147,
+            nbytes(x, *weights) + B * H4 * W4 * STEM_CH * x.element_size())
+
+
+@counted('K4 stem_pool', _k4_cost)
 def stem_pool_prepared(x, stem):
     """stem_pool on weights from ``prepare_stem(w, b, x.dtype)``: one K4
     launch."""
@@ -97,6 +112,7 @@ def stem_pool_prepared(x, stem):
     return out
 
 
+@counted('K4 stem_pool', _k4_cost)
 def stem_pool(x, w, b):
     """7x7/2 conv (pad 3) with folded BN, ReLU and 3x3/2 maxpool (pad 1,
     -inf). x (B,H,W,3) f32|bf16; w (7,7,3,64); b (64,) -> (B,H4,W4,64)."""
@@ -115,6 +131,7 @@ frozen_bottleneck_ref = bottleneck_reference
 prepare_block = prepare_resblock
 
 
+@counted('K5 frozen_bottleneck', bottleneck_cost)
 def frozen_bottleneck_prepared(x, blk):
     """frozen_bottleneck on weights from ``prepare_block(.., x.dtype)``: one
     K5 launch."""
@@ -152,6 +169,7 @@ def frozen_bottleneck_prepared(x, blk):
     return out
 
 
+@counted('K5 frozen_bottleneck', bottleneck_cost)
 def frozen_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None):
     """One frozen stride-1 bottleneck, BN folded, in one launch.
     x (B,H,W,Cin); w1 (Cin,64); w2 (3,3,64,64) HWIO; w3 (64,Cout); wd

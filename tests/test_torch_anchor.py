@@ -176,8 +176,8 @@ def test_anchor_targets_match_jax(kw):
     """labels, label and box weights and num_pos equal; deltas within
     1e-5."""
     inputs = _target_inputs()
-    want = janchor_loss.anchor_targets(
-        **{k: jnp.asarray(v) for k, v in inputs.items()}, **kw)
+    want = jax.jit(lambda a: janchor_loss.anchor_targets(**a, **kw))(
+        {k: jnp.asarray(v) for k, v in inputs.items()})
     got = anchor_loss.anchor_targets(**{k: _t(v) for k, v in
                                         inputs.items()}, **kw)
     assert int(np.asarray(want[4]).sum()) > 2
@@ -250,8 +250,8 @@ def test_losses_and_their_gradients_match_jax(head_type):
     def jloss(o):
         return jfn(o, [jnp.asarray(a) for a in anc],
                    [jnp.asarray(v) for v in valids], jb, hcfg, acfg)
-    (jtotal, jlogs), jgrad = jax.value_and_grad(jloss, has_aux=True)(
-        jax.tree.map(jnp.asarray, outs))
+    (jtotal, jlogs), jgrad = jax.jit(jax.value_and_grad(
+        jloss, has_aux=True))(jax.tree.map(jnp.asarray, outs))
     touts = [{k: _t(v).requires_grad_() for k, v in o.items()}
              for o in outs]
     total, logs = tfn(touts, [_t(a) for a in anc], [_t(v) for v in valids],
@@ -291,10 +291,10 @@ def test_ssd_hard_negative_quota_matches_jax():
              'gt_mask': np.ones((1, 1), bool)}
     hcfg = HeadConfig(type='SSDHead', num_classes=13)
     acfg = AssignConfig(pos_iou_thr=0.5, neg_iou_thr=0.5, min_pos_iou=0.2)
-    _, jlogs = janchor_loss.ssd_loss(
-        jax.tree.map(jnp.asarray, outs), [jnp.asarray(anc)],
-        [jnp.ones((1, P), bool)], jax.tree.map(jnp.asarray, batch), hcfg,
-        acfg)
+    _, jlogs = jax.jit(lambda o, a, b: janchor_loss.ssd_loss(
+        o, a, [jnp.ones((1, P), bool)], b, hcfg, acfg))(
+            jax.tree.map(jnp.asarray, outs), [jnp.asarray(anc)],
+            jax.tree.map(jnp.asarray, batch))
     _, logs = anchor_loss.ssd_loss(
         [{k: _t(v) for k, v in outs[0].items()}], [_t(anc)],
         [torch.ones((1, P), dtype=torch.bool)],
@@ -331,16 +331,18 @@ def test_decodes_match_jax(head_type):
     img_hw = np.asarray([[64, 96], [48, 70]], np.float32)
     sf = np.asarray([1.0, 0.8], np.float32)
     if head_type == 'RetinaHead':
-        want = janchor_loss.decode_detections_anchor(
-            jax.tree.map(jnp.asarray, outs), anc, jnp.asarray(img_hw),
-            jnp.asarray(sf), test, num_classes=13)
+        want = jax.jit(lambda o, h, s: janchor_loss.decode_detections_anchor(
+            o, anc, h, s, test, num_classes=13))(
+                jax.tree.map(jnp.asarray, outs), jnp.asarray(img_hw),
+                jnp.asarray(sf))
         got = anchor_loss.decode_detections_anchor(
             [{k: _t(v) for k, v in o.items()} for o in outs],
             [_t(a) for a in anc], _t(img_hw), _t(sf), test, num_classes=13)
     else:
-        want = janchor_loss.decode_detections_ssd(
-            jax.tree.map(jnp.asarray, outs), anc, jnp.asarray(img_hw),
-            jnp.asarray(sf), test, num_classes=13)
+        want = jax.jit(lambda o, h, s: janchor_loss.decode_detections_ssd(
+            o, anc, h, s, test, num_classes=13))(
+                jax.tree.map(jnp.asarray, outs), jnp.asarray(img_hw),
+                jnp.asarray(sf))
         got = anchor_loss.decode_detections_ssd(
             [{k: _t(v) for k, v in o.items()} for o in outs],
             [_t(a) for a in anc], _t(img_hw), _t(sf), test, num_classes=13)

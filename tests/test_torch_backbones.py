@@ -111,12 +111,19 @@ def _check_forward_and_grads(jmodule, tmodule, variables, comp, jin, tin,
                              seed=1):
     """Outputs within OUT_REL of each map's scale; the gradients of
     sum(out_i * R_i) (fixed random R_i) by the whole-model rule. Returns
-    the number of parameters compared."""
-    want = jax.jit(jmodule.apply)(variables, jin)
+    the number of parameters compared. The JAX outputs and gradients come
+    from one compiled function."""
+    shapes = jax.eval_shape(jmodule.apply, variables, jin)
+    rng = np.random.RandomState(seed)
+    proj = [rng.randn(*w.shape).astype(np.float32) for w in shapes]
+
+    def jloss(params):
+        outs = jmodule.apply({**variables, 'params': params}, jin)
+        return sum((o * p).sum() for o, p in zip(outs, proj)), outs
+    (_, want), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        variables['params'])
     got = tmodule(tin)
     assert len(got) == len(want)
-    rng = np.random.RandomState(seed)
-    proj = [rng.randn(*np.shape(w)).astype(np.float32) for w in want]
     for i, (g, w) in enumerate(zip(got, want)):
         w = np.asarray(w)
         g = _np(g.permute(0, 2, 3, 1))
@@ -124,10 +131,6 @@ def _check_forward_and_grads(jmodule, tmodule, variables, comp, jin, tin,
         np.testing.assert_allclose(g, w, rtol=OUT_REL, err_msg=f'out {i}',
                                    atol=OUT_REL * np.abs(w).max())
 
-    def jloss(params):
-        outs = jmodule.apply({**variables, 'params': params}, jin)
-        return sum((o * p).sum() for o, p in zip(outs, proj))
-    jgrads = jax.jit(jax.grad(jloss))(variables['params'])
     sum((o.permute(0, 2, 3, 1) * torch.from_numpy(p)).sum()
         for o, p in zip(got, proj)).backward()
     jg = {k: v.numpy() for k, v in
@@ -343,8 +346,8 @@ def test_plugin_matches_jax(case):
     np.testing.assert_allclose(_np(got.permute(0, 2, 3, 1)), w, rtol=1e-4,
                                atol=1e-4 * np.abs(w).max())
     proj = np.random.RandomState(4).randn(*w.shape).astype(np.float32)
-    jg = jax.grad(lambda p: (jmodule.apply({'params': p}, jnp.asarray(x))
-                             * proj).sum())(variables['params'])
+    jg = jax.jit(jax.grad(lambda p: (jmodule.apply(
+        {'params': p}, jnp.asarray(x)) * proj).sum()))(variables['params'])
     (got.permute(0, 2, 3, 1) * torch.from_numpy(proj)).sum().backward()
     jstate = {k: v.numpy() for k, v in state_dict_from_jax(
         {'params': {'backbone': {'layer1/0': {name: jg}}}}).items()}

@@ -137,9 +137,9 @@ def test_dcn_block_output_and_gradients_match_jax(stride):
         out = jblock.apply({'params': params,
                             'batch_stats': variables['batch_stats']}, xin)
         return jnp.sum(out * ct), out
-    (_, jout), (jg_params, jg_x) = jax.value_and_grad(
-        jloss, argnums=(0, 1), has_aux=True)(variables['params'],
-                                             jnp.asarray(x))
+    (_, jout), (jg_params, jg_x) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(variables['params'],
+                                              jnp.asarray(x))
 
     blk = Bottleneck(16, 8, stride, downsample=True, use_dcn=True)
     blk.load_state_dict(_as_block_state(variables), strict=True)

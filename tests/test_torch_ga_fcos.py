@@ -263,11 +263,11 @@ def _valids(batch):
         cfg, CANVAS, jnp.asarray(batch['valid_hw']))]
 
 
-def _jax_family_loss(head_type, outs, batch):
+def _jax_family_loss(head_type, outs, batch, valids, grids):
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     if head_type == 'FCOSHead':
-        return jfcos.fcos_loss(outs, [jnp.asarray(g) for g in _grids()],
-                               [jnp.asarray(v) for v in _valids(batch)], jb,
+        return jfcos.fcos_loss(outs, [jnp.asarray(g) for g in grids],
+                               [jnp.asarray(v) for v in valids], jb,
                                _head_cfg(head_type))
     return jga.ga_loss(outs, jb, _head_cfg(head_type), ASSIGN, CANVAS)
 
@@ -295,9 +295,11 @@ def test_family_losses_and_their_gradients_match_jax(head_type):
     loss of the approx-assigned squares)."""
     outs = _family_outputs(head_type, np.random.RandomState(3))
     batch = _family_batch(seed=3)
-    (jtotal, jlogs), jgrad = jax.value_and_grad(
-        lambda o: _jax_family_loss(head_type, o, batch), has_aux=True)(
-            jax.tree.map(jnp.asarray, outs))
+    # the static grids and flags made outside the compiled loss
+    valids, grids = _valids(batch), _grids()
+    (jtotal, jlogs), jgrad = jax.jit(jax.value_and_grad(
+        lambda o: _jax_family_loss(head_type, o, batch, valids, grids),
+        has_aux=True))(jax.tree.map(jnp.asarray, outs))
     touts = [{k: _t(v).requires_grad_() for k, v in o.items()}
              for o in outs]
     total, logs = _port_family_loss(head_type, touts, batch)
@@ -326,14 +328,17 @@ def test_family_decodes_match_jax(head_type):
     jo = jax.tree.map(jnp.asarray, outs)
     to = [{k: _t(v) for k, v in o.items()} for o in outs]
     if head_type == 'FCOSHead':
-        want = jfcos.decode_detections_fcos(
-            jo, _grids(), jnp.asarray(img_hw), jnp.asarray(sf), test, 13)
+        grids = _grids()
+        want = jax.jit(lambda o, h, s: jfcos.decode_detections_fcos(
+            o, grids, h, s, test, 13))(jo, jnp.asarray(img_hw),
+                                       jnp.asarray(sf))
         got = fcos_loss.decode_detections_fcos(
             to, [_t(g) for g in _grids()], _t(img_hw), _t(sf), test, 13)
     else:
         hcfg = _head_cfg(head_type)
-        want = jga.decode_detections_ga(jo, hcfg, CANVAS, jnp.asarray(img_hw),
-                                        jnp.asarray(sf), test)
+        want = jax.jit(lambda o, h, s: jga.decode_detections_ga(
+            o, hcfg, CANVAS, h, s, test))(jo, jnp.asarray(img_hw),
+                                          jnp.asarray(sf))
         got = ga_loss.decode_detections_ga(to, hcfg, CANVAS, _t(img_hw),
                                            _t(sf), test)
     assert np.asarray(want['valid']).sum() > 10

@@ -1354,3 +1354,59 @@ def test_mask_rcnn_served_batch_launch_counts(gen):
     masks = dets['det_masks']
     assert masks.shape == (2, 100, 28, 28)
     assert masks.min() >= 0 and masks.max() <= 1
+
+
+def test_calibrated_prefix_on_k4_k5_matches_the_plain_prefix(gen, tmp_path):
+    """calibrate_frozen_bn on the card (CONFIG_TEXT's R-50, two batches of 2
+    at 64x96): every FrozenBatchNorm set; the prefix then refolds, and on
+    K4 / K5 it matches the plain prefix on the same weights (f32 within
+    TOL of the output's scale, bf16 within 2x the plain bf16 error)."""
+    from kgdet_tpu_torch.api import build_model
+    from kgdet_tpu_torch.models.layers import FrozenBatchNorm
+    from kgdet_tpu_torch.ops.image import device_normalize
+    from kgdet_tpu_torch.utils.bn_calibration import calibrate_frozen_bn
+    cfg = _tiny_cfg(tmp_path)
+    model = build_model(cfg).init_weights(0).eval()
+    bb = model.backbone
+    images = [torch.randint(0, 256, (2, 64, 96, 3), generator=gen)
+              .to(torch.uint8) for _ in range(2)]
+    x = device_normalize(images[0].cuda())
+    bb.frozen_prefix(x)
+    kept = bb._kept[0]
+    n = calibrate_frozen_bn(model, images)
+    assert n == sum(isinstance(m, FrozenBatchNorm) for m in model.modules())
+    outs = {}
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            for plain in (False, True):
+                bb.plain_prefix = plain
+                before = (sk.stem_pool.launches,
+                          sk.frozen_bottleneck.launches)
+                outs[dtype, plain] = bb.frozen_prefix(x.to(dtype))
+                after = (sk.stem_pool.launches,
+                         sk.frozen_bottleneck.launches)
+                assert after == (before if plain else
+                                 (before[0] + 1, before[1] + 3))
+    finally:
+        bb.plain_prefix = False
+    assert bb._kept[0] != kept
+    ref = outs[torch.float32, True]
+    scale = max(1.0, ref.abs().max().item())
+    torch.testing.assert_close(outs[torch.float32, False], ref,
+                               rtol=TOL['rtol'], atol=TOL['atol'] * scale)
+    assert (outs[torch.bfloat16, False].float() - ref).abs().max() <= \
+        2 * (outs[torch.bfloat16, True].float() - ref).abs().max()
+
+
+def test_get_flops_counts_the_same_on_both_devices(gen, tmp_path):
+    """tools/get_flops.py on CONFIG_TEXT's R-50 at 64x96: the parameter
+    count, the library FLOPs and each kernel's calls, FLOPs and bytes the
+    same on the card (the kernels) as on the CPU (their plain versions)."""
+    from kgdet_tpu_torch.tools import get_flops
+    _tiny_cfg(tmp_path)
+    path = str(tmp_path / 'cfg.py')
+    cpu = get_flops.main([path, '--shape', '64', '96', '--device', 'cpu'])
+    gpu = get_flops.main([path, '--shape', '64', '96'])
+    assert gpu == cpu
+    assert sorted(gpu['kernels']) == ['K1 deform_conv_fused',
+                                      'K4 stem_pool', 'K5 frozen_bottleneck']

@@ -3,7 +3,7 @@ models/two_stage.py with models/mask_head.py, models/grid_head.py and
 models/ga_head.py::GARPNHead, core/two_stage_loss.py, core/ga_loss.py,
 api.py, parallel/train.py, utils/convert.py) against kgdet_tpu on the CPU,
 at the tiny sizes of tests/test_two_stage.py (ResNet-18, a 3-level FPN of
-64 channels, 64 proposals). The parts alone, the dataset, the config
+64 channels), 16 proposals an image. The parts alone, the dataset, the config
 files and the mask path without jax, flax and cv2 are in
 tests/test_torch_mask_heads.py.
 
@@ -60,13 +60,18 @@ CANVAS = (64, 96)
 SEED = 5
 MASK_DATA = DataConfig(with_mask=True, mask_stride=4, max_gts=4)
 STUFF = 8
+# proposals an image (tests/test_two_stage.py's 64 cut to a quarter: the
+# RoI heads' full-width convs over every RoI are most of the JAX run's
+# time)
+PROPOSALS = 16
 # the mask, semantic and mask-IoU heads' kernels (N(0, 0.01)) times this:
 # their outputs are then of order one, not 1e-3 to 1e-5
 HEAD_GAIN = 4.0
 
 
 def kind_cfg(kind):
-    cfg = frcnn_cfg()
+    cfg = frcnn_cfg().replace(num_proposals_train=PROPOSALS,
+                              num_proposals_test=PROPOSALS)
     if kind == 'mask':
         return cfg.replace(detector_type='mask_rcnn', train_data=MASK_DATA)
     if kind == 'ms':

@@ -285,7 +285,10 @@ def test_mask_path_runs_without_jax_flax_cv2(tmp_path):
     np.savez(tmp_path / 'batches.npz', **{
         f'{kind}/{k}': v for kind, b in batches.items() for k, v in
         b.items()})
-    reprs = {kind: repr(kind_cfg(kind)) for kind in KINDS}
+    # 8 proposals an image: what runs does not depend on their count
+    reprs = {kind: repr(kind_cfg(kind).replace(num_proposals_train=8,
+                                               num_proposals_test=8))
+             for kind in KINDS}
     code = '\n'.join([
         'import glob, sys',
         "for m in ('jax', 'flax', 'cv2', 'kgdet_tpu'):",
@@ -473,7 +476,8 @@ def test_train_and_test_clis_take_a_mask_config(kind, tmp_path, capsys):
     seg = os.path.join(d, 'seg')
     ann = add_polygons(make_eval_set(d, n_images=6, landscape_only=True),
                        seg)
-    cfg = kind_cfg(kind)
+    cfg = kind_cfg(kind).replace(num_proposals_train=8,
+                                 num_proposals_test=8)
     data = dict(ann_file=ann, img_prefix=d, img_scale=(96, 64),
                 batch_size=2, canvas_hw=((64, 96),), with_mask=True,
                 mask_stride=4, max_gts=4)

@@ -202,6 +202,8 @@ def test_port_runs_without_jax_flax_cv2():
         "'kgdet_tpu_torch.'):",
         '    importlib.import_module(m.name)',
         "assert 'kgdet_tpu_torch.models.ga_head' in sys.modules",
+        "assert 'kgdet_tpu_torch.utils.bn_calibration' in sys.modules",
+        "assert 'kgdet_tpu_torch.tools.test_robustness' in sys.modules",
         'cfg = KGDetConfig(backbone=BackboneConfig(depth=50, '
         'frozen_stages=1), neck=NeckConfig(out_channels=64), '
         'head=HeadConfig(in_channels=64, feat_channels=64, '

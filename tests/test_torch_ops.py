@@ -621,19 +621,20 @@ def test_serial_loss_terms_match_jax():
         jouts.append({k: jnp.asarray(a) for k, a in outs.items()})
         touts.append({k: _t(a) for k, a in outs.items()})
         args = (boxes, labels, kpts, mask)
-        jti.append(jtargets.point_targets(
-            jnp.asarray(g), jnp.asarray(v), *map(jnp.asarray, args),
-            scale=4, pos_num=2))
+        jti.append(jax.jit(lambda *a: jtargets.point_targets(
+            *a, scale=4, pos_num=2))(
+                jnp.asarray(g), jnp.asarray(v), *map(jnp.asarray, args)))
         tti.append(ttargets.point_targets(_t(g), _t(v), *map(_t, args),
                                           scale=4, pos_num=2))
         cand = np.tile(boxes[:, :1], (1, len(g), 1)) \
             + rng.uniform(-12, 12, (2, len(g), 4)).astype(np.float32)
-        jtr.append(jtargets.max_iou_targets(
+        jtr.append(jax.jit(jtargets.max_iou_targets)(
             jnp.asarray(cand), jnp.asarray(v), *map(jnp.asarray, args)))
         ttr.append(ttargets.max_iou_targets(_t(cand), _t(v),
                                             *map(_t, args)))
-    want_total, want = jloss.serial_loss(
-        jouts, [jnp.asarray(g) for g, _, _ in levels], jti, jtr, head)
+    want_total, want = jax.jit(
+        lambda o, g, ti, tr: jloss.serial_loss(o, g, ti, tr, head))(
+            jouts, [jnp.asarray(g) for g, _, _ in levels], jti, jtr)
     got_total, got = tloss.serial_loss(
         touts, [_t(g) for g, _, _ in levels], tti, ttr, head)
     assert sorted(got) == sorted(want) and len(got) == 12

@@ -239,8 +239,12 @@ def test_optimizer_step_on_shared_gradients_matches_jax(both):
     cfg, jgrads = both['cfg'], both['jgrads']
     jstart = both['variables']['params']
     tx, _ = jtrain.make_optimizer(cfg, jstart, 100)
-    updates, _ = tx.update(jgrads, tx.init(jstart), jstart)
-    want = _named(optax.apply_updates(jstart, updates))
+
+    def update(g, p):               # compiled once: eager optax is slow
+        updates, _ = tx.update(g, tx.init(p), p)
+        return optax.apply_updates(p, updates), optax.global_norm(g)
+    jnew, jnorm = jax.jit(update)(jgrads, jstart)
+    want = _named(jnew)
     start = _named(jstart)
     probe = build_model(cfg, device='cpu')
     probe.load_state_dict(both['model'].state_dict())
@@ -249,8 +253,7 @@ def test_optimizer_step_on_shared_gradients_matches_jax(both):
     for name, p in probe.named_parameters():
         p.grad = torch.from_numpy(first[name])
     norm = opt.step()
-    np.testing.assert_allclose(norm.item(),
-                               float(optax.global_norm(jgrads)), rtol=1e-4)
+    np.testing.assert_allclose(norm.item(), float(jnorm), rtol=1e-4)
     moved = 0
     for name, p in probe.named_parameters():
         move = np.abs(want[name] - start[name]).max()

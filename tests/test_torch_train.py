@@ -101,6 +101,19 @@ def both():
                 jstart=_named(params))
 
 
+def _jit_update(tx):
+    """One optax step on ``mult`` times the gradients, compiled once:
+    (new params, new state, the scaled gradients' global norm)."""
+    import optax
+
+    def update(grads, mult, state, params):
+        g = jax.tree.map(lambda x: x * mult, grads)
+        updates, state = tx.update(g, state, params)
+        return optax.apply_updates(params, updates), state, \
+            optax.global_norm(g)
+    return jax.jit(update)
+
+
 def test_first_step_logs_match_jax(both):
     """Loss, the nine terms, num_pos and grad_norm (before clipping) of the
     first step; f32, 1e-4 relative (the model outputs agree to 1e-4)."""
@@ -159,8 +172,6 @@ def test_three_optimizer_steps_match_jax(both):
     1% of a move after one step and 17% after three), so each parameter is
     held to 0.1 of its own move after the first step, and the later steps'
     logs to 1e-3 on the loss and its terms and 2e-2 on the gradient norm."""
-    import optax
-
     cfg, model = both['cfg'], both['model']
     jgrads, jstart = both['jgrads_tree'], both['params_tree']
     tx, _ = jtrain.make_optimizer(cfg, jstart, STEPS_PER_EPOCH)
@@ -170,16 +181,14 @@ def test_three_optimizer_steps_match_jax(both):
     opt, _ = ttrain.make_optimizer(cfg, probe, STEPS_PER_EPOCH)
     state, jp = tx.init(jstart), jstart
     first = _named(jgrads)
+    update = _jit_update(tx)
     for mult in (1.0, 3.0, 0.5):
-        g = jax.tree.map(lambda x: x * mult, jgrads)
-        updates, state = tx.update(g, state, jp)
-        jp = optax.apply_updates(jp, updates)
+        jp, state, g_norm = update(jgrads, np.float32(mult), state, jp)
         for name, p in probe.named_parameters():
             p.grad = torch.from_numpy(first[name] * np.float32(mult))
         norm = opt.step()
         # f32 sums of 2e7 squares in two orders agree to about 1e-5
-        np.testing.assert_allclose(norm.item(), float(optax.global_norm(g)),
-                                   rtol=1e-4)
+        np.testing.assert_allclose(norm.item(), float(g_norm), rtol=1e-4)
     want, start = _named(jp), both['jstart']
     moved = 0
     for name, p in probe.named_parameters():
@@ -210,8 +219,6 @@ def test_three_adam_steps_match_optax_chain(both):
     scaled by 1, 3 and 0.5, the second clipped) over three steps of the
     two-step warmup. f32: every parameter within 1e-6 absolute (a step moves
     an element by about the LR, 2e-3 to 1e-2 here, so 1e-4 of a move)."""
-    import optax
-
     cfg = both['cfg']
     cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, type='adam'))
     jgrads, jstart = both['jgrads_tree'], both['params_tree']
@@ -222,10 +229,9 @@ def test_three_adam_steps_match_optax_chain(both):
     opt, _ = ttrain.make_optimizer(cfg, probe, STEPS_PER_EPOCH)
     state, jp = tx.init(jstart), jstart
     first = _named(jgrads)
+    update = _jit_update(tx)
     for mult in (1.0, 3.0, 0.5):
-        g = jax.tree.map(lambda x: x * mult, jgrads)
-        updates, state = tx.update(g, state, jp)
-        jp = optax.apply_updates(jp, updates)
+        jp, state, _ = update(jgrads, np.float32(mult), state, jp)
         for name, p in probe.named_parameters():
             p.grad = torch.from_numpy(first[name] * np.float32(mult))
         opt.step()
@@ -355,7 +361,7 @@ def test_overfit_reaches_high_ap_and_kpt_accuracy():
     the tiny R-50 cascade (tests/test_overfit.py's R-18 has no port)
     trained by the port's make_train_step with ``adam`` at 2e-3 after 10
     warmup steps on that test's two fixed images, up to 300 steps (from
-    step 150 on, stopping at a check every 50 steps once AP >= 0.99 and the
+    step 50 on, stopping at a check every 25 steps once AP >= 0.99 and the
     keypoint error < 4 px), then held to that test's bounds: the loss below
     a quarter of its start, bbox AP@0.5 on the training images (the port's
     make_predict_fn, detections_to_per_class and eval_map) at least 0.5 and
@@ -400,7 +406,7 @@ def test_overfit_reaches_high_ap_and_kpt_accuracy():
     ap, kerr = 0.0, np.inf
     for i in range(300):
         losses.append(step(batch)['loss'].item())
-        if i >= 149 and (i + 1) % 50 == 0:
+        if i >= 49 and (i + 1) % 25 == 0:
             ap, kerr = evaluate()
             if ap >= 0.99 and kerr < 4.0:
                 break

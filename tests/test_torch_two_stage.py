@@ -113,7 +113,7 @@ def test_roi_align_and_its_map_gradient_match_jax(out_size, scale,
         out = jroi.roi_align(f, jnp.asarray(rois), out_size, scale,
                              sample_num)
         return (out * g).sum(), out
-    (_, want), jgrad = jax.value_and_grad(jf, has_aux=True)(
+    (_, want), jgrad = jax.jit(jax.value_and_grad(jf, has_aux=True))(
         jnp.asarray(feat))
     f = _t(feat).requires_grad_(True)
     got = roi.roi_align(f, _t(boxes), out_size, scale, sample_num)
@@ -147,7 +147,7 @@ def test_deform_roi_pooling_and_masked_conv_match_jax():
             jnp.asarray(feat), jnp.asarray(rois), o.reshape(-1, 7, 7, 2), 7,
             0.25, 2, 0.1, jnp.asarray(mod.reshape(-1, 7, 7)))
         return (out * g).sum(), out
-    (_, want), jgrad = jax.value_and_grad(jf, has_aux=True)(
+    (_, want), jgrad = jax.jit(jax.value_and_grad(jf, has_aux=True))(
         jnp.asarray(off))
     o = _t(off).requires_grad_(True)
     got = misc_ops.deform_roi_pooling(_t(feat), _t(boxes), o, 7, 0.25, 2,
@@ -175,8 +175,8 @@ def _vmapped_jax_sampler(key, pos, neg, num, frac, **kw):
     def one(k, p, n, *extra):
         return jtsl.sample_pos_neg(k, p, n, num, frac,
                                    **dict(zip(names, extra)))
-    return jax.vmap(one)(keys, jnp.asarray(pos), jnp.asarray(neg),
-                         *[jnp.asarray(kw[n]) for n in names])
+    return jax.jit(jax.vmap(one))(keys, jnp.asarray(pos), jnp.asarray(neg),
+                                  *[jnp.asarray(kw[n]) for n in names])
 
 
 @pytest.mark.parametrize('sampler', ['random', 'ohem', 'instance_balanced',
@@ -278,9 +278,9 @@ def test_extract_roi_feats_matches_jax():
              for s in (1, 2, 4)]
     props = _boxes(rng, 2, 20, lo=0, hi=90, size=(2, 300))
     valid = rng.rand(2, 20) > 0.2
-    want = jts.extract_roi_feats([jnp.asarray(f) for f in feats],
-                                 (8, 16, 32), jnp.asarray(props),
-                                 jnp.asarray(valid))
+    want = jax.jit(lambda f, p, v: jts.extract_roi_feats(
+        f, (8, 16, 32), p, v))([jnp.asarray(f) for f in feats],
+                               jnp.asarray(props), jnp.asarray(valid))
     got = ts.extract_roi_feats([_t(f) for f in feats], (8, 16, 32),
                                _t(props), _t(valid))
     _close_scaled(got, want, 1e-4)
@@ -312,7 +312,8 @@ def test_rpn_loss_and_gradients_match_jax():
                                key)
         return lc + 3 * lr, (lc, lr)
     jouts = [{k: jnp.asarray(v) for k, v in o.items()} for o in outs]
-    (_, jterms), jgrads = jax.value_and_grad(jloss, has_aux=True)(jouts)
+    (_, jterms), jgrads = jax.jit(jax.value_and_grad(
+        jloss, has_aux=True))(jouts)
     touts = [{k: _t(v).requires_grad_(True) for k, v in o.items()}
              for o in outs]
     terms = tsl.rpn_loss(touts, anchors, [_t(v) for v in valids],
@@ -351,9 +352,9 @@ def test_rcnn_targets_and_loss_match_jax(sampler):
             jnp.asarray(props), jnp.asarray(valid), c, r,
             {k: jnp.asarray(v) for k, v in batch.items()}, key, 13, **kw)
         return lc + 2 * lr, (lc, lr, aux)
-    (_, (jc, jr, jaux)), (gc, gr) = jax.value_and_grad(
-        jloss, argnums=(0, 1), has_aux=True)(jnp.asarray(cls),
-                                             jnp.asarray(reg))
+    (_, (jc, jr, jaux)), (gc, gr) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(jnp.asarray(cls),
+                                              jnp.asarray(reg))
     c, r = _t(cls).requires_grad_(True), _t(reg).requires_grad_(True)
     u = jax_uniforms(key, B, R, pos_balanced=sampler == 'instance_balanced',
                      neg_balanced=sampler == 'iou_balanced')

@@ -80,15 +80,19 @@ def test_two_stage_config_backbone_and_neck_match_jax(path):
     jn, tn = jbuild_neck(jcfg, jnp.float32), build_neck(cfg.neck)
     with torch.no_grad():
         feats = tb(torch.from_numpy(x))
-    jfeats = jax.jit(jb.apply)(bvars, jnp.asarray(x))
     if jn is None:
         assert tn is None and cfg.neck.type == 'Identity'
-        got, want = feats, jfeats
+        got, want = feats, jax.jit(jb.apply)(bvars, jnp.asarray(x))
     else:
-        nvars, _ = _pair(jn, tn, 'neck', jfeats)
+        # the neck's variables from the features' shapes; then backbone
+        # and neck as one compiled function
+        shapes = jax.eval_shape(jb.apply, bvars, jnp.asarray(x))
+        nvars, _ = _pair(jn, tn, 'neck', [jnp.zeros(f.shape, f.dtype)
+                                          for f in shapes])
         with torch.no_grad():
             got = tn(feats)
-        want = jax.jit(jn.apply)(nvars, jfeats)
+        want = jax.jit(lambda b, n, x: jn.apply(n, jb.apply(b, x)))(
+            bvars, nvars, jnp.asarray(x))
     assert len(got) == len(want)
     for g, w in zip(got, want):
         w = np.asarray(w)

@@ -478,11 +478,16 @@ def test_hrnet_levels_train_where_the_jax_package_raises():
     model, _, step = init_trainer(cfg, canvas, 10, device='cpu')
     logs = step(dict(batch, seed=np.int32(1)))
     assert all(torch.isfinite(v) for v in logs.values())
+    # the JAX side abstractly: the step raises while it is traced, so
+    # shapes are all it needs (no initialization run, no compile)
     jmodel = jbuild_model(cfg)
-    variables = init_variables(jmodel, cfg, canvas_hw=canvas)
+    variables = jax.eval_shape(
+        lambda: init_variables(jmodel, cfg, canvas_hw=canvas))
     tx, _ = make_optimizer(cfg, variables['params'], 10)
     with pytest.raises(ValueError, match='Incompatible shapes'):
-        jax.jit(make_train_step(jmodel, cfg, canvas, tx))(
-            variables['params'], variables['batch_stats'],
-            tx.init(variables['params']),
-            {k: jnp.asarray(v) for k, v in batch.items()})
+        jax.eval_shape(
+            make_train_step(jmodel, cfg, canvas, tx), variables['params'],
+            variables['batch_stats'],
+            jax.eval_shape(tx.init, variables['params']),
+            {k: jax.ShapeDtypeStruct(v.shape, v.dtype)
+             for k, v in batch.items()})
