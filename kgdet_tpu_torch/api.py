@@ -26,6 +26,7 @@ from kgdet_tpu_torch.models.detector import KGDetDetector
 from kgdet_tpu_torch.models.families import get_head_family, \
     is_two_stage, two_stage_decoder
 from kgdet_tpu_torch.ops.image import device_normalize
+from kgdet_tpu_torch.utils.trace import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -72,21 +73,27 @@ def make_predict_fn(model, cfg: KGDetConfig, canvas_hw):
 
         @torch.inference_mode()
         def predict(batch):
-            feed = _feed(model, batch, PROPOSAL_KEYS)
-            img_hw = feed['img_hw'].float()
-            fwd = model(device_normalize(feed['image'], feed['img_hw']),
+            with span('predict'):
+                feed = _feed(model, batch, PROPOSAL_KEYS)
+                img_hw = feed['img_hw'].float()
+                with span('forward'):
+                    fwd = model(
+                        device_normalize(feed['image'], feed['img_hw']),
                         img_hw, train=False,
                         **{k: feed[k] for k in PROPOSAL_KEYS if k in feed})
-            return decode2(fwd, img_hw, feed['scale_factor'].float(),
-                           cfg.test, cfg.head.num_classes)
+                with span('decode'):
+                    return decode2(fwd, img_hw, feed['scale_factor'].float(),
+                                   cfg.test, cfg.head.num_classes)
         return predict
     decode = get_head_family(cfg.head.type).make_decode(cfg, tuple(canvas_hw))
 
     @torch.inference_mode()
     def predict(batch):
-        feed, outs = _forward(model, batch)
-        return decode(outs, feed['img_hw'].float(),
-                      feed['scale_factor'].float())
+        with span('predict'):
+            feed, outs = _forward(model, batch)
+            with span('decode'):
+                return decode(outs, feed['img_hw'].float(),
+                              feed['scale_factor'].float())
     return predict
 
 
@@ -102,7 +109,8 @@ def _feed(model, batch, optional=()):
 def _forward(model, batch):
     """The batch's tensors on the model's device and the head outputs."""
     feed = _feed(model, batch)
-    return feed, model(device_normalize(feed['image'], feed['img_hw']))
+    with span('forward'):
+        return feed, model(device_normalize(feed['image'], feed['img_hw']))
 
 
 def make_raw_predict_fn(model: KGDetDetector, cfg: KGDetConfig, canvas_hw):
@@ -176,35 +184,39 @@ class Detector:
         from kgdet_tpu_torch.data.transforms import (
             imnormalize, imrescale, pad_to_canvas)
 
-        img = _read(img)
-        data = self.cfg.val_data
-        resized, sf = imrescale(img, data.img_scale)
-        rh, rw = resized.shape[:2]
-        canvas = _canvas_for(data, rh, rw)
-        x = pad_to_canvas(imnormalize(resized).astype(np.float32), canvas)
-        dets = self._predict_for(canvas)({
-            'image': x[None],
-            'img_hw': np.asarray([[rh, rw]], np.float32),
-            'scale_factor': np.asarray([sf], np.float32),
-        })
-        valid = dets['valid'][0].cpu().numpy()
+        with span('request'):
+            img = _read(img)
+            data = self.cfg.val_data
+            with span('preprocess'):
+                resized, sf = imrescale(img, data.img_scale)
+                rh, rw = resized.shape[:2]
+                canvas = _canvas_for(data, rh, rw)
+                x = pad_to_canvas(imnormalize(resized).astype(np.float32),
+                                  canvas)
+            dets = self._predict_for(canvas)({
+                'image': x[None],
+                'img_hw': np.asarray([[rh, rw]], np.float32),
+                'scale_factor': np.asarray([sf], np.float32),
+            })
+            with span('fetch'):
+                valid = dets['valid'][0].cpu().numpy()
 
-        def host(k):
-            return dets[k][0].cpu().numpy()[valid]
-        boxes, labels, kpts = (host(k) for k in ('det_bboxes', 'det_labels',
-                                                 'det_kpts'))
-        # (N, K, 3); the box families carry one dummy keypoint a box
-        out = (boxes, labels, kpts.reshape(len(kpts), -1, 3))
-        if 'det_masks' not in dets:
+                def host(k):
+                    return dets[k][0].cpu().numpy()[valid]
+                boxes, labels, kpts = (host(k) for k in (
+                    'det_bboxes', 'det_labels', 'det_kpts'))
+            # (N, K, 3); the box families carry one dummy keypoint a box
+            out = (boxes, labels, kpts.reshape(len(kpts), -1, 3))
+            if 'det_masks' not in dets:
+                return out
+            from kgdet_tpu_torch.models.mask_head import paste_masks
+            h, w = img.shape[:2]
+            masks = np.stack(paste_masks(boxes, host('det_masks'), h, w)) \
+                if len(boxes) else np.zeros((0, h, w), np.uint8)
+            out += (masks,)
+            if 'det_mask_scores' in dets:
+                out += (host('det_mask_scores'),)
             return out
-        from kgdet_tpu_torch.models.mask_head import paste_masks
-        h, w = img.shape[:2]
-        masks = np.stack(paste_masks(boxes, host('det_masks'), h, w)) \
-            if len(boxes) else np.zeros((0, h, w), np.uint8)
-        out += (masks,)
-        if 'det_mask_scores' in dets:
-            out += (host('det_mask_scores'),)
-        return out
 
     def _raw_predict_for(self, canvas):
         """The pre-NMS decode for one canvas (the TTA merge path)."""

@@ -23,6 +23,7 @@ from kgdet_tpu_torch.models.necks_extra import BFP, FPNBFP, HRFPN
 from kgdet_tpu_torch.models.resnet import DeformConv3x3, ResNet, ResNeXt
 from kgdet_tpu_torch.models.serial_head import SerialKpHead
 from kgdet_tpu_torch.models.vgg import SSDVGG
+from kgdet_tpu_torch.utils.trace import span
 
 for _cls in (ResNet, ResNeXt, SSDVGG, HRNet):
     BACKBONES.register(_cls)
@@ -69,9 +70,13 @@ class KGDetDetector(nn.Module):
     def forward(self, images):
         """images: (B, H, W, 3) normalized NHWC. Returns the per-level head
         dicts (see KGDetHead, SerialKpHead, RetinaHead, SSDHead)."""
-        feats = self.backbone(images.to(self.dtype))
-        return self.bbox_head(feats if self.neck is None
-                              else self.neck(feats))
+        with span('backbone'):
+            feats = self.backbone(images.to(self.dtype))
+        if self.neck is not None:
+            with span('neck'):
+                feats = self.neck(feats)
+        with span('head'):
+            return self.bbox_head(feats)
 
 
 def build_backbone(bcfg):

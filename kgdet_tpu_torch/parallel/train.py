@@ -22,6 +22,7 @@ from kgdet_tpu_torch.config import KGDetConfig
 from kgdet_tpu_torch.ops.image import device_normalize
 from kgdet_tpu_torch.ops.points import grid_points, valid_flags
 from kgdet_tpu_torch.parallel.dist import all_reduce_grads, global_sum, world
+from kgdet_tpu_torch.utils.trace import span
 
 
 # --------------------------------------------------------------- LR schedule
@@ -276,21 +277,27 @@ def make_loss_fn(model, cfg: KGDetConfig, canvas_hw):
         if two_stage:
             kw = {k: feed[k] for k in ('proposals', 'proposals_valid')
                   if k in feed}
-            fwd = model(image, feed['valid_hw'].float(), train=True, **kw)
-            # Fast R-CNN has no RPN and reads no anchor flags
-            valids = two_stage_valid_flags(
-                cfg, feed['valid_hw'],
-                [o['cls'].shape[2:4] for o in fwd['rpn_outs']]) \
-                if fwd['rpn_outs'] else None
-            draw = sampler_draw(int(batch.get('seed', 0)), len(image), dev)
-            return loss(fwd, feed, draw, cfg, valids,
-                        canvas_hw=tuple(canvas_hw), plain=model.plain)
+            with span('forward'):
+                fwd = model(image, feed['valid_hw'].float(), train=True,
+                            **kw)
+            with span('loss'):
+                # Fast R-CNN has no RPN and reads no anchor flags
+                valids = two_stage_valid_flags(
+                    cfg, feed['valid_hw'],
+                    [o['cls'].shape[2:4] for o in fwd['rpn_outs']]) \
+                    if fwd['rpn_outs'] else None
+                draw = sampler_draw(int(batch.get('seed', 0)), len(image),
+                                    dev)
+                return loss(fwd, feed, draw, cfg, valids,
+                            canvas_hw=tuple(canvas_hw), plain=model.plain)
         if dev not in grids:
             grids[dev] = build_level_geometry(cfg, canvas_hw, device=dev)
-        outs = model(image)
-        valids = batch_valid_flags(cfg, canvas_hw, feed['valid_hw'])
-        return compute_loss(outs, grids[dev], valids, feed, cfg,
-                            canvas_hw=canvas_hw)
+        with span('forward'):
+            outs = model(image)
+        with span('loss'):
+            valids = batch_valid_flags(cfg, canvas_hw, feed['valid_hw'])
+            return compute_loss(outs, grids[dev], valids, feed, cfg,
+                                canvas_hw=canvas_hw)
 
     return loss_fn
 
@@ -312,18 +319,21 @@ def make_train_step(model, cfg: KGDetConfig, canvas_hw, optimizer):
     loss_fn = make_loss_fn(model, cfg, canvas_hw)
 
     def train_step(batch):
-        optimizer.zero_grad()
-        total, logs = loss_fn(batch)
-        total.backward()
-        logs = {k: v.detach() for k, v in logs.items()}
-        logs['loss'] = total.detach()
-        if world()[1] > 1:
-            all_reduce_grads(optimizer.all_params)
-            terms = [k for k in logs if not k.startswith('num_pos')]
-            summed = global_sum(torch.stack([logs[k] for k in terms]))
-            logs.update(zip(terms, summed.unbind()))
-        logs['grad_norm'] = optimizer.step()
-        return logs
+        with span('step'):
+            optimizer.zero_grad()
+            total, logs = loss_fn(batch)
+            with span('backward'):
+                total.backward()
+            logs = {k: v.detach() for k, v in logs.items()}
+            logs['loss'] = total.detach()
+            if world()[1] > 1:
+                all_reduce_grads(optimizer.all_params)
+                terms = [k for k in logs if not k.startswith('num_pos')]
+                summed = global_sum(torch.stack([logs[k] for k in terms]))
+                logs.update(zip(terms, summed.unbind()))
+            with span('optimizer'):
+                logs['grad_norm'] = optimizer.step()
+            return logs
 
     return train_step
 

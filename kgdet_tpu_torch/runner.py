@@ -35,6 +35,7 @@ from kgdet_tpu_torch.eval_loop import run_eval
 from kgdet_tpu_torch.parallel.dist import replicate, world
 from kgdet_tpu_torch.parallel.train import make_optimizer, make_train_step
 from kgdet_tpu_torch.utils.checkpoint import CheckpointManager
+from kgdet_tpu_torch.utils.trace import span
 
 
 class TrainLogger:
@@ -199,11 +200,12 @@ class Runner:
         through pinned memory by a non-blocking copy."""
         cuda = self.device.type == 'cuda'
         out = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(np.require(v, requirements='C'))
-            if cuda:
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
+        with span('data.stage'):
+            for k, v in batch.items():
+                t = torch.from_numpy(np.require(v, requirements='C'))
+                if cuda:
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                out[k] = t
         return out
 
     def _device_prefetch(self, iterator, depth: int = 2):
@@ -212,7 +214,13 @@ class Runner:
         and the host does not wait for them)."""
         queue = deque()
         seed = self.cfg.seed * 100003 + self.step
-        for batch in iterator:
+        batches = iter(iterator)
+        while True:
+            try:
+                with span('data.fetch'):    # the wait for the loader
+                    batch = next(batches)
+            except StopIteration:
+                break
             # per-step sampler seed (two-stage random subsampling)
             batch = dict(batch, seed=np.int32(seed % (2 ** 31)))
             seed += 1

@@ -10,8 +10,12 @@ seeded random weights. One warm-up run happens outside the trace, as the
 JAX tool compiles outside it. The trace (``<trace-dir>/trace.json``) opens
 in Perfetto or chrome://tracing; on the card the port's kernels appear as
 their device kernels (``kgdet::...``), on the CPU their plain versions as
-ranges named after them (``K1 deform_conv_fused``, ...). On the CUDA
-card unless ``--device`` says otherwise:
+ranges named after them (``K1 deform_conv_fused``, ...). A span recording
+(utils/trace.py) is open around the traced runs, so the program's spans
+appear as host ranges ``kgdet.<span>``: ``kgdet.predict``,
+``kgdet.forward``, ``kgdet.decode``, ... or ``kgdet.step``,
+``kgdet.loss``, ``kgdet.backward``, ``kgdet.optimizer``. On the CUDA card
+unless ``--device`` says otherwise:
 
   python -m kgdet_tpu_torch.tools.profile configs/..._demo.py \
       --mode infer [--trace-dir DIR] [--steps 5] [--batch-size 1] \
@@ -52,6 +56,7 @@ def main(argv=None):
         resolve_device
     from kgdet_tpu_torch.config import load_config
     from kgdet_tpu_torch.eval_loop import make_predict_fns
+    from kgdet_tpu_torch.utils.trace import recording
 
     device = resolve_device(args.device)
     cfg = load_config(args.config)
@@ -99,7 +104,7 @@ def main(argv=None):
     sync()
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device.type == 'cuda' else [])
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, recording():
         for _ in range(args.steps):
             run()
         sync()

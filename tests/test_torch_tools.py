@@ -249,9 +249,12 @@ def test_get_flops_on_the_tiny_cascade(eval_set, monkeypatch, capsys):
 
 @pytest.mark.parametrize('mode,names', [
     ('infer', ('K1 deform_conv_fused', 'K4 stem_pool',
-               'K5 frozen_bottleneck', 'aten::conv2d')),
+               'K5 frozen_bottleneck', 'aten::conv2d', 'kgdet.predict',
+               'kgdet.forward', 'kgdet.backbone', 'kgdet.decode')),
     ('train', ('K2 deform_sample_split', 'K3 deform_sample_bwd',
-               'K4 stem_pool', 'K5 frozen_bottleneck', 'aten::conv2d'))])
+               'K4 stem_pool', 'K5 frozen_bottleneck', 'aten::conv2d',
+               'kgdet.step', 'kgdet.loss', 'kgdet.backward',
+               'kgdet.optimizer'))])
 def test_profile_writes_a_trace_naming_the_kernels(eval_set, tmp_path, mode,
                                                   names):
     _, _, cfg_path = eval_set

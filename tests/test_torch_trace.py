@@ -1,0 +1,193 @@
+"""The program's spans (kgdet_tpu_torch/utils/trace.py) on the CPU: nothing
+recorded, no clock read and no profiler range entered without a
+recording; inside one, the span tree of a predict call, a train step, a
+``Detector`` call and the Runner's device prefetch on the tiny R-50 model
+of tests/test_torch_model.py; threads apart; and the profiler's
+``kgdet.<name>`` ranges on the records' clock shifted by ``anchor_ns``.
+"""
+import threading
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from kgdet_tpu_torch.api import Detector, init_trainer, make_predict_fn
+from kgdet_tpu_torch.runner import Runner
+from kgdet_tpu_torch.utils import trace
+from tests.common import synth_batch
+from tests.test_torch_model import CANVAS, tiny_r50_cfg
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope='module')
+def trainer():
+    cfg = tiny_r50_cfg()
+    model, opt, step = init_trainer(cfg, CANVAS, steps_per_epoch=10,
+                                    device='cpu')
+    return cfg, model.eval(), step
+
+
+def _batch():
+    rng = np.random.RandomState(0)
+    return {'image': rng.randint(0, 256, (1,) + CANVAS + (3,), np.uint8),
+            'img_hw': np.asarray([[60, 90]], np.float32),
+            'scale_factor': np.ones(1, np.float32)}
+
+
+def _tree(records):
+    """{name: record} of spans that each appear once, and the root ids."""
+    by_name = {r.name: r for r in records}
+    assert len(by_name) == len(records), [r.name for r in records]
+    return by_name, {r.root for r in records}
+
+
+def _inside(child, parent):
+    assert child.parent == parent.id and child.root == parent.root
+    assert parent.start_ns <= child.start_ns <= child.end_ns \
+        <= parent.end_ns, (child.name, parent.name)
+
+
+def test_off_path_is_one_shared_no_op_that_reads_no_clock(monkeypatch):
+    def no_clock():
+        raise AssertionError('a span read the clock with no recording')
+    monkeypatch.setattr(trace.time, 'perf_counter_ns', no_clock)
+    assert trace.span('predict') is trace.span('step')
+    with trace.span('predict') as s:
+        with trace.span('forward'):
+            pass
+    assert s is trace.span('decode')
+    monkeypatch.undo()
+    with trace.recording() as rec:
+        pass
+    assert rec.records == [] and trace.span('predict') is s
+
+
+def test_no_kgdet_range_under_the_profiler_without_a_recording(trainer):
+    cfg, model, _ = trainer
+    predict = make_predict_fn(model, cfg, CANVAS)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        predict(_batch())
+    names = {e.name for e in prof.events()}
+    assert 'aten::conv2d' in names
+    assert not [n for n in names if n.startswith('kgdet.')]
+
+
+def test_predict_spans_nest_under_one_root(trainer):
+    cfg, model, _ = trainer
+    predict = make_predict_fn(model, cfg, CANVAS)
+    with trace.recording() as rec:
+        predict(_batch())
+    s, roots = _tree(rec.records)
+    assert set(s) == {'predict', 'forward', 'backbone', 'neck', 'head',
+                      'decode'}
+    assert roots == {s['predict'].id} and s['predict'].parent is None
+    for child, parent in (('forward', 'predict'), ('backbone', 'forward'),
+                          ('neck', 'forward'), ('head', 'forward'),
+                          ('decode', 'predict')):
+        _inside(s[child], s[parent])
+    assert s['backbone'].end_ns <= s['neck'].start_ns
+    assert s['neck'].end_ns <= s['head'].start_ns
+    assert s['forward'].end_ns <= s['decode'].start_ns
+
+
+def test_train_step_spans_nest_under_one_root(trainer):
+    cfg, _, step = trainer
+    batch = synth_batch(canvas=CANVAS, B=1, G=2, K=cfg.head.num_keypts)
+    with trace.recording() as rec:
+        step(batch)
+    s, roots = _tree(rec.records)
+    assert set(s) == {'step', 'forward', 'backbone', 'neck', 'head', 'loss',
+                      'backward', 'optimizer'}
+    assert roots == {s['step'].id}
+    for child in ('forward', 'loss', 'backward', 'optimizer'):
+        _inside(s[child], s['step'])
+    order = [s[n] for n in ('forward', 'loss', 'backward', 'optimizer')]
+    assert all(a.end_ns <= b.start_ns for a, b in zip(order, order[1:]))
+
+
+def test_detector_call_spans_nest_under_the_request(trainer):
+    cfg, model, _ = trainer
+    img = np.random.RandomState(1).randint(0, 256, (50, 70, 3), np.uint8)
+    detector = Detector(cfg, model)
+    with trace.recording() as rec:
+        detector(img)
+    s, roots = _tree(rec.records)
+    assert {'request', 'preprocess', 'predict', 'forward', 'decode',
+            'fetch'} <= set(s)
+    assert roots == {s['request'].id}
+    for child in ('preprocess', 'predict', 'fetch'):
+        _inside(s[child], s['request'])
+    assert s['preprocess'].end_ns <= s['predict'].start_ns
+    assert s['predict'].end_ns <= s['fetch'].start_ns
+
+
+def test_device_prefetch_spans_each_fetch_and_stage(tmp_path):
+    runner = Runner(tiny_r50_cfg(), work_dir=str(tmp_path), device='cpu')
+    host = [{'image': np.full((1, 4, 4, 3), i, np.uint8)} for i in range(2)]
+    with trace.recording() as rec:
+        out = list(runner._device_prefetch(iter(host)))
+    assert [int(b['image'][0, 0, 0, 0]) for b in out] == [0, 1]
+    names = [r.name for r in rec.records]
+    assert names.count('data.fetch') == 2 and names.count('data.stage') == 2
+    assert all(r.parent is None for r in rec.records)
+
+
+def test_threads_keep_their_own_parents():
+    go = threading.Barrier(2, timeout=30)
+
+    def work(name):
+        with trace.span(name):
+            go.wait()               # both outer spans open at once
+            with trace.span(name + '.inner'):
+                go.wait()
+    with trace.recording() as rec:
+        threads = [threading.Thread(target=work, args=(n,))
+                   for n in ('a', 'b')]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    s, roots = _tree(rec.records)
+    assert len(roots) == 2
+    _inside(s['a.inner'], s['a'])
+    _inside(s['b.inner'], s['b'])
+    assert s['a'].thread != s['b'].thread
+
+
+def test_one_recording_at_a_time_and_failed_spans_record_nothing():
+    with trace.recording() as rec:
+        with pytest.raises(RuntimeError, match='already open'):
+            with trace.recording():
+                pass
+        with pytest.raises(ValueError):
+            with trace.span('step'):
+                with trace.span('loss'):
+                    pass
+                raise ValueError
+    assert [r.name for r in rec.records] == ['loss']
+    with trace.recording() as again:    # the first one closed
+        with trace.span('step'):
+            pass
+    assert [r.name for r in again.records] == ['step']
+
+
+def test_profiler_ranges_lie_on_the_records_clock(trainer):
+    cfg, model, _ = trainer
+    predict = make_predict_fn(model, cfg, CANVAS)
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            trace.recording() as rec:
+        predict(_batch())
+        predict(_batch())
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    ranges = sorted(((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events() if e.name.startswith('kgdet.')),
+                    key=lambda x: (x[0], -x[1]))
+    records = sorted(rec.records, key=lambda r: r.start_ns)
+    assert [n for _, _, n in ranges] == [f'kgdet.{r.name}' for r in records]
+    # 2 ms: a loaded host (six test workers) delays a mark, never its clock
+    for (start, end, _), r in zip(ranges, records):
+        assert abs(t0 + start * 1e3 - (r.start_ns + rec.anchor_ns)) < 2e6
+        assert abs(t0 + end * 1e3 - (r.end_ns + rec.anchor_ns)) < 2e6
