@@ -40,7 +40,12 @@ adaption on P3 (map 100x168x256, stride 1) and ResNeXt-101 32x4d's grouped
 DCN at layer2.0 (200x336x256, stride 2) and layer4.0 (50x84x1024, stride
 2); and at phase 14's RoIAlign gathers: Faster R-CNN's P2 (map
 200x336x256, 1000 RoIs x 196 samples, batch 2) and the C4 map
-(50x84x1024, 1000 RoIs x 784 samples, batch 1). After the
+(50x84x1024, 1000 RoIs x 784 samples, batch 1). K9 greedy_nms
+against its loop (greedy_nms(plain=True)), kept indices and scores bit for
+bit, at K9_SHAPES (the benchmark's served cascade batch of 8 x 13 rows of
+1,000 candidates over 100 steps, batch 1, the RPN's 2 rows of 4,800 over
+1,000 steps, one row of 16,384 on the global copy), one kernel a call,
+with its wrapper, device and loop ms and its bound. After the
 build, ptxas's registers and spills a kernel and, by cuobjdump, the bf16
 tensor-core instructions and local-memory accesses in the SASS of the
 bottleneck bodies of K5 and K8 (fails if a tensor-core instance has none).
@@ -152,10 +157,11 @@ else), the head outputs against the plain kernels as phase 2 holds them,
 2 train steps through init_trainer (K4 1 / K5 3 a step, finite logs, a
 frozen parameter bit-equal, retina_cls moved). (b)
 configs/ssd300_vgg16_deepfashion2.py as shipped (f32, batch 32, 300x300;
-no TPU kernel on its path in either package): 2 batches served and 2
-train steps with every counter at 0, then tools/train.py --validate for
-one epoch of 2 steps on 64 synthetic training PNGs and 32 validation PNGs
-with the config's photometric distortion, expand and min-IoU crop
+no TPU kernel on its path in either package): 2 batches served (K9
+alone, once a batch) and 2 train steps with every counter at 0, then
+tools/train.py --validate for one epoch of 2 steps on 64 synthetic
+training PNGs and 32 validation PNGs with the config's photometric
+distortion, expand and min-IoU crop
 (finite records, one checkpoint, the bbox copypaste line). (c) The
 cascade config with backbone.dcn_stages=(1, 2, 3) (DCN v1 in c3-c5, as
 mmdetection v1.x's dconv_c3-c5 configs), bf16: the offset convs given
@@ -202,7 +208,7 @@ own dtype). (a) configs/faster_rcnn_r50_fpn_1x_deepfashion2.py (bf16): 2
 requests of 2 served through make_predict_fn (K4 1 / K5 3 / K6 5 a
 forward, one K6 a FPN level of the RoI gather; finite detections, img/s,
 peak memory), the served batch by stage under torch.profiler (backbone,
-neck, RPN head, proposals with their NMS loop, RoI extraction, box head,
+neck, RPN head, proposals with their NMS, RoI extraction, box head,
 decode), the model against its plain kernels with the proposals pinned
 (the RPN's maps compared directly; the RoI head fed the kernel run's
 proposals through the external-proposal input on both sides; f32 within
@@ -253,13 +259,19 @@ BF16_RATIO in bf16); (b)
 tools/test_robustness.py in-process on 8 synthetic PNGs, 2 corruptions x
 2 severities (K1 12 / K4 1 / K5 3 a forward, the JSON's five settings);
 (c) tools/profile.py --mode infer and --mode train at batch 2, 2 steps
-(the Chrome trace names K1, K4, K5, resp. K2, K3, K4, K5 among its device
+(the Chrome trace names K1, K4, K5, K9, resp. K2, K3, K4, K5 among its device
 kernels); (d) tools/get_flops.py at 1280x800 (K1's 12 calls
 by PERF.md section 6's formula); (e) tools/visualize.py on one PNG (the
 output differs from the input on every drawn box's outline).
 
+Every launch check above counts K9 too: once a served batch (the decode's
+NMS), twice a two-stage forward (the proposals', the detections'; once
+for RPN and Fast R-CNN), once a two-stage train step (the proposals), once
+an image under TTA (one NMS over the merged variants), never in a
+single-stage train step, and never under use_plain_kernels(True).
+
 Prints the card's name and power limit, one line per check, a JSON line of
-the seven kernels (launches on each main path, the evaluation CLI's
+the eight kernels (launches on each main path, the evaluation CLI's
 and phases 12 to 16 included, error, wrapper and device times, bound), and as
 its last line {"ok": true, "device": {...}}. Exits
 nonzero, with no result line, when a check fails or no CUDA device is
@@ -323,6 +335,12 @@ TRAIN_STEPS = 2
 SERVED = 2
 # RoIs an image at test time (test proposals of every two-stage config)
 ROI_COUNT = 1000
+# K9's shapes in phase 1: images, classes (0: the proposals' (B, N)
+# scores), candidates a row, steps, IoU threshold
+K9_SHAPES = {'served': (8, 13, 1000, 100, 0.5),
+             'batch1': (1, 13, 1000, 100, 0.5),
+             'rpn': (2, 0, 4800, 1000, 0.7),
+             'global': (1, 1, 16384, 100, 0.5)}
 
 
 def fail(msg):
@@ -547,6 +565,7 @@ def phase_kernels(torch, gen):
     import torch.nn.functional as F
 
     from kgdet_tpu_torch.ops import deform_kernels as dk
+    from kgdet_tpu_torch.ops import nms
     from kgdet_tpu_torch.ops import resblock as rb
     from kgdet_tpu_torch.ops import stem_kernels as sk
     from kgdet_tpu_torch.ops.deform import bilinear_gather
@@ -976,15 +995,50 @@ def phase_kernels(torch, gen):
         + out_bytes(rb.fused_bottleneck, a16), 2 * B * H4 * W4 * macs,
         'bf16'))
     del x, blk, a16
+
+    # K9 against its loop (greedy_nms(plain=True)), kept indices and
+    # scores bit for bit, at its callers' shapes: the cascade's served
+    # batch of the benchmark (8 images x 13 classes of 1,000 candidates,
+    # 100 steps, thr 0.5, scores the (B, C, N) view of the decode's
+    # (B, N, C)), batch 1, the RPN's proposals (2 images of 4,800, 1,000
+    # steps, thr 0.7) and one row of 16,384, over what a block can stage
+    k9 = {}
+    for label, (b, c, n, steps, thr) in K9_SHAPES.items():
+        boxes = nms_boxes(torch, gen, b, n).to(dev)
+        scores = torch.rand((b, n, max(c, 1)), generator=gen).to(dev)
+        args = (boxes[:, None], scores.transpose(1, 2)) if c else \
+            (boxes, scores[..., 0].contiguous())
+        args += (thr, steps)
+        got, want = nms.greedy_nms(*args), nms.greedy_nms(*args, plain=True)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f'K9 greedy_nms {label}: kept indices or scores differ '
+                 f'from the loop\'s')
+        dms, n_dev, n_own = device_profile(lambda: nms.greedy_nms(*args))
+        m = {'max_abs_err': 0.0, 'ms': median_ms(
+            lambda: nms.greedy_nms(*args)), 'plain_ms': median_ms(
+            lambda: nms.greedy_nms(*args, plain=True), reps=3, warmup=1),
+            'device_ms': dms, 'device_kernels': n_dev, 'own_kernels': n_own}
+        name = f'K9 greedy_nms {label} ({args[1].numel() // n} rows of {n}, ' \
+            f'{steps} steps)'
+        one_launch(name, m)
+        print(f'{name}: equal to the loop, {int((got[0] >= 0).sum())} kept '
+              f'| median ms: kernel {m["ms"]:.4f} (on the device '
+              f'{dms:.4f}, {n_dev:g} device activities a call), plain '
+              f'{m["plain_ms"]:.4f}', flush=True)
+        ops, n_bytes = nms._k9_cost(*args)
+        k9[label] = entry(m, *bound(n_bytes, ops, 'f32'))
+    results['greedy_nms'] = k9.pop('served')
+    results['greedy_nms'].update(k9)
     for name, r in results.items():
+        b = K9_SHAPES['served'][0] if name == 'greedy_nms' else B
         print(f'bound {name}: {r["bound_ms"]:.4f} ms by {r["bound_by"]} '
               f'(wrapper calls {r["ms"]:.4f} ms, kernel on the device '
-              f'{r["device_ms"]:.4f} ms, per forward or step of batch {B})',
+              f'{r["device_ms"]:.4f} ms, per forward or step of batch {b})',
               flush=True)
         for case in ('near', 'b8_42x25', 'serial', 'serial_near',
                      'width128', 'dcn_layer2_0', 'dcn_layer4_0', 'dcn_ga_p3',
                      'dcn_x101_layer2_0', 'dcn_x101_layer4_0', 'roi_p2',
-                     'roi_c4', 'mask_p2', 'mask_targets'):
+                     'roi_c4', 'mask_p2', 'mask_targets', *K9_SHAPES):
             if case in r:
                 q = r[case]
                 lib = '' if q.get('library_ms') is None \
@@ -994,6 +1048,20 @@ def phase_kernels(torch, gen):
                       f'kernel on the device {q["device_ms"]:.4f} ms{lib})',
                       flush=True)
     return results
+
+
+def nms_boxes(torch, gen, B, N, hw=CANVAS):
+    """(B, N, 4) xyxy f32 boxes in the served decode's range, on the CPU:
+    clustered around 20 centres an image, so that a row's boxes overlap
+    heavily, clamped to the image as decode_raw clamps them."""
+    H, W = (float(v) for v in hw)
+    centre = torch.rand((B, 20, 2), generator=gen) * torch.tensor([W, H])
+    pick = torch.randint(0, 20, (B, N), generator=gen)
+    c = centre.gather(1, pick[..., None].expand(B, N, 2)) \
+        + torch.randn((B, N, 2), generator=gen) * 30
+    wh = 20 + torch.rand((B, N, 2), generator=gen) * 380
+    xy = torch.cat([c - wh / 2, c + wh / 2], -1)
+    return torch.minimum(xy.clamp(min=0), torch.tensor([W, H, W, H]))
 
 
 def make_requests(n, seed):
@@ -1014,6 +1082,7 @@ def wrappers():
     from kgdet_tpu_torch.ops.deform_kernels import (
         deform_conv_fused, deform_sample_bwd, deform_sample_cols,
         deform_sample_split)
+    from kgdet_tpu_torch.ops.nms import greedy_nms
     from kgdet_tpu_torch.ops.resblock import fused_bottleneck
     from kgdet_tpu_torch.ops.stem_kernels import frozen_bottleneck, stem_pool
     return {'deform_fused': deform_conv_fused,
@@ -1021,7 +1090,7 @@ def wrappers():
             'deform_sample_bwd': deform_sample_bwd, 'stem_pool': stem_pool,
             'frozen_bottleneck': frozen_bottleneck,
             'deform_sample_cols': deform_sample_cols,
-            'fused_bottleneck': fused_bottleneck}
+            'fused_bottleneck': fused_bottleneck, 'greedy_nms': greedy_nms}
 
 
 def launch_counts(**per_kernel):
@@ -1233,6 +1302,7 @@ def phase_profile(torch, model, cfg, req, gpu, steps=2):
 
     from kgdet_tpu_torch.models.families import get_head_family
     from kgdet_tpu_torch.ops.image import device_normalize
+    from kgdet_tpu_torch.ops.nms import plain_nms
 
     canvas = tuple(req['image'].shape[1:3])
     decode = get_head_family(cfg.head.type).make_decode(cfg, canvas)
@@ -1251,7 +1321,7 @@ def phase_profile(torch, model, cfg, req, gpu, steps=2):
                 feats = model.neck(feats)
         with record_function('head'):
             outs = model.bbox_head(feats)
-        with record_function('decode'):
+        with record_function('decode'), plain_nms(model.plain):
             return decode(outs, img_hw, sf)
 
     run()
@@ -1266,8 +1336,7 @@ def phase_profile(torch, model, cfg, req, gpu, steps=2):
     span_ms, busy_ms, kern = stage_times(prof, STAGES, DeviceType.CUDA,
                                          steps)
     busy = sum(busy_ms.values())
-    kind = 'plain versions' if getattr(model.backbone, 'plain_prefix',
-                                       False) else 'kernels'
+    kind = 'plain versions' if model.plain else 'kernels'
     print(f'profile ({kind}): {steps} batches of {len(img)} at '
           f'{canvas[0]}x{canvas[1]} under torch.profiler: '
           f'{wall:.3f} ms per batch, device busy {busy:.3f} ms, idle share '
@@ -2128,6 +2197,7 @@ def phase_eval(torch, gpu, per_fwd):
         variants = len(TTA_SCALES) // 2 * 2
         tta_batches = variants * len(DataLoader(subset, 2, train=False))
         want = {k: v * tta_batches for k, v in per_fwd.items()}
+        want['greedy_nms'] = len(subset)    # one NMS an image, merged
         if read_launches() != want:
             fail(f'TTA launches {read_launches()} != {want} for '
                  f'{tta_batches} batches')
@@ -3126,7 +3196,8 @@ def phase_retina(torch, gpu):
     Returns the launches served and trained."""
     prefix = launch_counts(stem_pool=1, frozen_bottleneck=3)
     config = retina_config()
-    model, cfg, req, served = phase_serving(torch, gpu, config, prefix)
+    model, cfg, req, served = phase_serving(
+        torch, gpu, config, {**prefix, 'greedy_nms': 1})
     phase_profile(torch, model, cfg, req, gpu)
     del model
     torch.cuda.empty_cache()
@@ -3198,7 +3269,8 @@ def ssd_cli_config(root):
 def phase_ssd(torch, gpu):
     """(b) configs/ssd300_vgg16_deepfashion2.py as shipped (batch 32,
     300x300; no TPU kernel on this path in either package): 2 batches of
-    32 served and 2 train steps at batch 32 with every kernel counter at 0;
+    32 served (K9 once a batch, no other kernel) and 2 train steps at batch
+    32 with every kernel counter at 0;
     then tools/train.py --validate for one epoch of 2 steps on synthetic
     PNGs with the config's photometric distortion, expand and min-IoU crop.
     Returns the launches served and trained."""
@@ -3214,6 +3286,7 @@ def phase_ssd(torch, gpu):
     cfg = cfg.replace(test=dataclasses.replace(cfg.test, score_thr=0.0))
     b = cfg.val_data.batch_size
     zero = launch_counts()
+    nms_only = launch_counts(greedy_nms=SERVED)
     model = build_model(cfg).init_weights(SEED).eval()
     predict = make_predict_fn(model, cfg, SSD_CANVAS)
     reqs = ssd_requests(SERVED, SEED, b)
@@ -3221,8 +3294,8 @@ def phase_ssd(torch, gpu):
     reset_launches()
     dets, secs = serve(torch, predict, reqs)
     served = read_launches()
-    if served != zero:
-        fail(f'SSD300 served with kernel launches {served}')
+    if served != nms_only:
+        fail(f'SSD300 served with kernel launches {served} != {nms_only}')
     n_valid = 0
     for d in dets:
         if not all(torch.isfinite(v).all() for v in d.values()
@@ -3234,7 +3307,7 @@ def phase_ssd(torch, gpu):
     if n_valid == 0:
         fail('SSD300: no detection survived NMS at score_thr 0')
     print(f'SSD300 serving: {SERVED} batches x {b} images at 300x300, '
-          f'{cfg.compute_dtype}, {n_valid} valid detections, no kernel '
+          f'{cfg.compute_dtype}, {n_valid} valid detections, K9 alone '
           f'launched; {b * SERVED / secs:.2f} img/s ({gpu})', flush=True)
     phase_profile(torch, model, cfg, reqs[0], gpu)
     del model, predict
@@ -3481,7 +3554,8 @@ def phase_dcn(torch, gpu):
     config = dcn_config()
     model, cfg, req, served = phase_serving(
         torch, gpu, config, launch_counts(deform_fused=12,
-                                          deform_sample_cols=n_dcn, **prefix),
+                                          deform_sample_cols=n_dcn,
+                                          greedy_nms=1, **prefix),
         compare=False,
         prepare=lambda m, r: calibrate_offsets(torch, m, r))
     hold_dcn_against_plain(torch, model, req)
@@ -3631,7 +3705,8 @@ def phase_ga(torch, gpu):
     config = ga_config()
     n_fa = 2 * len(config[1].head.point_strides)
     model, cfg, req, served = phase_serving(
-        torch, gpu, config, launch_counts(deform_sample_cols=n_fa, **prefix))
+        torch, gpu, config, launch_counts(deform_sample_cols=n_fa,
+                                          greedy_nms=1, **prefix))
     phase_profile(torch, model, cfg, req, gpu)
     del model
     torch.cuda.empty_cache()
@@ -3666,7 +3741,8 @@ def phase_fcos(torch, gpu):
     trained."""
     prefix = launch_counts(stem_pool=1, frozen_bottleneck=3)
     config = fcos_config()
-    model, cfg, req, served = phase_serving(torch, gpu, config, prefix)
+    model, cfg, req, served = phase_serving(
+        torch, gpu, config, {**prefix, 'greedy_nms': 1})
     phase_profile(torch, model, cfg, req, gpu)
     del model
     torch.cuda.empty_cache()
@@ -3890,11 +3966,15 @@ CLI_VAL_IMAGES = 4
 def two_stage_launches(name, step):
     """The launches of a forward (``step`` False) or a train step of the
     path ``name``: K4 1 / K5 3 where the frozen prefix runs, K6 a RoI
-    gather and, in a step, K3 as many."""
+    gather and, in a step, K3 as many; K9 for the RPN's proposals (not
+    Fast R-CNN's, which come with the batch) and, in a forward, for the
+    detections (not the RPN's, which are its ranked proposals)."""
     _, prefix, k6 = TWO_STAGE[name]
     per = dict(stem_pool=1, frozen_bottleneck=3) if prefix else {}
+    k9 = (name != 'fast_rcnn') + (not step and name != 'rpn')
     return launch_counts(deform_sample_cols=k6,
-                         deform_sample_bwd=k6 if step else 0, **per)
+                         deform_sample_bwd=k6 if step else 0,
+                         greedy_nms=k9, **per)
 
 
 def jittered_proposals(rng, boxes, hw, n=ROI_COUNT):
@@ -3994,7 +4074,7 @@ def two_stage_profile(torch, model, cfg, req, gpu, steps=2,
     """A Faster R-CNN-style served batch by stage under torch.profiler
     (the stages labelled around the model's parts): per stage its device
     span and busy time, the device's idle share of the window, the top
-    kernels. The proposals stage holds the RPN's top-k and its NMS loop;
+    kernels. The proposals stage holds the RPN's top-k and its NMS (K9);
     Mask R-CNN adds the mask RoIs (the refined boxes and their 14x14
     gather) and the mask head."""
     from torch.autograd import DeviceType
@@ -4004,6 +4084,7 @@ def two_stage_profile(torch, model, cfg, req, gpu, steps=2,
     from kgdet_tpu_torch.models.two_stage import best_class_boxes, \
         rpn_proposals
     from kgdet_tpu_torch.ops.image import device_normalize
+    from kgdet_tpu_torch.ops.nms import plain_nms
 
     decode = two_stage_decoder(cfg.detector_type)
     img = torch.as_tensor(req['image']).cuda()
@@ -4023,7 +4104,7 @@ def two_stage_profile(torch, model, cfg, req, gpu, steps=2,
             feats = list(model.neck(feats))
         with record_function('rpn_head'):
             rpn_outs = model.rpn_head(feats)
-        with record_function('proposals'):
+        with record_function('proposals'), plain_nms(model.plain):
             props, _, valid = rpn_proposals(
                 rpn_outs, model.anchors(feats), img_hw,
                 max_num=model.num_proposals_test)
@@ -4041,7 +4122,7 @@ def two_stage_profile(torch, model, cfg, req, gpu, steps=2,
                 logits = model.mask_head(mfeats.flatten(0, 1))
             fwd.update(refined_boxes=boxes, mask_logits=logits.reshape(
                 *props.shape[:2], *logits.shape[1:]))
-        with record_function('decode'):
+        with record_function('decode'), plain_nms(model.plain):
             return decode(fwd, img_hw, sf, cfg.test, cfg.head.num_classes)
 
     run()
@@ -4446,10 +4527,13 @@ def mask_config(name):
 
 
 def mask_launches(name, step):
+    """K4 1 / K5 3, the path's K6 and K3; K9 for the proposals and, in a
+    forward, for the detections."""
     _, _, fwd, k6, k3 = MASK_PATHS[name]
     return launch_counts(stem_pool=1, frozen_bottleneck=3,
                          deform_sample_cols=k6 if step else fwd,
-                         deform_sample_bwd=k3 if step else 0)
+                         deform_sample_bwd=k3 if step else 0,
+                         greedy_nms=1 if step else 2)
 
 
 def mask_train_batches(cfg, n):
@@ -4603,7 +4687,8 @@ def phase_mask_rcnn(torch, gpu):
     pinned (in f32 the box head and the mask logits within 1e-5 of scale,
     the RPN's maps within MASK_RPN_F32_REL); one train step and its
     gradients on K6+K3 against their plain versions (the whole-model rule,
-    the prefix the same on both sides; the plain step launches neither).
+    the prefix the same on both sides; the plain step launches neither,
+    nor K9 for its proposals).
     Returns the launches served and trained."""
     from kgdet_tpu_torch.parallel.train import make_loss_fn
 
@@ -4627,7 +4712,8 @@ def phase_mask_rcnn(torch, gpu):
     reset_launches()
     plain32 = run(True)
     got = read_launches()
-    if got['deform_sample_cols'] or got['deform_sample_bwd']:
+    if got['deform_sample_cols'] or got['deform_sample_bwd'] or \
+            got['greedy_nms']:
         fail(f'mask_rcnn: the plain step launched {got}')
     check_same_prefix_grads('K6+K3 in the box and mask RoI gathers and '
                             'the mask targets', kern32, plain32)
@@ -4812,7 +4898,8 @@ def phase_calibration(torch, gpu):
     dets = predict(reqs[0])
     torch.cuda.synchronize()
     got = read_launches()
-    want = launch_counts(deform_fused=12, stem_pool=1, frozen_bottleneck=3)
+    want = launch_counts(deform_fused=12, stem_pool=1, frozen_bottleneck=3,
+                         greedy_nms=1)
     if got != want:
         fail(f'calibrated serving: launches {got} != {want}')
     if backbone._kept[0] == kept_before:
@@ -4858,9 +4945,9 @@ def phase_calibration(torch, gpu):
 
 def phase_robustness(torch, gpu, root):
     """(b) tools/test_robustness.py in-process on the cascade config over
-    UTILITY_IMAGES synthetic PNGs: K1 12 / K4 1 / K5 3 a forward, the JSON
-    with the clean set and every corruption x severity. Returns the CLI's
-    launches."""
+    UTILITY_IMAGES synthetic PNGs: K1 12 / K4 1 / K5 3 / K9 1 a forward,
+    the JSON with the clean set and every corruption x severity. Returns
+    the CLI's launches."""
     from kgdet_tpu_torch.tools import test_robustness
 
     out = os.path.join(root, 'robustness.json')
@@ -4872,7 +4959,7 @@ def phase_robustness(torch, gpu, root):
     secs = time.perf_counter() - t0
     got = read_launches()
     want = launch_counts(deform_fused=12 * batches, stem_pool=batches,
-                         frozen_bottleneck=3 * batches)
+                         frozen_bottleneck=3 * batches, greedy_nms=batches)
     if got != want or batches < 5:
         fail(f'robustness CLI: launches {got} != {want} for {batches} '
              'forwards')
@@ -4891,7 +4978,7 @@ def phase_robustness(torch, gpu, root):
 
 PROFILE_NAMES = {
     'infer': {'K1': 'deform_fused', 'K4': 'stem_pool',
-              'K5': 'bottleneck'},
+              'K5': 'bottleneck', 'K9': 'greedy_nms'},
     'train': {'K2': 'deform_split', 'K3': 'deform_bwd', 'K4': 'stem_pool',
               'K5': 'bottleneck'},
 }
@@ -4907,7 +4994,7 @@ def phase_profile_cli(torch, gpu, root):
     steps, launches = 2, {}
     per_run = {
         'infer': launch_counts(deform_fused=12, stem_pool=1,
-                               frozen_bottleneck=3),
+                               frozen_bottleneck=3, greedy_nms=1),
         'train': launch_counts(deform_sample_split=2, deform_sample_bwd=2,
                                stem_pool=1, frozen_bottleneck=3)}
     for mode in ('infer', 'train'):
@@ -4984,7 +5071,7 @@ def phase_visualize(torch, gpu, root):
                                '--score-thr', '0.0'])
     got = read_launches()
     if got != launch_counts(deform_fused=12, stem_pool=1,
-                            frozen_bottleneck=3):
+                            frozen_bottleneck=3, greedy_nms=1):
         fail(f'visualize: launches {got}')
     if not os.path.exists(out_png) or \
             not np.array_equal(imread(out_png), drawn):
@@ -5110,7 +5197,8 @@ def main(argv=None):
     # the evaluation path: dataset, loader, the CLI, TTA
     if '9' in phases:
         launches['eval'] = phase_eval(
-            torch, gpu, launch_counts(deform_fused=12, **prefix))
+            torch, gpu, launch_counts(deform_fused=12, greedy_nms=1,
+                                      **prefix))
 
     # the training loop: tools/train.py, resume, --validate, --checkpoint
     if '10' in phases:
@@ -5118,7 +5206,7 @@ def main(argv=None):
             phase_train_loop(
                 torch, gpu, launch_counts(deform_sample_split=2,
                                           deform_sample_bwd=2, **prefix),
-                launch_counts(deform_fused=12, **prefix))
+                launch_counts(deform_fused=12, greedy_nms=1, **prefix))
 
     # data parallel: two ranks on the card, one over NCCL, the learning
     # proof
@@ -5127,7 +5215,7 @@ def main(argv=None):
             launches['learning_proof'] = phase_data_parallel(
                 torch, gpu, launch_counts(deform_sample_split=2,
                                           deform_sample_bwd=2, **prefix),
-                launch_counts(deform_fused=12, **prefix))
+                launch_counts(deform_fused=12, greedy_nms=1, **prefix))
 
     # RetinaNet, SSD300, the DCN backbone, tools/benchmark.py
     if '12' in phases:
@@ -5161,7 +5249,8 @@ def cascade_phases(torch, gpu, launches):
     """Phases 2 to 5: the KGDet cascade served, profiled, trained."""
     prefix = dict(stem_pool=1, frozen_bottleneck=3)
     model, cfg, req, launches['serving'] = phase_serving(
-        torch, gpu, CONFIG, launch_counts(deform_fused=12, **prefix))
+        torch, gpu, CONFIG, launch_counts(deform_fused=12, greedy_nms=1,
+                                          **prefix))
     phase_profile(torch, model, cfg, req, gpu)
     model.use_plain_kernels(True)
     phase_profile(torch, model, cfg, req, gpu)
@@ -5178,7 +5267,8 @@ def serial_phases(torch, gpu, launches):
     """Phases 6 to 8: the serial / parallel RepPoints family over the
     5-level FPN, served and trained, and the per-block backbone."""
     prefix = dict(stem_pool=1, frozen_bottleneck=3)
-    serial_fwd = launch_counts(deform_fused=2 * len(SERIAL_LEVELS), **prefix)
+    serial_fwd = launch_counts(deform_fused=2 * len(SERIAL_LEVELS),
+                               greedy_nms=1, **prefix)
     model, cfg, req, launches['serial_serving'] = phase_serving(
         torch, gpu, SERIAL_CONFIG, serial_fwd)
     phase_profile(torch, model, cfg, req, gpu)
@@ -5216,6 +5306,8 @@ def print_result(torch, kernels, launches):
                                ref + 'pallas_deform.py:177'),
         'fused_bottleneck': (src + 'prefix_mma.cuh',
                              ref + 'pallas_resblock.py:103'),
+        # the JAX package's greedy NMS is a lax.scan, no Pallas kernel
+        'greedy_nms': (src + 'greedy_nms.cu', 'none'),
     }
     rows = []
     for name, (source, replaces) in meta.items():

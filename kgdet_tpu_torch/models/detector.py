@@ -43,6 +43,7 @@ class KGDetDetector(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
+        self.plain = False
         self.backbone = build_backbone(cfg.backbone)
         self.neck = build_neck(cfg.neck)
         self.bbox_head = get_head_family(cfg.head.type).build(cfg)
@@ -57,14 +58,16 @@ class KGDetDetector(nn.Module):
 
     def use_plain_kernels(self, plain: bool = True):
         """Swap the kernels of the path (the frozen prefix's, the DCN
-        stages', GA-Retina's feature adaption and the deformable head
-        stages') for their plain PyTorch
-        versions, or back: the reference a kernel run is checked against."""
+        stages', GA-Retina's feature adaption, the deformable head stages'
+        and, through api.make_predict_fn, the decode's NMS) for their plain
+        PyTorch versions, or back: the reference a kernel run is checked
+        against."""
         if isinstance(self.backbone, ResNet):
             self.backbone.plain_prefix = plain
         for m in self.modules():
             if isinstance(m, (KpRepBlock, SerialKpHead, DeformConv3x3)):
                 m.plain = plain
+        self.plain = plain
         return self
 
     def forward(self, images):

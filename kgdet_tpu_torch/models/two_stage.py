@@ -39,7 +39,7 @@ from kgdet_tpu_torch.models.layers import head_out, init_he_normal_, \
 from kgdet_tpu_torch.models.resnet import ARCH_SETTINGS, Bottleneck, \
     DeformConv3x3, ResNet
 from kgdet_tpu_torch.ops.anchors import base_anchors, grid_anchors
-from kgdet_tpu_torch.ops.nms import NEG_INF, greedy_nms
+from kgdet_tpu_torch.ops.nms import NEG_INF, greedy_nms, plain_nms
 from kgdet_tpu_torch.ops.roi import roi_align
 
 # RoIs the Grid R-CNN and HTC heads take (the JAX modules' num_grid_* and
@@ -416,8 +416,9 @@ class TwoStageBase(nn.Module):
 
     def use_plain_kernels(self, plain: bool = True):
         """Swap the kernels of the path (the frozen prefix's, the DCN
-        stages' and GA-RPN's feature adaption's, the RoI gathers', and
-        through make_loss_fn the mask targets' gather) for their plain
+        stages' and GA-RPN's feature adaption's, the RoI gathers', the
+        proposals' NMS, through make_loss_fn the mask targets' gather and
+        through api.make_predict_fn the decode's NMS) for their plain
         PyTorch versions, or back."""
         if isinstance(self.backbone, ResNet):
             self.backbone.plain_prefix = plain
@@ -460,16 +461,17 @@ class TwoStageBase(nn.Module):
         levels of ``canvas`` (the images' padded (H, W))."""
         rpn_outs = self.rpn_head(feats)
         n = self.num_proposals_train if train else self.num_proposals_test
-        if self.ga_rpn:
-            from kgdet_tpu_torch.core.ga_loss import ga_rpn_proposals
-            anchors = None
-            proposals, scores, valid = ga_rpn_proposals(
-                rpn_outs, self.cfg.head, canvas, img_hw, max_num=n,
-                squares=self.ga_squares(canvas, img_hw.device))
-        else:
-            anchors = self.anchors(feats)
-            proposals, scores, valid = rpn_proposals(rpn_outs, anchors,
-                                                     img_hw, max_num=n)
+        with plain_nms(self.plain):
+            if self.ga_rpn:
+                from kgdet_tpu_torch.core.ga_loss import ga_rpn_proposals
+                anchors = None
+                proposals, scores, valid = ga_rpn_proposals(
+                    rpn_outs, self.cfg.head, canvas, img_hw, max_num=n,
+                    squares=self.ga_squares(canvas, img_hw.device))
+            else:
+                anchors = self.anchors(feats)
+                proposals, scores, valid = rpn_proposals(rpn_outs, anchors,
+                                                         img_hw, max_num=n)
         return dict(rpn_outs=rpn_outs, anchors=anchors, proposals=proposals,
                     proposal_scores=scores, proposal_valid=valid)
 

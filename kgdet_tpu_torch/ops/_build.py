@@ -27,13 +27,15 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / 'csrc'
 BUILD = PKG / 'build'
 SOURCES = ('deform_fused', 'deform_split', 'deform_bwd', 'deform_sample',
-           'stem_layer1', 'resblock')
+           'stem_layer1', 'resblock', 'greedy_nms')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 MAX_COLUMNS = 8
 
 
@@ -69,6 +71,10 @@ SIGNATURES = {
     'resblock': {
         'kgdet_fused_bottleneck': [_P] * 10 + [_I] * 7 + [_P],
         'kgdet_fused_bottleneck_smem': [_I, _I],
+    },
+    'greedy_nms': {
+        'kgdet_greedy_nms': [_P] * 5 + [_I] * 4 + [_L] * 3 + [_I, _F, _F, _P],
+        'kgdet_greedy_nms_scratch': [_I],
     },
 }
 

@@ -6,12 +6,40 @@ with the ``offset=1.0`` IoU convention of the reference CUDA NMS. Outputs
 have fixed slots; empty slots carry index -1 and score NEG_INF. Leading
 dimensions of ``scores`` are batched (all classes, and all images, run in
 one loop).
+
+K9 ``greedy_nms`` (csrc/greedy_nms.cu): hard NMS on CUDA tensors is one
+launch for every row at once, a thread block a row; it replaces no TPU
+kernel (the JAX package's loop is a ``lax.scan``). ``_greedy``, the Python
+loop of ``max_out`` steps, is its plain version: it runs on the CPU, under
+``plain=True`` or inside ``plain_nms()`` (where a model's
+``use_plain_kernels`` reaches its decode), and for ``soft_nms``, whose
+update K9 does not compute. K9's kept indices and scores equal the loop's
+on the card bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import math
+
 import torch
 
+from kgdet_tpu_torch.ops import _build
+from kgdet_tpu_torch.ops.kernel_cost import counted, nbytes
+
 NEG_INF = -1e10
+_PLAIN = contextvars.ContextVar('kgdet_plain_nms', default=False)
+
+
+@contextlib.contextmanager
+def plain_nms(plain: bool = True):
+    """Inside the block ``greedy_nms`` runs its plain version on every
+    device (``plain`` False: as outside it)."""
+    token = _PLAIN.set(plain)
+    try:
+        yield
+    finally:
+        _PLAIN.reset(token)
 
 
 def pairwise_iou(box, boxes, offset=1.0):
@@ -51,12 +79,86 @@ def _greedy(boxes, scores, max_out, offset, update):
     return torch.stack(keep_idx, -1), torch.stack(keep_scores, -1)
 
 
-def greedy_nms(boxes, scores, iou_thr, max_out, offset=1.0):
+def _k9_cost(boxes, scores, iou_thr, max_out, offset=1.0, plain=False):
+    """At most 17 operations a candidate a step (the IoU, its comparison);
+    boxes and scores read once, an int64 index and an f32 score written a
+    slot."""
+    rows = scores.numel() // max(scores.shape[-1], 1)
+    return (17 * rows * max_out * scores.shape[-1],
+            nbytes(boxes, scores) + 12 * rows * max_out)
+
+
+@counted('K9 greedy_nms', _k9_cost)
+def greedy_nms(boxes, scores, iou_thr, max_out, offset=1.0,
+               plain: bool = False):
     """Greedy NMS over boxes (..., N, 4) / scores (..., N) -> fixed
     (..., max_out) (keep_idx, keep_scores). Scores <= NEG_INF/2 are
-    absent."""
-    return _greedy(boxes, scores, max_out, offset,
-                   lambda s, iou: torch.where(iou > iou_thr, NEG_INF, s))
+    absent. On CUDA tensors kernel K9, unless ``plain`` or ``plain_nms()``,
+    which run the loop whatever the device."""
+    if plain or _PLAIN.get() or scores.device.type == 'cpu':
+        return _greedy(boxes, scores, max_out, offset,
+                       lambda s, iou: torch.where(iou > iou_thr, NEG_INF, s))
+    return _greedy_nms_k9(boxes, scores, iou_thr, max_out, offset)
+
+
+def _box_rows(boxes, lead, N):
+    """boxes (..., N, 4) as (images, N, 4) f32 and how many consecutive
+    score rows share an image's boxes (``rep``): boxes broadcast over the
+    trailing leading dims of the scores (the classes) are not expanded;
+    any other broadcast is."""
+    if boxes.shape[-2:] != (N, 4) or boxes.dim() - 2 > len(lead):
+        raise ValueError(f'boxes {tuple(boxes.shape)} do not broadcast '
+                         f'against scores {(*lead, N)}')
+    have = (1,) * (len(lead) + 2 - boxes.dim()) + tuple(boxes.shape[:-2])
+    k = len(lead)
+    while k and have[k - 1] == 1:
+        k -= 1
+    if have[:k] != tuple(lead[:k]):
+        boxes, k = boxes.expand(*lead, N, 4), len(lead)
+    boxes = boxes.float().reshape(-1, N, 4).contiguous()
+    if boxes.data_ptr() % 16:       # the kernel reads a box as a float4
+        boxes = boxes.clone()
+    return boxes, math.prod(lead[k:])
+
+
+def _greedy_nms_k9(boxes, scores, iou_thr, max_out, offset):
+    """K9: one launch for every row of ``scores`` (f32 outputs, int64
+    indices, as the loop returns them)."""
+    lead, N = scores.shape[:-1], scores.shape[-1]
+    rows = math.prod(lead)
+    dev = scores.device
+    keep_idx = torch.empty((*lead, max_out), dtype=torch.int64, device=dev)
+    keep_scores = torch.empty((*lead, max_out), dtype=torch.float32,
+                              device=dev)
+    if rows == 0 or max_out == 0:
+        return keep_idx, keep_scores
+    if N == 0:
+        raise ValueError('greedy_nms: no candidates to pick from')
+    lib = _build.load('greedy_nms')
+    boxes, rep = _box_rows(boxes, lead, N)
+    # scores as (R1, R2, N) with their strides: the class-major view of the
+    # (B, N, C) decode stays a view
+    s = scores.float()
+    s = s[None, None] if s.dim() == 1 else s[:, None] if s.dim() == 2 \
+        else s.flatten(0, -3)
+    # a row whose scores and boxes do not fit a block's shared memory
+    # works on a global copy of its scores
+    per_row = lib.kgdet_greedy_nms_scratch(N)
+    scratch = torch.empty((rows, per_row), dtype=torch.float32, device=dev) \
+        if per_row else None
+    _build.require_cuda(keep_idx, keep_scores, boxes,
+                        *([scratch] if per_row else []))
+    rc = lib.kgdet_greedy_nms(
+        boxes.data_ptr(), s.data_ptr(),
+        scratch.data_ptr() if per_row else None, keep_idx.data_ptr(),
+        keep_scores.data_ptr(), rows, s.shape[1], N, rep, *s.stride(),
+        max_out, iou_thr, offset, _build.stream_ptr(dev))
+    _build.check(rc, 'greedy_nms')
+    greedy_nms.launches += 1
+    return keep_idx, keep_scores
+
+
+greedy_nms.launches = 0
 
 
 def soft_nms(boxes, scores, iou_thr, max_out, sigma=0.5, min_score=1e-3,

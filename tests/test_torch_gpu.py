@@ -20,8 +20,10 @@ grouped DCN shapes (up to 1024 channels), the grouped DCN module, the DCN
 cascade's served launch counts, one served SSD300 batch, RoIAlign on K6 /
 K3 at Faster R-CNN's P2 and the C4 map, Faster R-CNN's served and trained
 launch counts, RoIAlign on K6 / K3 at Mask R-CNN's mask RoIs and the mask
-targets' 32-channel map, the mask targets on K6, and Mask R-CNN's served
-launch counts. f32
+targets' 32-channel map, the mask targets on K6, Mask R-CNN's served
+launch counts, and K9 (greedy NMS) against its plain loop bit for bit at
+the served, RPN and edge shapes, one kernel a call, and the cascade's
+served decode in fewer than 150 device activities. f32
 tolerance rtol 1e-5, atol 1e-4 (chip_smoke.py's); K3's gradient map is
 summed with f32 atomics in an order that changes from run to run, which that
 tolerance covers. bf16: the kernel's error against the plain version in
@@ -35,6 +37,7 @@ import torch
 
 from kgdet_tpu_torch.ops import deform
 from kgdet_tpu_torch.ops import deform_kernels as dk
+from kgdet_tpu_torch.ops import nms
 from kgdet_tpu_torch.ops import resblock as rb
 from kgdet_tpu_torch.ops import stem_kernels as sk
 
@@ -1119,7 +1122,8 @@ def _check_k6_k3(gen, H, W, C, stride):
 def test_dcn_cascade_served_launch_counts(gen):
     """The cascade config with dcn_stages=(1, 2, 3), served on the card at
     256x384, batch 1, test.score_thr 0: K1 12, K4 1, K5 3 and K6 13 (one
-    a DCN block) a forward, nothing else; finite detections."""
+    a DCN block) a forward and K9 once in the decode, nothing else; finite
+    detections."""
     import dataclasses
     import os
 
@@ -1140,19 +1144,19 @@ def test_dcn_cascade_served_launch_counts(gen):
              'scale_factor': torch.tensor([1.0])}
     wrappers = (dk.deform_conv_fused, sk.stem_pool, sk.frozen_bottleneck,
                 dk.deform_sample_cols, dk.deform_sample_split,
-                dk.deform_sample_bwd, rb.fused_bottleneck)
+                dk.deform_sample_bwd, rb.fused_bottleneck, nms.greedy_nms)
     before = [w.launches for w in wrappers]
     dets = predict(batch)
     assert [w.launches - b for w, b in zip(wrappers, before)] == \
-        [12, 1, 3, 13, 0, 0, 0]
+        [12, 1, 3, 13, 0, 0, 0, 1]
     assert torch.isfinite(dets['det_bboxes']).all() and dets['valid'].any()
 
 
 def test_ssd300_served_batch(gen):
     """configs/ssd300_vgg16_deepfashion2.py on the card, one batch of 2 at
-    300x300: no kernel of the port launched (no TPU kernel on this path),
-    detections finite and of the config's shapes (the dummy keypoint of
-    width 3)."""
+    300x300: no port of a TPU kernel launched (none is on this path), K9
+    once (the decode's NMS), detections finite and of the config's shapes
+    (the dummy keypoint of width 3)."""
     import os
 
     from kgdet_tpu_torch.api import build_model, make_predict_fn
@@ -1163,14 +1167,15 @@ def test_ssd300_served_batch(gen):
     model = build_model(cfg).init_weights(0).eval()
     wrappers = (dk.deform_conv_fused, sk.stem_pool, sk.frozen_bottleneck,
                 dk.deform_sample_cols, dk.deform_sample_split,
-                dk.deform_sample_bwd, rb.fused_bottleneck)
+                dk.deform_sample_bwd, rb.fused_bottleneck, nms.greedy_nms)
     before = [w.launches for w in wrappers]
     dets = make_predict_fn(model, cfg, (300, 300))({
         'image': torch.randint(0, 256, (2, 300, 300, 3),
                                generator=gen).to(torch.uint8),
         'img_hw': torch.tensor([[300.0, 300.0], [225.0, 300.0]]),
         'scale_factor': torch.tensor([0.5, 0.5])})
-    assert [w.launches for w in wrappers] == before
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [0, 0, 0, 0, 0, 0, 0, 1]
     assert dets['det_bboxes'].shape == (2, 200, 5)
     assert dets['det_kpts'].shape == (2, 200, 3)
     assert torch.isfinite(dets['det_bboxes']).all()
@@ -1232,8 +1237,9 @@ def _two_stage_cfg(name):
 def test_faster_rcnn_served_batch_and_step_launch_counts(gen):
     """configs/faster_rcnn_r50_fpn_1x_deepfashion2.py (bf16) on the card at
     256x384, batch 2: a served batch launches K4 1, K5 3, K6 5 (one a FPN
-    level) and nothing else, with finite detections; a train step through
-    init_trainer launches K4 1, K5 3, K6 5, K3 5 with finite logs."""
+    level), K9 2 (the proposals, the detections) and nothing else, with
+    finite detections; a train step through init_trainer launches K4 1,
+    K5 3, K6 5, K3 5 and K9 1 (the proposals) with finite logs."""
     import numpy as np
 
     from kgdet_tpu_torch.api import build_model, init_trainer, \
@@ -1242,7 +1248,7 @@ def test_faster_rcnn_served_batch_and_step_launch_counts(gen):
     canvas = (256, 384)
     wrappers = (dk.deform_conv_fused, sk.stem_pool, sk.frozen_bottleneck,
                 dk.deform_sample_cols, dk.deform_sample_split,
-                dk.deform_sample_bwd, rb.fused_bottleneck)
+                dk.deform_sample_bwd, rb.fused_bottleneck, nms.greedy_nms)
     model = build_model(cfg).init_weights(0).eval()
     batch = {'image': torch.randint(0, 256, (2, *canvas, 3),
                                     generator=gen).to(torch.uint8),
@@ -1251,7 +1257,7 @@ def test_faster_rcnn_served_batch_and_step_launch_counts(gen):
     before = [w.launches for w in wrappers]
     dets = make_predict_fn(model, cfg, canvas)(batch)
     assert [w.launches - b for w, b in zip(wrappers, before)] == \
-        [0, 1, 3, 5, 0, 0, 0]
+        [0, 1, 3, 5, 0, 0, 0, 2]
     assert torch.isfinite(dets['det_bboxes']).all() and dets['valid'].any()
     del model
     model, _, step = init_trainer(cfg, canvas, 100)
@@ -1268,7 +1274,7 @@ def test_faster_rcnn_served_batch_and_step_launch_counts(gen):
     before = [w.launches for w in wrappers]
     logs = step(train)
     assert [w.launches - b for w, b in zip(wrappers, before)] == \
-        [0, 1, 3, 5, 0, 5, 0]
+        [0, 1, 3, 5, 0, 5, 0, 1]
     assert all(torch.isfinite(v) for v in logs.values())
 
 
@@ -1333,14 +1339,14 @@ def test_mask_targets_on_k6_match_the_plain_gather(gen):
 def test_mask_rcnn_served_batch_launch_counts(gen):
     """configs/mask_rcnn_r50_fpn_1x_deepfashion2.py (f32) on the card at
     256x384, batch 2: a served batch launches K4 1, K5 3, K6 10 (5 levels
-    for the boxes, 5 for the masks) and nothing else, with finite
+    for the boxes, 5 for the masks), K9 2 and nothing else, with finite
     detections and mask probabilities in [0, 1]."""
     from kgdet_tpu_torch.api import build_model, make_predict_fn
     cfg = _two_stage_cfg('mask_rcnn_r50_fpn')
     canvas = (256, 384)
     wrappers = (dk.deform_conv_fused, sk.stem_pool, sk.frozen_bottleneck,
                 dk.deform_sample_cols, dk.deform_sample_split,
-                dk.deform_sample_bwd, rb.fused_bottleneck)
+                dk.deform_sample_bwd, rb.fused_bottleneck, nms.greedy_nms)
     model = build_model(cfg).init_weights(0).eval()
     batch = {'image': torch.randint(0, 256, (2, *canvas, 3),
                                     generator=gen).to(torch.uint8),
@@ -1349,7 +1355,7 @@ def test_mask_rcnn_served_batch_launch_counts(gen):
     before = [w.launches for w in wrappers]
     dets = make_predict_fn(model, cfg, canvas)(batch)
     assert [w.launches - b for w, b in zip(wrappers, before)] == \
-        [0, 1, 3, 10, 0, 0, 0]
+        [0, 1, 3, 10, 0, 0, 0, 2]
     assert torch.isfinite(dets['det_bboxes']).all() and dets['valid'].any()
     masks = dets['det_masks']
     assert masks.shape == (2, 100, 28, 28)
@@ -1410,3 +1416,190 @@ def test_get_flops_counts_the_same_on_both_devices(gen, tmp_path):
     assert gpu == cpu
     assert sorted(gpu['kernels']) == ['K1 deform_conv_fused',
                                       'K4 stem_pool', 'K5 frozen_bottleneck']
+
+
+# ------------------------------------------------------- K9: greedy NMS
+def _chip_smoke():
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def _nms_boxes(gen, B, N):
+    """chip_smoke.py's boxes for K9 (its phase 1 shapes): the served
+    decode's range at 800x1344, clustered so that rows overlap heavily."""
+    return _chip_smoke().nms_boxes(torch, gen, B, N)
+
+
+def _ulp_rows(thr):
+    """Rows of two boxes, a pick and a candidate whose f32 IoU with it
+    (pairwise_iou's arithmetic) is f32(thr), one ulp below or one above:
+    the pick scores 0.9, the candidate 0.8. Returns (boxes (R, 2, 4),
+    scores (R, 2), ious (R,))."""
+    import numpy as np
+    t = np.float32(thr)
+    targets = [np.nextafter(t, np.float32(-1)), t, np.nextafter(t, np.float32(2))]
+    rows = {float(v): [] for v in targets}
+    for w in range(60, 400, 7):
+        for h in (31.0, 47.0, 77.0, 120.0):
+            d0 = np.float32(w - 2 * w * thr / (1 + thr))
+            d = torch.from_numpy((d0 + np.arange(-400, 401, dtype=np.float32)
+                                  * np.spacing(d0)).astype(np.float32))
+            cand = torch.stack([d, torch.zeros_like(d), d + (w - 1),
+                                torch.full_like(d, h - 1)], -1)
+            pick = torch.tensor([0.0, 0.0, w - 1, h - 1])
+            iou = nms.pairwise_iou(pick, cand)
+            for v in targets:
+                hit = (iou == float(v)).nonzero()[:, 0]
+                if len(hit) and len(rows[float(v)]) < 4:
+                    rows[float(v)].append(torch.stack([pick, cand[hit[0]]]))
+    assert all(len(r) == 4 for r in rows.values()), thr
+    boxes = torch.stack([b for r in rows.values() for b in r])
+    return (boxes, torch.tensor([0.9, 0.8]).expand(len(boxes), 2),
+            nms.pairwise_iou(boxes[:, 0], boxes[:, 1:])[:, 0])
+
+
+def _nms_case(gen, case):
+    """(boxes, scores, iou_thr, max_out) as the callers pass them:
+    multiclass layout (boxes (B, 1, N, 4), scores the (B, C, N) view of a
+    (B, N, C) tensor) or the proposals' (B, N, 4) / (B, N)."""
+    shapes = {'served': (8, 13, 1000, 100, 0.5), 'batch1': (1, 13, 1000, 100, 0.5),
+              'rpn': (2, 0, 4800, 1000, 0.7), 'global': (1, 2, 16384, 100, 0.5),
+              'ragged': (3, 5, 777, 60, 0.5), 'small': (2, 3, 37, 20, 0.6),
+              'ties': (2, 4, 1000, 100, 0.5), 'all_neg_inf': (2, 13, 1000, 100, 0.5),
+              'exhausted': (4, 13, 1000, 100, 0.5),
+              'max_out_over_n': (2, 3, 50, 100, 0.3),
+              'nan': (2, 13, 1000, 100, 0.5)}
+    B, C, N, max_out, thr = shapes[case]
+    boxes = _nms_boxes(gen, B, N)
+    scores = torch.rand((B, N, max(C, 1)), generator=gen)
+    if case == 'ties':                  # five levels: ties in every row
+        scores = (scores * 4).round() / 4
+        boxes = (boxes / 64).round() * 64     # and many identical boxes
+    if case == 'all_neg_inf':
+        scores[0] = nms.NEG_INF
+        scores[1, :, 3] = nms.NEG_INF
+    if case == 'exhausted':             # 0 to 40 candidates a row
+        keep = torch.rand((B, N, C), generator=gen) < 0.02
+        scores = torch.where(keep, scores, nms.NEG_INF)
+        scores[0, :, 0] = nms.NEG_INF
+    if case == 'nan':                   # NaN scores in two rows; NaN box
+        scores[0, 17, 2] = scores[1, 900, 5] = float('nan')  # coordinates
+        boxes[0, 3:40:3, 1] = boxes[1, 500, 2] = float('nan')
+    boxes, scores = boxes.cuda(), scores.cuda()
+    if C == 0:
+        return boxes, scores[..., 0].contiguous(), thr, max_out
+    return boxes[:, None], scores.transpose(1, 2), thr, max_out
+
+
+def _k9_against_the_loop(boxes, scores, thr, max_out):
+    before = nms.greedy_nms.launches
+    idx, sc = nms.greedy_nms(boxes, scores, thr, max_out)
+    assert nms.greedy_nms.launches == before + 1
+    ref_idx, ref_sc = nms.greedy_nms(boxes, scores, thr, max_out, plain=True)
+    assert nms.greedy_nms.launches == before + 1
+    assert idx.dtype == ref_idx.dtype == torch.int64
+    assert sc.dtype == ref_sc.dtype == torch.float32
+    assert torch.equal(idx, ref_idx)
+    assert torch.equal(sc, ref_sc)
+    return idx, sc
+
+
+@pytest.mark.parametrize('case', [
+    'served', 'batch1', 'rpn', 'global', 'ragged', 'small', 'ties',
+    'all_neg_inf', 'exhausted', 'max_out_over_n', 'nan', 'ulp'])
+def test_k9_equals_the_loop(gen, case):
+    """K9 (ops/nms.py::greedy_nms on CUDA tensors) against its plain
+    version, the loop, on the card, bit for bit in kept indices and
+    scores: the cascade's served shapes (8 x 13 rows of 1,000, 100 steps)
+    and batch 1; the RPN's (2 rows of 4,800, 1,000 steps, thr 0.7); 16,384
+    candidates, over the shared memory a block can stage (the global
+    copy); candidate counts off the block; tied scores and boxes; rows all
+    NEG_INF; rows exhausted before max_out; max_out over N; NaN scores
+    (torch.argmax ranks NaN first, and a NaN best ends its row) and NaN box
+    coordinates (a NaN IoU suppresses nothing); and pairs whose f32 IoU is
+    the threshold in f32 or one ulp around it, at 0.5, 0.7 and 0.4
+    (f32(0.4) is above 0.4: the comparison is in f32)."""
+    if case != 'ulp':
+        boxes, scores, thr, max_out = _nms_case(gen, case)
+        idx, sc = _k9_against_the_loop(boxes, scores, thr, max_out)
+        empty = idx < 0
+        assert torch.equal(empty, sc == nms.NEG_INF)
+        if case in ('all_neg_inf', 'exhausted', 'max_out_over_n'):
+            assert empty.any() and (~empty).any()
+            # once a row runs out, every later slot is empty
+            assert torch.equal(empty, empty.cummax(-1).values)
+        if case == 'nan':               # only the rows with a NaN score
+            assert empty[0, 2].all() and empty[1, 5].all()
+            assert (~empty[..., 0]).sum() == empty[..., 0].numel() - 2
+        return
+    for thr in (0.5, 0.7, 0.4):
+        boxes, scores, ious = _ulp_rows(thr)
+        idx, _ = _k9_against_the_loop(boxes.cuda(), scores.cuda(), thr, 2)
+        kept = idx[:, 1].cpu() == 1
+        assert torch.equal(kept, ious <= torch.tensor(thr).float())
+        assert kept.any() and (~kept).any()
+
+
+def test_k9_is_one_kernel_a_call(gen):
+    """One greedy_nms call on CUDA tensors puts one kernel on the device
+    and nothing else: the staged body at the served shapes, the body on
+    the global copy at 16,384 candidates. Counted by chip_smoke.py's
+    device_profile (ten calls between spin kernels; a recording whose
+    counts are not a multiple of the calls, having lost device records at
+    its edges, is taken again)."""
+    cs = _chip_smoke()
+    for case, body in (('served', 'greedy_nms_kernel<true>'),
+                       ('global', 'greedy_nms_kernel<false>')):
+        boxes, scores, thr, max_out = _nms_case(gen, case)
+        names = {}
+        _, activities, own = cs.device_profile(
+            lambda: nms.greedy_nms(boxes, scores, thr, max_out), names=names)
+        assert (activities, own) == (1, 1), names
+        assert names['own'] == [body]
+
+
+def test_cascade_served_decode_launch_counts(gen):
+    """The cascade config as it ships, served on the card at 800x1344,
+    batch 8, test.score_thr 0 (as kgbench's serve_b8): the decode (head
+    outputs to padded detections) calls K9 once and puts fewer than 150
+    activities on the device (the loop put 3,967); detections equal to
+    the same decode on the loop (inside nms.plain_nms())."""
+    import dataclasses
+    import os
+
+    from kgdet_tpu_torch.api import build_model
+    from kgdet_tpu_torch.config import load_config
+    from kgdet_tpu_torch.models.families import get_head_family
+    from kgdet_tpu_torch.ops import image
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(
+        root, 'configs', 'kgdet_moment_r50_fpn_1x_deepfashion2.py'))
+    cfg = cfg.replace(test=dataclasses.replace(cfg.test, score_thr=0.0))
+    canvas = (800, 1344)
+    model = build_model(cfg).init_weights(0).eval()
+    img = torch.randint(0, 256, (8, *canvas, 3), generator=gen).to(
+        torch.uint8).cuda()
+    img_hw = torch.tensor([[800.0, 1344.0]] * 4 + [[752.0, 1000.0]] * 4,
+                          device='cuda')
+    sf = torch.tensor([1.0] * 4 + [0.78] * 4, device='cuda')
+    decode = get_head_family(cfg.head.type).make_decode(cfg, canvas)
+    with torch.inference_mode():
+        outs = model(image.device_normalize(img, img_hw))
+        before = nms.greedy_nms.launches
+        dets = decode(outs, img_hw, sf)
+        assert nms.greedy_nms.launches == before + 1
+        names = _device_kernels(lambda: decode(outs, img_hw, sf))
+        assert sum('greedy_nms' in n for n in names) == 1
+        assert len(names) < 150, len(names)
+        before = nms.greedy_nms.launches
+        with nms.plain_nms():
+            plain = decode(outs, img_hw, sf)
+        assert nms.greedy_nms.launches == before
+    for key in ('det_bboxes', 'det_labels', 'det_kpts', 'valid'):
+        assert torch.equal(dets[key], plain[key])
+    assert dets['valid'].all()

@@ -120,6 +120,38 @@ def test_predict_matches_jax(models):
                                    rtol=1e-3, atol=1e-3, err_msg=k)
 
 
+@pytest.mark.parametrize('entry,plain', [
+    ('predict', False), ('predict', True), ('aug_call', False),
+    ('aug_call', True)])
+def test_use_plain_kernels_reaches_the_decode_nms(models, monkeypatch,
+                                                  entry, plain):
+    """use_plain_kernels is the one switch for every kernel: the decode's
+    greedy NMS, under make_predict_fn and Detector.aug_call, runs inside
+    ops/nms.py::plain_nms(model.plain), so on the card K9 gives way to
+    its loop with the model's other kernels."""
+    from kgdet_tpu_torch.ops import nms
+    cfg, _, _, port = models
+    seen, greedy = [], nms.greedy_nms
+
+    def recording(*a, **kw):
+        seen.append(nms._PLAIN.get())
+        return greedy(*a, **kw)
+    monkeypatch.setattr(nms, 'greedy_nms', recording)
+    port.use_plain_kernels(plain)
+    try:
+        if entry == 'predict':
+            make_predict_fn(port, cfg, CANVAS)(_batch())
+        else:
+            img = np.random.RandomState(3).randint(0, 256, (40, 60, 3))
+            Detector(cfg, port).aug_call(img.astype(np.uint8), flip=False,
+                                         score_thr=0.0)
+    finally:
+        port.use_plain_kernels(False)
+    assert port.plain is False
+    assert seen == [plain]
+    assert nms._PLAIN.get() is False
+
+
 def test_state_dict_round_trip(models):
     """port state_dict -> torch_convert -> flax leaves: nothing skipped,
     every leaf present, every array back as it was."""

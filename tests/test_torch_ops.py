@@ -176,6 +176,127 @@ def test_multiclass_nms_kp_batched_equals_per_image():
             np.testing.assert_array_equal(g[b].numpy(), o.numpy())
 
 
+# What K9 (csrc/greedy_nms.cu) relies on in its plain version, the loop:
+# a row ends at its first empty step, ties go to the lower index, and boxes
+# shared by a row's classes need no expansion.
+@pytest.mark.parametrize('seed,valid_share', [(20, 0.05), (21, 0.3),
+                                              (22, 1.0)])
+def test_greedy_nms_rows_stay_empty_once_exhausted(seed, valid_share):
+    """After a row's first empty slot (-1, NEG_INF) every later slot is
+    empty: an empty step leaves the scores as they were. max_out > N, so
+    every row runs out."""
+    boxes, scores, _ = _nms_case(seed, n=40, c=6)
+    rng = np.random.RandomState(seed)
+    scores = np.where(rng.rand(*scores.shape) < valid_share, scores,
+                      nms.NEG_INF).astype(np.float32)
+    idx, sc = nms.greedy_nms(_t(boxes)[None], _t(scores).T, 0.4, 50)
+    empty = idx < 0
+    assert torch.equal(empty, sc == nms.NEG_INF)
+    assert torch.equal(empty, empty.cummax(-1).values)
+    assert empty[:, -1].all() and not empty[:, 0].all()
+    assert set(idx[~empty].tolist()) <= set(range(40))
+
+
+def test_greedy_nms_ties_pick_the_lower_index():
+    """Equal scores: each step keeps the lowest index among the best, as
+    torch.argmax does; identical boxes suppress each other."""
+    boxes = np.asarray([10, 10, 20, 20], np.float32) + \
+        np.arange(8, dtype=np.float32)[:, None] * 40     # disjoint boxes
+    boxes[5] = boxes[2]                                  # 5 repeats 2
+    scores = np.full(8, 0.5, np.float32)
+    scores[[3, 6]] = 0.7
+    idx, sc = nms.greedy_nms(_t(boxes), _t(scores), 0.5, 8)
+    assert idx.tolist() == [3, 6, 0, 1, 2, 4, 7, -1]
+    np.testing.assert_array_equal(
+        sc.numpy(), np.float32([0.7, 0.7] + [0.5] * 5 + [nms.NEG_INF]))
+
+
+@pytest.mark.parametrize('lead', [(), (2,), (2, 3)])
+def test_greedy_nms_broadcast_boxes_equal_expanded(lead):
+    """Boxes (..., 1, N, 4) shared by the classes give what the same boxes
+    expanded and copied to (..., C, N, 4) give."""
+    rng = np.random.RandomState(23)
+    n, c = 30, 4
+    xy = rng.uniform(0, 60, (*lead, 1, n, 2))
+    boxes = _t(np.concatenate([xy, xy + rng.uniform(5, 30, xy.shape)], -1)
+               .astype(np.float32))
+    scores = _t(rng.rand(*lead, c, n).astype(np.float32))
+    shared = nms.greedy_nms(boxes, scores, 0.4, 12)
+    expanded = nms.greedy_nms(boxes.expand(*lead, c, n, 4).clone(), scores,
+                              0.4, 12)
+    for s, e in zip(shared, expanded):
+        assert torch.equal(s, e)
+
+
+class _LoadedK9(Exception):
+    pass
+
+
+@pytest.mark.parametrize('device,route,loads', [
+    ('cpu', 'nms', False), ('cpu', 'soft_nms', False), ('cpu', 'plain', False),
+    ('meta', 'soft_nms', False), ('meta', 'plain', False),
+    ('meta', 'nms', True), ('meta', 'plain_nms', False),
+    ('meta', 'plain_nms_off', True)])
+def test_hard_nms_off_the_cpu_routes_to_k9(monkeypatch, device, route,
+                                           loads):
+    """Only hard NMS on a tensor off the CPU (here a meta tensor standing in
+    for a CUDA one) loads K9's library; CPU tensors, soft_nms,
+    greedy_nms(plain=True) and hard NMS inside plain_nms() run the loop,
+    and plain_nms(False) leaves hard NMS on K9."""
+    loaded = []
+
+    def load(name):
+        loaded.append(name)
+        raise _LoadedK9(name)
+    monkeypatch.setattr(nms._build, 'load', load)
+    boxes, scores, kpts = (_t(a).to(device) for a in _nms_case(24))
+
+    def run():
+        if route == 'plain':
+            return nms.greedy_nms(boxes[None], scores.T, 0.4, 6, plain=True)
+        with nms.plain_nms(route == 'plain_nms'):
+            return nms.multiclass_nms_kp(
+                boxes, scores, kpts, score_thr=0.2, iou_thr=0.4,
+                max_per_class=6, max_per_img=12,
+                nms_type='soft_nms' if route == 'soft_nms' else 'nms')
+    if loads:
+        with pytest.raises(_LoadedK9):
+            run()
+        assert loaded == ['greedy_nms']
+    else:
+        run()
+        assert loaded == []
+
+
+def test_cascade_decode_counts_one_k9_call():
+    """The cascade's decode (head outputs to padded detections, its test
+    config) under kernel_cost.tally() counts one K9 call with _k9_cost's
+    operations and bytes: 17 a candidate a row a step; the (B, N, 4) boxes
+    and (B, N, C) scores read once, 12 bytes a slot written."""
+    import os
+    from kgdet_tpu_torch.config import load_config
+    from kgdet_tpu_torch.core import postprocess
+    from kgdet_tpu_torch.ops import kernel_cost
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(
+        root, 'configs', 'kgdet_moment_r50_fpn_1x_deepfashion2.py'))
+    B, H, W, C, K = 2, 5, 6, cfg.head.num_classes, cfg.head.num_keypts
+    g = torch.Generator().manual_seed(25)
+    outs = [{'cls': torch.randn(1, B, H, W, C, generator=g),   # stage 1
+             'bbox': torch.randn(1, B, H, W, 4, generator=g),
+             'kpt': torch.randn(1, B, H, W, 2 * K, generator=g)}]
+    with kernel_cost.tally() as t:
+        dets = postprocess.decode_detections(
+            outs, [points.grid_points(H, W, 32)],
+            torch.tensor([[160.0, 192.0], [150.0, 180.0]]),
+            torch.tensor([1.0, 0.5]), cfg.test, num_keypts=K)
+    N, R, steps = H * W, B * C, cfg.test.max_per_class
+    assert dict(t.kernels) == {'K9 greedy_nms': {
+        'calls': 1, 'flops': 17 * R * steps * N,
+        'bytes': 4 * B * N * 4 + 4 * B * N * C + 12 * R * steps}}
+    assert dets['valid'].shape == (B, cfg.test.max_per_img)
+
+
 # the boundary positions of tests/test_pallas_deform.py
 # (test_bwd_boundary_positions_match_xla), six pixels of two taps on a 5x5
 # map: straddling and clamped at every border, fully outside, and exactly

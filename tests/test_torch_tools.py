@@ -249,8 +249,9 @@ def test_get_flops_on_the_tiny_cascade(eval_set, monkeypatch, capsys):
 
 @pytest.mark.parametrize('mode,names', [
     ('infer', ('K1 deform_conv_fused', 'K4 stem_pool',
-               'K5 frozen_bottleneck', 'aten::conv2d', 'kgdet.predict',
-               'kgdet.forward', 'kgdet.backbone', 'kgdet.decode')),
+               'K5 frozen_bottleneck', 'K9 greedy_nms', 'aten::conv2d',
+               'kgdet.predict', 'kgdet.forward', 'kgdet.backbone',
+               'kgdet.decode')),
     ('train', ('K2 deform_sample_split', 'K3 deform_sample_bwd',
                'K4 stem_pool', 'K5 frozen_bottleneck', 'aten::conv2d',
                'kgdet.step', 'kgdet.loss', 'kgdet.backward',
