@@ -41,6 +41,7 @@ from kgdet_tpu_torch.models.resnet import ARCH_SETTINGS, Bottleneck, \
 from kgdet_tpu_torch.ops.anchors import base_anchors, grid_anchors
 from kgdet_tpu_torch.ops.nms import NEG_INF, greedy_nms, plain_nms
 from kgdet_tpu_torch.ops.roi import roi_align
+from kgdet_tpu_torch.utils.trace import span
 
 # RoIs the Grid R-CNN and HTC heads take (the JAX modules' num_grid_* and
 # num_mask_* fields, kgdet_tpu/models/two_stage.py:367-368 and :544-545):
@@ -429,8 +430,12 @@ class TwoStageBase(nn.Module):
         return self
 
     def features(self, images):
-        feats = self.backbone(images.to(self.dtype))
-        return list(feats if self.neck is None else self.neck(feats))
+        with span('backbone'):
+            feats = self.backbone(images.to(self.dtype))
+        if self.neck is None:
+            return list(feats)
+        with span('neck'):
+            return list(self.neck(feats))
 
     def anchors(self, feats):
         h = self.cfg.head
@@ -459,9 +464,10 @@ class TwoStageBase(nn.Module):
     def propose(self, feats, img_hw, train, canvas=None):
         """The RPN's outputs and padded proposals; GA-RPN decodes on the
         levels of ``canvas`` (the images' padded (H, W))."""
-        rpn_outs = self.rpn_head(feats)
+        with span('rpn'):
+            rpn_outs = self.rpn_head(feats)
         n = self.num_proposals_train if train else self.num_proposals_test
-        with plain_nms(self.plain):
+        with span('proposals'), plain_nms(self.plain):
             if self.ga_rpn:
                 from kgdet_tpu_torch.core.ga_loss import ga_rpn_proposals
                 anchors = None
@@ -476,10 +482,11 @@ class TwoStageBase(nn.Module):
                     proposal_scores=scores, proposal_valid=valid)
 
     def roi_feats(self, feats, proposals, valid, out_size=7):
-        return extract_roi_feats(
-            [f.permute(0, 2, 3, 1) for f in feats],
-            self.cfg.head.point_strides, proposals, valid,
-            out_size=out_size, plain=self.plain)
+        with span('roi_extract'):
+            return extract_roi_feats(
+                [f.permute(0, 2, 3, 1) for f in feats],
+                self.cfg.head.point_strides, proposals, valid,
+                out_size=out_size, plain=self.plain)
 
     @staticmethod
     def _img_hw(images, img_hw):
@@ -546,12 +553,13 @@ class FasterRCNN(TwoStageBase):
             self.mask_iou_head = MaskIoUHead(h.num_classes, c)
 
     def box_head(self, roi_feats):
-        if not hasattr(self, 'shared_head'):
-            return self.bbox_head(roi_feats)
-        lead = roi_feats.shape[:-3]
-        cls, reg = self.bbox_head(self.shared_head(
-            roi_feats.reshape(-1, *roi_feats.shape[-3:])))
-        return cls.reshape(*lead, -1), reg.reshape(*lead, -1)
+        with span('roi_head'):
+            if not hasattr(self, 'shared_head'):
+                return self.bbox_head(roi_feats)
+            lead = roi_feats.shape[:-3]
+            cls, reg = self.bbox_head(self.shared_head(
+                roi_feats.reshape(-1, *roi_feats.shape[-3:])))
+            return cls.reshape(*lead, -1), reg.reshape(*lead, -1)
 
     def forward(self, images, img_hw=None, train=True, proposals=None,
                 proposals_valid=None):
@@ -683,7 +691,8 @@ class CascadeRCNN(TwoStageBase):
         for i, head in enumerate(self.bbox_head):
             roi = self.add_semantic(self.roi_feats(feats, boxes, valid),
                                     sem, boxes, valid, 7)
-            roi_cls, roi_reg = head(roi)
+            with span('roi_head'):
+                roi_cls, roi_reg = head(roi)
             stages.append(dict(proposals=boxes, roi_cls=roi_cls,
                                roi_reg=roi_reg))
             if i < len(self.bbox_head) - 1:

@@ -24,8 +24,13 @@ which is the clock of torch.profiler's host events (the profile's
 The program's spans: ``request`` (``api.Detector.__call__``) with
 ``preprocess``, ``predict`` and ``fetch``; ``predict``
 (``api.make_predict_fn``) with ``forward`` and ``decode``; ``forward``
-with ``backbone``, ``neck`` and ``head`` (``KGDetDetector.forward``);
-``step`` (``parallel/train.py::make_train_step``) with ``forward``,
+with ``backbone``, ``neck`` and ``head`` (``KGDetDetector.forward``), or
+in a two-stage detector (``models/two_stage.py``, every ``TwoStageBase``)
+with ``backbone`` and ``neck`` (``features``), ``rpn`` (the RPN head),
+``proposals`` (their decode and NMS), ``roi_extract`` (each
+``extract_roi_feats``, the RoI gathers) and ``roi_head`` (the box head,
+each stage's in Cascade R-CNN); ``step``
+(``parallel/train.py::make_train_step``) with ``forward``,
 ``loss``, ``backward`` and ``optimizer``; ``data.fetch`` and
 ``data.stage`` (``runner.Runner._device_prefetch``, ``_to_device``).
 """

@@ -92,6 +92,53 @@ def test_predict_spans_nest_under_one_root(trainer):
     assert s['forward'].end_ns <= s['decode'].start_ns
 
 
+def _tiny_faster_rcnn():
+    from kgdet_tpu_torch.api import build_model
+    from kgdet_tpu_torch.config import (
+        BackboneConfig, HeadConfig, KGDetConfig, NeckConfig, TestConfig)
+    cfg = KGDetConfig(
+        detector_type='faster_rcnn', backbone=BackboneConfig(depth=18),
+        neck=NeckConfig(in_channels=(64, 128, 256, 512), out_channels=64,
+                        start_level=1, num_outs=3, add_extra_convs=False,
+                        select_out=None, norm=None),
+        head=HeadConfig(num_classes=13, point_strides=(8, 16, 32),
+                        anchor_ratios=(0.5, 1.0, 2.0)),
+        test=TestConfig(nms_pre=50, max_per_class=10, max_per_img=20),
+        num_proposals_train=64, num_proposals_test=64,
+        compute_dtype='float32')
+    return cfg, build_model(cfg, device='cpu').init_weights(0).eval()
+
+
+TWO_STAGE_FORWARD = ('backbone', 'neck', 'rpn', 'proposals', 'roi_extract',
+                     'roi_head')
+
+
+def test_two_stage_predict_spans_nest_under_the_forward(monkeypatch):
+    cfg, model = _tiny_faster_rcnn()
+    predict = make_predict_fn(model, cfg, CANVAS)
+    predict(_batch())               # anchors cached; nothing recorded
+    with trace.recording() as rec:
+        predict(_batch())
+    s, roots = _tree(rec.records)
+    assert set(s) == {'predict', 'forward', 'decode', *TWO_STAGE_FORWARD}
+    assert roots == {s['predict'].id} and s['predict'].parent is None
+    _inside(s['forward'], s['predict'])
+    _inside(s['decode'], s['predict'])
+    for child in TWO_STAGE_FORWARD:
+        _inside(s[child], s['forward'])
+    order = [s[n] for n in TWO_STAGE_FORWARD]
+    assert all(a.end_ns <= b.start_ns for a, b in zip(order, order[1:]))
+    assert s['forward'].end_ns <= s['decode'].start_ns
+
+    def no_clock():
+        raise AssertionError('a span read the clock with no recording')
+    monkeypatch.setattr(trace.time, 'perf_counter_ns', no_clock)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        predict(_batch())
+    assert not [e.name for e in prof.events()
+                if e.name.startswith('kgdet.')]
+
+
 def test_train_step_spans_nest_under_one_root(trainer):
     cfg, _, step = trainer
     batch = synth_batch(canvas=CANVAS, B=1, G=2, K=cfg.head.num_keypts)
