@@ -18,8 +18,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from kgdet_tpu_torch.models.layers import FrozenBatchNorm, init_he_normal_
-from kgdet_tpu_torch.models.resnet import BasicBlock, Bottleneck, _conv
+from kgdet_tpu_torch.models.layers import FrozenBatchNorm, _conv, \
+    init_he_normal_
+from kgdet_tpu_torch.models.resnet import BasicBlock, Bottleneck
 
 # (modules, branches, blocks a branch) of stages 2 to 4
 STAGE_PLAN = ((1, 2, 4), (4, 3, 4), (3, 4, 4))

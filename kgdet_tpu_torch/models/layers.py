@@ -5,6 +5,13 @@ Port of kgdet_tpu/models/layers.py. Parameters are stored in f32 under the
 reference's torch names; each module casts its weights to the activation
 dtype at call time (bf16 compute, f32 master weights, as in the JAX
 reference). Activations are NCHW.
+
+``conv_frozen_bn`` runs a conv and the FrozenBatchNorm that follows it (the
+ResNet blocks' pairs). In a forward that records no gradient, with no hook
+on the BN, it folds the BN into the conv on the BN's kept per-channel pair
+(``FrozenBatchNorm.scale_shift``). Its counter: ``conv_frozen_bn.folded``
+counts the convolutions run folded, ``conv_frozen_bn.built`` the pairs
+made (one a BN the first time, none again until its tensors change).
 """
 from __future__ import annotations
 
@@ -13,6 +20,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from kgdet_tpu_torch.ops.resblock import bn_scale_shift
 
 
 class FrozenBatchNorm(nn.Module):
@@ -29,12 +38,69 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(channels))
         self.register_buffer('num_batches_tracked',
                              torch.tensor(0, dtype=torch.long))
+        self._kept = None       # (key, (inv, shift))
 
     def forward(self, x):
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = (x.float() - self.running_mean[:, None, None]) \
             * inv[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
+
+    def scale_shift(self):
+        """The BN as f32 (inv, shift) of shape (C,), self(y) == y * inv +
+        shift (``ops/resblock.py::bn_scale_shift``, the frozen prefix's
+        fold). Made once and kept; made again after ``load_state_dict``, a
+        move or cast of the module (``.to()``) or an in-place write to its
+        affine parameters or statistics (their ``_version``)."""
+        tensors = (self.weight, self.bias, self.running_mean,
+                   self.running_var)
+        key = tuple((t.data_ptr(), t._version) for t in tensors)
+        if self._kept is None or self._kept[0] != key:
+            with torch.no_grad():
+                self._kept = (key, bn_scale_shift(*tensors, self.eps))
+            conv_frozen_bn.built += 1
+        return self._kept[1]
+
+    def _apply(self, fn, *args, **kwargs):
+        self._kept = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._kept = None
+        return super()._load_from_state_dict(*args, **kwargs)
+
+
+def _conv(x, conv, stride=1, padding=0):
+    """A bias-free ``nn.Conv2d`` on NCHW x, its weight cast to x's dtype."""
+    return F.conv2d(x, conv.weight.to(x.dtype), stride=stride,
+                    padding=padding, groups=conv.groups)
+
+
+def conv_frozen_bn(x, conv, bn, stride=1, padding=0):
+    """``bn(_conv(x, conv, stride, padding))`` for a bias-free conv and the
+    FrozenBatchNorm ``bn`` that follows it. In a forward that records no
+    gradient and with no forward hook or pre-hook on ``bn``, the BN is
+    folded in: the weight times bn's kept ``inv``, made in x's dtype and
+    memory format by one op (the cast the unfolded conv makes), the conv,
+    and ``shift`` added in place, summed in f32 and rounded once; no folded
+    weight is kept. Otherwise (training, where the BN's affine parameters
+    learn, and BN calibration, whose hooks read the BN's input) the conv
+    and then ``bn``."""
+    if torch.is_grad_enabled() or bn._forward_hooks or bn._forward_pre_hooks:
+        return bn(_conv(x, conv, stride, padding))
+    inv, shift = bn.scale_shift()
+    # in x's memory format, which the conv would otherwise copy it to
+    w = torch.empty_like(conv.weight, dtype=x.dtype, memory_format=(
+        torch.channels_last if x.is_contiguous(
+            memory_format=torch.channels_last) else torch.contiguous_format))
+    torch.mul(conv.weight, inv[:, None, None, None], out=w)
+    conv_frozen_bn.folded += 1
+    return F.conv2d(x, w, stride=stride, padding=padding,
+                    groups=conv.groups).add_(shift[:, None, None])
+
+
+conv_frozen_bn.folded = 0
+conv_frozen_bn.built = 0
 
 
 def same_pad(x, k: int, stride: int):

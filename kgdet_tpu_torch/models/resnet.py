@@ -27,7 +27,10 @@ that samples through ``ops/deform.py::deform_sample``: kernel K6 forward
 and K3 backward on the card, then one contraction, block-diagonal by group
 for ResNeXt; ``gcb_stages``, ``nonlocal_stages`` and
 ``gen_attention_stages`` insert the plugins of models/plugins.py where the
-JAX blocks do.
+JAX blocks do. A PyTorch block runs each conv and the FrozenBatchNorm after
+it through ``models/layers.py::conv_frozen_bn``: folded into one conv in a
+forward that records no gradient, the conv then the BN in training; the
+BN after a deformable 3x3 stays a BN.
 """
 from __future__ import annotations
 
@@ -36,7 +39,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from kgdet_tpu_torch.models.kgdet_head import DeformConvWeight
-from kgdet_tpu_torch.models.layers import FrozenBatchNorm, init_he_normal_
+from kgdet_tpu_torch.models.layers import FrozenBatchNorm, _conv, \
+    conv_frozen_bn, init_he_normal_
 from kgdet_tpu_torch.models.plugins import ContextBlock, \
     GeneralizedAttention, NonLocal2D
 from kgdet_tpu_torch.ops.deform import deform_conv, deform_sample
@@ -55,11 +59,6 @@ ARCH_SETTINGS = {
 PLUGINS = {'gcb': ('context_block', ContextBlock),
            'nonlocal': ('nonlocal_block', NonLocal2D),
            'gen_attention': ('gen_attention_block', GeneralizedAttention)}
-
-
-def _conv(x, conv, stride=1, padding=0):
-    return F.conv2d(x, conv.weight.to(x.dtype), stride=stride,
-                    padding=padding, groups=conv.groups)
 
 
 # the 3x3 taps' (dy, dx) offsets from the output pixel, row-major
@@ -128,10 +127,11 @@ class BasicBlock(nn.Module):
             FrozenBatchNorm(planes)) if downsample else None
 
     def forward(self, x):
-        out = torch.relu(self.bn1(_conv(x, self.conv1, self.stride, 1)))
-        out = self.bn2(_conv(out, self.conv2, 1, 1))
-        identity = x if self.downsample is None else self.downsample[1](
-            _conv(x, self.downsample[0], self.stride))
+        out = torch.relu(conv_frozen_bn(x, self.conv1, self.bn1,
+                                        self.stride, 1))
+        out = conv_frozen_bn(out, self.conv2, self.bn2, 1, 1)
+        identity = x if self.downsample is None else conv_frozen_bn(
+            x, *self.downsample, self.stride)
         return torch.relu(out + identity)
 
 
@@ -177,22 +177,22 @@ class Bottleneck(nn.Module):
                                     else out_ch))
 
     def forward(self, x):
-        out = torch.relu(self.bn1(_conv(x, self.conv1, self.c1s)))
+        out = torch.relu(conv_frozen_bn(x, self.conv1, self.bn1, self.c1s))
         if self.use_dcn:
             off = self.conv2_offset
-            out = self.conv2(out, F.conv2d(
+            out = self.bn2(self.conv2(out, F.conv2d(
                 out, off.weight.to(out.dtype), off.bias.to(out.dtype),
-                self.c2s, 1))
+                self.c2s, 1)))
         else:
-            out = _conv(out, self.conv2, self.c2s, 1)
-        out = torch.relu(self.bn2(out))
+            out = conv_frozen_bn(out, self.conv2, self.bn2, self.c2s, 1)
+        out = torch.relu(out)
         if self.plugin == 'gen_attention':
             out = self.gen_attention_block(out)
-        out = self.bn3(_conv(out, self.conv3))
+        out = conv_frozen_bn(out, self.conv3, self.bn3)
         if self.plugin == 'gcb':
             out = self.context_block(out)
-        identity = x if self.downsample is None else self.downsample[1](
-            _conv(x, self.downsample[0], self.stride))
+        identity = x if self.downsample is None else conv_frozen_bn(
+            x, *self.downsample, self.stride)
         out = torch.relu(out + identity)
         if self.plugin == 'nonlocal':
             out = self.nonlocal_block(out)

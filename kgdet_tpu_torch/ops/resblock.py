@@ -36,13 +36,20 @@ MAX_SHARED_BYTES = 232448
 BLOCK_KEYS = ('w1', 'b1', 'w2', 'b2', 'w3', 'b3', 'wd', 'bd')
 
 
+def bn_scale_shift(scale, bias, mean, var, eps=1e-5):
+    """A FrozenBatchNorm as a per-channel affine: bn(y) == y * inv + shift
+    with inv = scale / sqrt(var + eps) and shift = bias - mean * inv.
+    Returns f32 (inv, shift)."""
+    inv = (scale * torch.rsqrt(var + eps)).float()
+    return inv, bias - mean * inv
+
+
 def fold_bn(kernel, scale, bias, mean, var, eps=1e-5):
     """Fold a FrozenBatchNorm that FOLLOWS a conv into the conv:
-    bn(conv(x, K)) == conv(x, K * inv) + (bias - mean * inv) with
-    inv = scale / sqrt(var + eps). kernel: (..., Cout). Returns f32
-    (folded_kernel, folded_bias)."""
-    inv = (scale * torch.rsqrt(var + eps)).float()
-    return kernel.float() * inv, bias - mean * inv
+    bn(conv(x, K)) == conv(x, K * inv) + shift (``bn_scale_shift``).
+    kernel: (..., Cout). Returns f32 (folded_kernel, folded_bias)."""
+    inv, shift = bn_scale_shift(scale, bias, mean, var, eps)
+    return kernel.float() * inv, shift
 
 
 def _conv(x, w_oihw, padding=0):

@@ -22,8 +22,10 @@ K3 at Faster R-CNN's P2 and the C4 map, Faster R-CNN's served and trained
 launch counts, RoIAlign on K6 / K3 at Mask R-CNN's mask RoIs and the mask
 targets' 32-channel map, the mask targets on K6, Mask R-CNN's served
 launch counts, and K9 (greedy NMS) against its plain loop bit for bit at
-the served, RPN and edge shapes, one kernel a call, and the cascade's
-served decode in fewer than 150 device activities. f32
+the served, RPN and edge shapes, one kernel a call, the cascade's
+served decode in fewer than 150 device activities, and the served R-50
+backbone with the FrozenBatchNorms of layers 2 to 4 folded into their
+convs (launches, kernels and bf16 error against the unfolded path). f32
 tolerance rtol 1e-5, atol 1e-4 (chip_smoke.py's); K3's gradient map is
 summed with f32 atomics in an order that changes from run to run, which that
 tolerance covers. bf16: the kernel's error against the plain version in
@@ -1603,3 +1605,53 @@ def test_cascade_served_decode_launch_counts(gen):
     for key in ('det_bboxes', 'det_labels', 'det_kpts', 'valid'):
         assert torch.equal(dets[key], plain[key])
     assert dets['valid'].all()
+
+
+# ------------------------------------- the served backbone's BNs folded
+def test_served_backbone_folds_its_frozen_bns(gen):
+    """R-50 with its frozen prefix, bf16, batch 2 on an 800x1344 canvas,
+    served (inference_mode): the 42 convs of layers 2 to 4 run with their
+    FrozenBatchNorms folded in (models/layers.py::conv_frozen_bn). Stage
+    outputs within the unfolded path's (the same module with grad enabled)
+    bf16 distance from an f32 run; at least 250 fewer device activities
+    than the unfolded path; no elementwise pass in f32 over an activation:
+    the only float elementwise kernels are the 42 weight scales and the 42
+    shift adds; and no copy kernel, neither a cast nor a 3x3 weight's copy
+    into the activations' channels_last layout."""
+    from kgdet_tpu_torch.models.layers import FrozenBatchNorm, conv_frozen_bn
+    from kgdet_tpu_torch.models.resnet import ResNet
+    net = ResNet(depth=50, frozen_stages=1)
+    net.init_weights(gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, FrozenBatchNorm):
+                c = m.weight.shape
+                m.weight.copy_(torch.rand(c, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(c, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(c, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+    net = net.cuda()
+    x = _randn(gen, 2, 800, 1344, 3)
+
+    def unfolded(inp):
+        with torch.enable_grad():
+            return [o.detach() for o in net(inp)]
+
+    def served(inp):
+        with torch.inference_mode():
+            return net(inp)
+    ref = unfolded(x)
+    xb = x.bfloat16()
+    before = conv_frozen_bn.folded
+    got = served(xb)
+    assert conv_frozen_bn.folded == before + 42
+    for g, p, r in zip(got, unfolded(xb), ref):
+        assert g.dtype == torch.bfloat16
+        assert (g.float() - r).abs().max() <= \
+            2 * (p.float() - r).abs().max()
+    folded = _device_kernels(lambda: served(xb))
+    plain = _device_kernels(lambda: unfolded(xb))
+    assert len(plain) - len(folded) >= 250, (len(plain), len(folded))
+    floats = [n for n in folded if 'elementwise' in n and 'float' in n]
+    assert len(floats) == 84, floats
+    assert not any('direct_copy' in n for n in folded), folded
