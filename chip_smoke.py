@@ -41,7 +41,7 @@ DCN at layer2.0 (200x336x256, stride 2) and layer4.0 (50x84x1024, stride
 2); and at phase 14's RoIAlign gathers: Faster R-CNN's P2 (map
 200x336x256, 1000 RoIs x 196 samples, batch 2) and the C4 map
 (50x84x1024, 1000 RoIs x 784 samples, batch 1). K9 greedy_nms
-against its loop (greedy_nms(plain=True)), kept indices and scores bit for
+against its loop (inside plain_kernels()), kept indices and scores bit for
 bit, at K9_SHAPES (the benchmark's served cascade batch of 8 x 13 rows of
 1,000 candidates over 100 steps, batch 1, the RPN's 2 rows of 4,800 over
 1,000 steps, one row of 16,384 on the global copy), one kernel a call,
@@ -268,7 +268,7 @@ Every launch check above counts K9 too: once a served batch (the decode's
 NMS), twice a two-stage forward (the proposals', the detections'; once
 for RPN and Fast R-CNN), once a two-stage train step (the proposals), once
 an image under TTA (one NMS over the merged variants), never in a
-single-stage train step, and never under use_plain_kernels(True).
+single-stage train step, and never inside plain_kernels().
 
 Prints the card's name and power limit, one line per check, a JSON line of
 the eight kernels (launches on each main path, the evaluation CLI's
@@ -281,6 +281,7 @@ prints no result line; the check runs them all, with no argument.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -288,6 +289,8 @@ import re
 import subprocess
 import sys
 import time
+
+from kgdet_tpu_torch.tools.profile import device_profile, short_name
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, 'configs',
@@ -407,56 +410,6 @@ def median_ms(fn, reps=20, warmup=3):
     return times[len(times) // 2]
 
 
-def device_profile(fn, reps=10, names=None):
-    """What one call of ``fn`` puts on the device, under torch.profiler over
-    ``reps`` calls: (device ms a call of the port's own kernels, the
-    ``kgdet::`` ones; device activities a call: every kernel, copy and
-    memset, the library's included; the port's own kernels a call). With a
-    dict ``names``, also names['own'], the port's kernels by short name,
-    and names['device_ms'], the device time a call of every activity. Short
-    recordings in quick succession now and then come back with device
-    records missing, at a recording's edges more than inside it: the calls
-    are bracketed by four short spin kernels on each side, which are not
-    counted, and a recording counts when it holds the port's kernels and
-    all device activities each in a multiple of ``reps`` (every call puts
-    the same ones on the device), else it is taken again."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def bracket():
-        for _ in range(4):
-            torch.cuda._sleep(1000)
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(5):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            bracket()
-            for _ in range(reps):
-                fn()
-            bracket()
-            torch.cuda.synchronize()
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and 'spin_kernel' not in e.name]
-        own = [e.time_range.end - e.time_range.start for e in dev
-               if 'kgdet::' in e.name]
-        if own and len(own) % reps == 0 and len(dev) % reps == 0:
-            if names is not None:
-                names['own'] = sorted({short_name(e.name) for e in dev
-                                       if 'kgdet::' in e.name})
-                names['device_ms'] = sum(
-                    e.time_range.end - e.time_range.start
-                    for e in dev) / 1e3 / reps
-            return sum(own) / 1e3 / reps, len(dev) / reps, len(own) / reps
-        order = [short_name(e.name) for e in
-                 sorted(dev, key=lambda e: e.time_range.start)]
-        print(f'device_profile: {len(own)} records of the port\'s kernels '
-              f'in {reps} calls, recording {attempt + 1} taken again; in '
-              f'order: {order}', flush=True)
-    fail('the profiler lost device records in five recordings')
-
-
 def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
@@ -565,11 +518,12 @@ def phase_kernels(torch, gen):
     import torch.nn.functional as F
 
     from kgdet_tpu_torch.ops import deform_kernels as dk
-    from kgdet_tpu_torch.ops import nms
+    from kgdet_tpu_torch.ops import nms, plain_kernels
     from kgdet_tpu_torch.ops import resblock as rb
     from kgdet_tpu_torch.ops import stem_kernels as sk
     from kgdet_tpu_torch.ops.deform import bilinear_gather
     from kgdet_tpu_torch.ops.roi import roi_positions
+    from tests.kernel_inputs import nms_boxes
 
     dev = 'cuda'
     bf16 = torch.bfloat16
@@ -996,7 +950,7 @@ def phase_kernels(torch, gen):
         'bf16'))
     del x, blk, a16
 
-    # K9 against its loop (greedy_nms(plain=True)), kept indices and
+    # K9 against its loop (inside plain_kernels()), kept indices and
     # scores bit for bit, at its callers' shapes: the cascade's served
     # batch of the benchmark (8 images x 13 classes of 1,000 candidates,
     # 100 steps, thr 0.5, scores the (B, C, N) view of the decode's
@@ -1004,19 +958,23 @@ def phase_kernels(torch, gen):
     # steps, thr 0.7) and one row of 16,384, over what a block can stage
     k9 = {}
     for label, (b, c, n, steps, thr) in K9_SHAPES.items():
-        boxes = nms_boxes(torch, gen, b, n).to(dev)
+        boxes = nms_boxes(gen, b, n, CANVAS).to(dev)
         scores = torch.rand((b, n, max(c, 1)), generator=gen).to(dev)
         args = (boxes[:, None], scores.transpose(1, 2)) if c else \
             (boxes, scores[..., 0].contiguous())
         args += (thr, steps)
-        got, want = nms.greedy_nms(*args), nms.greedy_nms(*args, plain=True)
+
+        def loop():
+            with plain_kernels():
+                return nms.greedy_nms(*args)
+        got, want = nms.greedy_nms(*args), loop()
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             fail(f'K9 greedy_nms {label}: kept indices or scores differ '
                  f'from the loop\'s')
         dms, n_dev, n_own = device_profile(lambda: nms.greedy_nms(*args))
         m = {'max_abs_err': 0.0, 'ms': median_ms(
             lambda: nms.greedy_nms(*args)), 'plain_ms': median_ms(
-            lambda: nms.greedy_nms(*args, plain=True), reps=3, warmup=1),
+            loop, reps=3, warmup=1),
             'device_ms': dms, 'device_kernels': n_dev, 'own_kernels': n_own}
         name = f'K9 greedy_nms {label} ({args[1].numel() // n} rows of {n}, ' \
             f'{steps} steps)'
@@ -1048,20 +1006,6 @@ def phase_kernels(torch, gen):
                       f'kernel on the device {q["device_ms"]:.4f} ms{lib})',
                       flush=True)
     return results
-
-
-def nms_boxes(torch, gen, B, N, hw=CANVAS):
-    """(B, N, 4) xyxy f32 boxes in the served decode's range, on the CPU:
-    clustered around 20 centres an image, so that a row's boxes overlap
-    heavily, clamped to the image as decode_raw clamps them."""
-    H, W = (float(v) for v in hw)
-    centre = torch.rand((B, 20, 2), generator=gen) * torch.tensor([W, H])
-    pick = torch.randint(0, 20, (B, N), generator=gen)
-    c = centre.gather(1, pick[..., None].expand(B, N, 2)) \
-        + torch.randn((B, N, 2), generator=gen) * 30
-    wh = 20 + torch.rand((B, N, 2), generator=gen) * 380
-    xy = torch.cat([c - wh / 2, c + wh / 2], -1)
-    return torch.minimum(xy.clamp(min=0), torch.tensor([W, H, W, H]))
 
 
 def make_requests(n, seed):
@@ -1129,6 +1073,7 @@ def hold_against_plain(torch, model, batch, where=''):
     against on their plain versions: f32 within MODEL_F32_REL of each
     output's scale, bf16 within BF16_RATIO x the plain bf16 model's error
     from the f32 plain model."""
+    from kgdet_tpu_torch.ops import plain_kernels
     from kgdet_tpu_torch.ops.image import device_normalize
 
     image = device_normalize(torch.as_tensor(batch['image']).cuda(),
@@ -1140,11 +1085,10 @@ def hold_against_plain(torch, model, batch, where=''):
             for dtype in (torch.bfloat16, torch.float32):
                 model.dtype = dtype
                 for plain in (False, True):
-                    model.use_plain_kernels(plain)
-                    runs[dtype, plain] = last_stage(model(image))
+                    with plain_kernels(plain):
+                        runs[dtype, plain] = last_stage(model(image))
     finally:
         model.dtype = dtype0
-        model.use_plain_kernels(False)
     ref = runs[torch.float32, True]
     for k in ref:
         scale = max(1.0, ref[k].float().abs().max().item())
@@ -1182,6 +1126,7 @@ def phase_serving(torch, gpu, config, per_fwd, n_reqs=SERVED, compare=True,
     first request."""
     from kgdet_tpu_torch.api import build_model, make_predict_fn
     from kgdet_tpu_torch.models.families import BOX_FAMILIES
+    from kgdet_tpu_torch.ops import plain_kernels
 
     cfg, name = config_of(config)
     cfg = cfg.replace(test=dataclasses.replace(cfg.test, score_thr=0.0))
@@ -1227,10 +1172,9 @@ def phase_serving(torch, gpu, config, per_fwd, n_reqs=SERVED, compare=True,
               flush=True)
         return model, cfg, reqs[0], launches
 
-    model.use_plain_kernels(True)
-    predict(reqs[0])
-    _, psecs = serve(torch, predict, reqs)
-    model.use_plain_kernels(False)
+    with plain_kernels():
+        predict(reqs[0])
+        _, psecs = serve(torch, predict, reqs)
     pips = B * len(reqs) / psecs
     print(f'serving: {len(reqs)} requests x {B} images, {n_valid} valid '
           f'detections, launches {launches}; {ips:.2f} img/s with kernels, '
@@ -1274,13 +1218,6 @@ def print_top_kernels(kern, steps, top):
         print(f'  {ms:8.3f} ms x{n // steps:<4d} {name[:96]}')
 
 
-def short_name(kernel):
-    """A kernel of the port as the profiler names it, without namespaces
-    and arguments but with its template arguments (the tile or the dtype)."""
-    return kernel.replace('(anonymous namespace)::', '').split('(')[0] \
-        .split('::')[-1]
-
-
 def print_own_kernels(kern, steps, per):
     print(f'  the port\'s kernels, device ms per {per}: ' + ', '.join(
         f'{short_name(name)} {ms:.3f} x{n // steps}'
@@ -1291,7 +1228,7 @@ def print_own_kernels(kern, steps, per):
 STAGES = ('normalize', 'backbone', 'neck', 'head', 'decode')
 
 
-def phase_profile(torch, model, cfg, req, gpu, steps=2):
+def phase_profile(torch, model, cfg, req, gpu, steps=2, plain=False):
     """Where the time goes over `steps` served batches, stages labelled
     here around the calls into each layer: per stage its device span
     (first to last kernel, gaps included) and its busy time (the kernels
@@ -1301,8 +1238,8 @@ def phase_profile(torch, model, cfg, req, gpu, steps=2):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from kgdet_tpu_torch.models.families import get_head_family
+    from kgdet_tpu_torch.ops import plain_kernels
     from kgdet_tpu_torch.ops.image import device_normalize
-    from kgdet_tpu_torch.ops.nms import plain_nms
 
     canvas = tuple(req['image'].shape[1:3])
     decode = get_head_family(cfg.head.type).make_decode(cfg, canvas)
@@ -1310,8 +1247,7 @@ def phase_profile(torch, model, cfg, req, gpu, steps=2):
     img_hw = torch.as_tensor(req['img_hw']).cuda()
     sf = torch.as_tensor(req['scale_factor']).cuda()
 
-    @torch.inference_mode()
-    def run():
+    def stages():
         with record_function('normalize'):
             x = device_normalize(img, img_hw)
         with record_function('backbone'):
@@ -1321,8 +1257,13 @@ def phase_profile(torch, model, cfg, req, gpu, steps=2):
                 feats = model.neck(feats)
         with record_function('head'):
             outs = model.bbox_head(feats)
-        with record_function('decode'), plain_nms(model.plain):
+        with record_function('decode'):
             return decode(outs, img_hw, sf)
+
+    @torch.inference_mode()
+    def run():
+        with plain_kernels(plain):
+            return stages()
 
     run()
     torch.cuda.synchronize()
@@ -1336,7 +1277,7 @@ def phase_profile(torch, model, cfg, req, gpu, steps=2):
     span_ms, busy_ms, kern = stage_times(prof, STAGES, DeviceType.CUDA,
                                          steps)
     busy = sum(busy_ms.values())
-    kind = 'plain versions' if model.plain else 'kernels'
+    kind = 'plain versions' if plain else 'kernels'
     print(f'profile ({kind}): {steps} batches of {len(img)} at '
           f'{canvas[0]}x{canvas[1]} under torch.profiler: '
           f'{wall:.3f} ms per batch, device busy {busy:.3f} ms, idle share '
@@ -1381,6 +1322,7 @@ def phase_function(torch, model, loss_fn, batch):
     compared, so every output and every gradient is held to MODEL_F32_REL
     of its scale."""
     from kgdet_tpu_torch.models.kgdet_head import KpRepBlock
+    from kgdet_tpu_torch.ops import plain_kernels
     from kgdet_tpu_torch.ops.deform import absolute_positions
     from kgdet_tpu_torch.ops.deform_kernels import deform_columns_dual
 
@@ -1391,7 +1333,6 @@ def phase_function(torch, model, loss_fn, batch):
         lambda mod, args, out, n=n: caught.__setitem__(
             n, [a.detach() for a in args])) for n, m in blocks.items()]
     model.dtype = torch.float32
-    model.use_plain_kernels(False)
     with torch.no_grad():
         loss_fn(batch)
     for h in hooks:
@@ -1416,9 +1357,10 @@ def phase_function(torch, model, loss_fn, batch):
         def run(plain):
             leaves = [t.clone().requires_grad_()
                       for t in (cls_feat, pts_feat, pos, *weights)]
-            outs = deform_columns_dual(
-                leaves[0], leaves[1], leaves[2], leaves[3:3 + len(taps)],
-                leaves[3 + len(taps):], taps, plain=plain)
+            with plain_kernels(plain):
+                outs = deform_columns_dual(
+                    leaves[0], leaves[1], leaves[2], leaves[3:3 + len(taps)],
+                    leaves[3 + len(taps):], taps)
             return [*outs, *torch.autograd.grad(outs, leaves, cots)]
         got, want = run(False), run(True)
         errs = [max_err(g, w) / w.abs().max().item()
@@ -1498,18 +1440,38 @@ def take_train_steps(torch, gpu, config, per_step, n_logs, free_name):
     return model, cfg, optimizer, batches, got
 
 
+@contextlib.contextmanager
+def prefix_on_its_kernels(model):
+    """The frozen prefix of ``model`` on its kernels (K4, K5) inside a
+    ``plain_kernels()`` block: the head's kernels against their plain
+    versions on the same prefix."""
+    from kgdet_tpu_torch.ops import plain_kernels
+    backbone = model.backbone
+    frozen_prefix = backbone.frozen_prefix
+
+    def on_kernels(x):
+        with plain_kernels(False):
+            return frozen_prefix(x)
+    backbone.frozen_prefix = on_kernels
+    try:
+        yield
+    finally:
+        del backbone.frozen_prefix
+
+
 def loss_and_grads(model, optimizer, loss_fn, groups, dtype, plain, batch,
-                   plain_prefix=None):
+                   same_prefix=False):
     """(loss, {name: f32 gradient} of the parameters under ``groups``) of
     one batch, the model computing in ``dtype`` on its kernels or (``plain``)
-    their plain versions; ``plain_prefix`` overrides that for the frozen
-    prefix alone."""
+    their plain versions; ``same_prefix`` keeps the frozen prefix on its
+    kernels either way. The backward runs after the plain block has closed,
+    as the autograd Functions recorded it."""
+    from kgdet_tpu_torch.ops import plain_kernels
     model.dtype = dtype
-    model.use_plain_kernels(plain)
-    if plain_prefix is not None:
-        model.backbone.plain_prefix = plain_prefix
     optimizer.zero_grad()
-    total, _ = loss_fn(batch)
+    with plain_kernels(plain), (prefix_on_its_kernels(model) if same_prefix
+                                else contextlib.nullcontext()):
+        total, _ = loss_fn(batch)
     total.backward()
     return total.item(), {n: p.grad.float().clone()
                           for n, p in model.named_parameters()
@@ -1591,9 +1553,9 @@ def phase_training(torch, gpu):
     # loss and gradients on one batch: kernels vs plain versions
     loss_fn = make_loss_fn(model, cfg, CANVAS)
 
-    def run(dtype, plain, plain_prefix=None, batch=batches[0]):
+    def run(dtype, plain, same_prefix=False, batch=batches[0]):
         return loss_and_grads(model, optimizer, loss_fn, GRAD_GROUPS, dtype,
-                              plain, batch, plain_prefix)
+                              plain, batch, same_prefix)
 
     def worst_of(run, against):
         return max((max_err(run[1][n], against[1][n])
@@ -1606,7 +1568,7 @@ def phase_training(torch, gpu):
     phase_function(torch, model, loss_fn, batches[0])
     # K2 and K3 in the model: the plain head on the same (kernel) prefix
     check_same_prefix_grads('K2+K3', kern32, run(f32, True,
-                                                 plain_prefix=False))
+                                                 same_prefix=True))
     # all kernels vs all plain: K4 and K5 round their f32 sums in another
     # order (1e-6), and this model's gradients amplify that: shown by the
     # plain model's own change under one bit of one input pixel
@@ -1628,7 +1590,6 @@ def phase_training(torch, gpu):
                      GRAD_GROUPS)
     optimizer.zero_grad()
     model.dtype = torch.bfloat16
-    model.use_plain_kernels(False)
     return model, cfg, optimizer, batches[0], got
 
 
@@ -1643,16 +1604,16 @@ def phase_serial_function(torch, model, loss_fn, batch):
     lies between the inputs and what is compared, so the output and every
     gradient are held to MODEL_F32_REL of their scale."""
     import kgdet_tpu_torch.models.serial_head as serial_head
+    from kgdet_tpu_torch.ops import plain_kernels
     from kgdet_tpu_torch.ops.deform_kernels import deform_conv_fused
 
     calls = []
 
-    def record(feat, pos, weight, plain=False):
+    def record(feat, pos, weight):
         calls.append((feat.detach(), pos.detach(), weight.detach()))
-        return deform_conv_fused(feat, pos, weight, plain=plain)
+        return deform_conv_fused(feat, pos, weight)
 
     model.dtype = torch.float32
-    model.use_plain_kernels(False)
     serial_head.deform_conv_fused = record
     try:
         with torch.no_grad():
@@ -1674,7 +1635,8 @@ def phase_serial_function(torch, model, loss_fn, batch):
             def run(plain):
                 leaves = [t.clone().requires_grad_()
                           for t in (feat, pos, weight)]
-                out = deform_conv_fused(*leaves, plain=plain)
+                with plain_kernels(plain):
+                    out = deform_conv_fused(*leaves)
                 return [out, *torch.autograd.grad(out, leaves, ct)]
             got, want = run(False), run(True)
             errs = [max_err(g, w) / w.abs().max().item()
@@ -1707,7 +1669,7 @@ def phase_serial_training(torch, gpu):
         # the prefix stays on K4 and K5 on both sides: the candidate boxes,
         # and so the refine targets, are then the same
         return loss_and_grads(model, optimizer, loss_fn, SERIAL_GRAD_GROUPS,
-                              dtype, plain, batches[0], plain_prefix=False)
+                              dtype, plain, batches[0], same_prefix=True)
 
     f32 = torch.float32
     phase_serial_function(torch, model, loss_fn, batches[0])
@@ -1718,7 +1680,6 @@ def phase_serial_training(torch, gpu):
                      SERIAL_GRAD_GROUPS)
     optimizer.zero_grad()
     model.dtype = torch.bfloat16
-    model.use_plain_kernels(False)
     return model, cfg, optimizer, batches[0], got
 
 
@@ -1730,6 +1691,7 @@ def phase_per_block_backbone(torch, model, req, gpu):
     puts on the device once its weights are kept: the per-block route K8's
     16x16 tensor-core body x3 beside PyTorch's stem, the served chain K4 and
     K5 x3 and nothing else."""
+    from kgdet_tpu_torch.ops import plain_kernels
     from kgdet_tpu_torch.ops.image import device_normalize
 
     backbone = model.backbone
@@ -1738,8 +1700,7 @@ def phase_per_block_backbone(torch, model, req, gpu):
 
     def c2(dtype, per_block, plain):
         backbone.prefix_pipeline = not per_block
-        backbone.plain_prefix = plain
-        with torch.inference_mode():
+        with torch.inference_mode(), plain_kernels(plain):
             return backbone(image.to(dtype))[0]
 
     try:
@@ -1762,7 +1723,6 @@ def phase_per_block_backbone(torch, model, req, gpu):
         times = {}
         for per_block in (False, True, True, False):
             backbone.prefix_pipeline = not per_block
-            backbone.plain_prefix = False
             times.setdefault(per_block, []).append(
                 median_ms(lambda: backbone.frozen_prefix(x16), reps=10))
         with torch.inference_mode():
@@ -1776,7 +1736,6 @@ def phase_per_block_backbone(torch, model, req, gpu):
                 lambda: backbone.frozen_prefix(x16), names=chain_names)
     finally:
         backbone.prefix_pipeline = True
-        backbone.plain_prefix = False
     print(f'per-block backbone (K8 x3, stem and maxpool by PyTorch), C2 of '
           f'{tuple(k16.shape)}: f32 vs the K4+K5 chain {e_chain:.3e}, vs the '
           f'all-plain route {e_plain:.3e} (bound {MODEL_F32_REL * scale:.3e});'
@@ -3443,6 +3402,7 @@ def hold_dcn_against_plain(torch, model, req):
     rounding into their sampling positions), the frozen prefix on K4+K5 on
     both sides (with it plain too, printed beside); bf16 error against the
     f32 plain model within BF16_RATIO x the plain bf16 model's."""
+    from kgdet_tpu_torch.ops import plain_kernels
     from kgdet_tpu_torch.ops.image import device_normalize
 
     image = device_normalize(torch.as_tensor(req['image']).cuda(),
@@ -3453,14 +3413,12 @@ def hold_dcn_against_plain(torch, model, req):
         for dtype in (torch.bfloat16, torch.float32):
             model.dtype = dtype
             for plain in (False, True):
-                model.use_plain_kernels(plain)
-                runs[dtype, plain] = dcn_levels(torch, model, image)
-            model.use_plain_kernels(True)
-            model.backbone.plain_prefix = False
-            runs[dtype, 'head'] = dcn_levels(torch, model, image)
+                with plain_kernels(plain):
+                    runs[dtype, plain] = dcn_levels(torch, model, image)
+            with plain_kernels(), prefix_on_its_kernels(model):
+                runs[dtype, 'head'] = dcn_levels(torch, model, image)
     finally:
         model.dtype = dtype0
-        model.use_plain_kernels(False)
     f32 = torch.float32
     ref = runs[f32, True]
     for k in ref:
@@ -3489,6 +3447,7 @@ def dcn_function(torch, model, loss_fn, batch, blocks=DCN_FUNCTION_BLOCKS):
     head's module runs once a level, the first on the largest) and a
     seeded cotangent: the output and every gradient within MODEL_F32_REL
     of its scale (no ReLU between)."""
+    from kgdet_tpu_torch.ops import plain_kernels
     from kgdet_tpu_torch.ops.deform import deform_conv
 
     modules = dict(model.named_modules())
@@ -3499,7 +3458,6 @@ def dcn_function(torch, model, loss_fn, batch, blocks=DCN_FUNCTION_BLOCKS):
         lambda mod, args, out, n=n: None if n in caught else
         caught.__setitem__(n, [a.detach() for a in args])) for n in blocks]
     model.dtype = torch.float32
-    model.use_plain_kernels(False)
     try:
         with torch.no_grad():
             loss_fn(batch)
@@ -3521,7 +3479,8 @@ def dcn_function(torch, model, loss_fn, batch, blocks=DCN_FUNCTION_BLOCKS):
 
         def run(plain):
             leaves = [t.clone().requires_grad_() for t in (feat, rel, w)]
-            out = deform_conv(*leaves, stride=conv.stride, plain=plain)
+            with plain_kernels(plain):
+                out = deform_conv(*leaves, stride=conv.stride)
             return [out, *torch.autograd.grad(out, leaves, ct)]
         got, want = run(False), run(True)
         errs = [max_err(g, v) / v.abs().max().item()
@@ -3572,7 +3531,7 @@ def phase_dcn(torch, gpu):
 
     def run(dtype, plain):
         return loss_and_grads(model, optimizer, loss_fn, DCN_GRAD_GROUPS,
-                              dtype, plain, batches[0], plain_prefix=False)
+                              dtype, plain, batches[0], same_prefix=True)
     ref_loss, ref = head32 = run(torch.float32, True)
     check_same_prefix_grads('K6+K3 in the DCN stages, K2+K3 in the head',
                             run(torch.float32, False), head32)
@@ -3580,7 +3539,6 @@ def phase_dcn(torch, gpu):
                      run(torch.bfloat16, True), DCN_GRAD_GROUPS)
     optimizer.zero_grad()
     model.dtype = torch.bfloat16
-    model.use_plain_kernels(False)
     phase_train_profile(torch, model, cfg, optimizer, batches[0], gpu)
     del model, optimizer
     torch.cuda.empty_cache()
@@ -3719,7 +3677,7 @@ def phase_ga(torch, gpu):
 
     def run(dtype, plain):
         return loss_and_grads(model, optimizer, loss_fn, GA_GRAD_GROUPS,
-                              dtype, plain, batches[0], plain_prefix=False)
+                              dtype, plain, batches[0], same_prefix=True)
     ref_loss, ref = head32 = run(torch.float32, True)
     check_same_prefix_grads('K6+K3 in the feature adaption',
                             run(torch.float32, False), head32)
@@ -3727,7 +3685,6 @@ def phase_ga(torch, gpu):
                      run(torch.bfloat16, True), GA_GRAD_GROUPS)
     optimizer.zero_grad()
     model.dtype = torch.bfloat16
-    model.use_plain_kernels(False)
     phase_train_profile(torch, model, cfg, optimizer, batches[0], gpu)
     del model, optimizer
     torch.cuda.empty_cache()
@@ -3830,19 +3787,13 @@ def hold_trunk_against_plain(torch, trunk, x):
     versions: f32 within F32_TOL with atol scaled by the map's largest
     value (as phase 12 (c)), bf16 error against the f32 plain run within
     BF16_RATIO x the plain bf16 run's."""
-    from kgdet_tpu_torch.models.resnet import DeformConv3x3
-    convs = [m for m in trunk.modules() if isinstance(m, DeformConv3x3)]
+    from kgdet_tpu_torch.ops import plain_kernels
     runs = {}
-    try:
-        with torch.inference_mode():
-            for dtype in (torch.bfloat16, torch.float32):
-                for plain in (False, True):
-                    for m in convs:
-                        m.plain = plain
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            for plain in (False, True):
+                with plain_kernels(plain), prefix_on_its_kernels(trunk):
                     runs[dtype, plain] = trunk.backbone(x.to(dtype))
-    finally:
-        for m in convs:
-            m.plain = False
     ref = runs[torch.float32, True]
     for i, r in enumerate(ref):
         if i == 0:
@@ -4084,7 +4035,6 @@ def two_stage_profile(torch, model, cfg, req, gpu, steps=2,
     from kgdet_tpu_torch.models.two_stage import best_class_boxes, \
         rpn_proposals
     from kgdet_tpu_torch.ops.image import device_normalize
-    from kgdet_tpu_torch.ops.nms import plain_nms
 
     decode = two_stage_decoder(cfg.detector_type)
     img = torch.as_tensor(req['image']).cuda()
@@ -4104,7 +4054,7 @@ def two_stage_profile(torch, model, cfg, req, gpu, steps=2,
             feats = list(model.neck(feats))
         with record_function('rpn_head'):
             rpn_outs = model.rpn_head(feats)
-        with record_function('proposals'), plain_nms(model.plain):
+        with record_function('proposals'):
             props, _, valid = rpn_proposals(
                 rpn_outs, model.anchors(feats), img_hw,
                 max_num=model.num_proposals_test)
@@ -4122,7 +4072,7 @@ def two_stage_profile(torch, model, cfg, req, gpu, steps=2,
                 logits = model.mask_head(mfeats.flatten(0, 1))
             fwd.update(refined_boxes=boxes, mask_logits=logits.reshape(
                 *props.shape[:2], *logits.shape[1:]))
-        with record_function('decode'), plain_nms(model.plain):
+        with record_function('decode'):
             return decode(fwd, img_hw, sf, cfg.test, cfg.head.num_classes)
 
     run()
@@ -4164,6 +4114,7 @@ def hold_two_stage_against_plain(torch, model, req, name='faster_rcnn',
     (its largest magnitude, at least ``floor``); bf16 error against the
     f32 plain run within BF16_RATIO x the plain bf16 run's. The model's
     dtype is restored."""
+    from kgdet_tpu_torch.ops import plain_kernels
     from kgdet_tpu_torch.ops.image import device_normalize
 
     image = device_normalize(torch.as_tensor(req['image']).cuda(),
@@ -4174,11 +4125,11 @@ def hold_two_stage_against_plain(torch, model, req, name='faster_rcnn',
 
     def run(dtype, plain, props=None):
         model.dtype = dtype
-        model.use_plain_kernels(plain)
         model.external_proposals = props is not None
         kw = {} if props is None else dict(proposals=props[0],
                                            proposals_valid=props[1])
-        fwd = model(image, img_hw, train=False, **kw)
+        with plain_kernels(plain):
+            fwd = model(image, img_hw, train=False, **kw)
         return fwd, {k: fwd[k] for k in keys}
 
     def rpn_maps(fwd):
@@ -4198,7 +4149,6 @@ def hold_two_stage_against_plain(torch, model, req, name='faster_rcnn',
             _, head_p16 = run(bf16, True, pinned[bf16])
     finally:
         model.dtype = dtype0
-        model.use_plain_kernels(False)
         model.external_proposals = False
     cases = [(rpn_maps(k32), rpn_maps(p32), rpn_maps(k16), rpn_maps(p16),
               rpn_maps(p32), rpn_rel),
@@ -4307,7 +4257,7 @@ def phase_faster_rcnn(torch, gpu):
     def run(dtype, plain):
         return loss_and_grads(model, optimizer, loss_fn,
                               TWO_STAGE_GRAD_GROUPS, dtype, plain,
-                              batches[0], plain_prefix=False)
+                              batches[0], same_prefix=True)
     ref_loss, ref = head32 = run(torch.float32, True)
     check_same_prefix_grads('K6+K3 in the RoI gather',
                             run(torch.float32, False), head32)
@@ -4707,7 +4657,7 @@ def phase_mask_rcnn(torch, gpu):
     def run(plain):
         return loss_and_grads(model, optimizer, loss_fn, MASK_GRAD_GROUPS,
                               torch.float32, plain, batches[0],
-                              plain_prefix=False)
+                              same_prefix=True)
     kern32 = run(False)
     reset_launches()
     plain32 = run(True)
@@ -4861,6 +4811,7 @@ def phase_calibration(torch, gpu):
     prefix's error). Returns the served batch's launches."""
     from kgdet_tpu_torch.api import build_model, make_predict_fn
     from kgdet_tpu_torch.models.layers import FrozenBatchNorm
+    from kgdet_tpu_torch.ops import plain_kernels
     from kgdet_tpu_torch.ops.image import device_normalize
     from kgdet_tpu_torch.utils.bn_calibration import calibrate_frozen_bn
 
@@ -4909,13 +4860,10 @@ def phase_calibration(torch, gpu):
 
     x32 = device_normalize(torch.as_tensor(reqs[0]['image']).cuda())
     outs = {}
-    try:
-        for dtype in (torch.float32, torch.bfloat16):
-            for plain in (False, True):
-                backbone.plain_prefix = plain
+    for dtype in (torch.float32, torch.bfloat16):
+        for plain in (False, True):
+            with plain_kernels(plain):
                 outs[dtype, plain] = backbone.frozen_prefix(x32.to(dtype))
-    finally:
-        backbone.plain_prefix = False
     ref = outs[torch.float32, True]
     e32 = max_err(outs[torch.float32, False], ref)
     # one pass measures every BN under its upstream BNs' old stats, so the
@@ -5252,8 +5200,7 @@ def cascade_phases(torch, gpu, launches):
         torch, gpu, CONFIG, launch_counts(deform_fused=12, greedy_nms=1,
                                           **prefix))
     phase_profile(torch, model, cfg, req, gpu)
-    model.use_plain_kernels(True)
-    phase_profile(torch, model, cfg, req, gpu)
+    phase_profile(torch, model, cfg, req, gpu, plain=True)
     del model
     torch.cuda.empty_cache()
     model, cfg, optimizer, batch, launches['training'] = \

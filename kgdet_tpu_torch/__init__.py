@@ -10,10 +10,11 @@ host-side transforms, dataset and loader, the COCO evaluator, the RLE mask
 code (native/, host C++ built with g++ at first use) and the .pth loader; images are read and resized with OpenCV where it imports and with
 the package's own NumPy code where it does not (data/image_io.py).
 
-Kernel wrappers (ops/deform_kernels.py, ops/stem_kernels.py, ops/resblock.py)
-run their plain PyTorch version on CPU tensors and their CUDA kernel on CUDA
-tensors; the kernels are compiled from ``csrc/`` with nvcc at first use
-(ops/_build.py).
+Kernel wrappers (ops/deform_kernels.py, ops/stem_kernels.py, ops/resblock.py,
+ops/nms.py) launch their CUDA kernel on CUDA tensors and run their plain
+PyTorch version on CPU tensors or inside ``ops.plain_kernels()``, the one
+rule of ops/__init__.py; the kernels are compiled from ``csrc/`` with nvcc
+at first use (ops/_build.py).
 """
 
 __version__ = '0.1.0'

@@ -26,7 +26,6 @@ from kgdet_tpu_torch.models.detector import KGDetDetector
 from kgdet_tpu_torch.models.families import get_head_family, \
     is_two_stage, two_stage_decoder
 from kgdet_tpu_torch.ops.image import device_normalize
-from kgdet_tpu_torch.ops.nms import plain_nms
 from kgdet_tpu_torch.utils.trace import span
 
 
@@ -82,7 +81,7 @@ def make_predict_fn(model, cfg: KGDetConfig, canvas_hw):
                         device_normalize(feed['image'], feed['img_hw']),
                         img_hw, train=False,
                         **{k: feed[k] for k in PROPOSAL_KEYS if k in feed})
-                with span('decode'), plain_nms(model.plain):
+                with span('decode'):
                     return decode2(fwd, img_hw, feed['scale_factor'].float(),
                                    cfg.test, cfg.head.num_classes)
         return predict
@@ -92,7 +91,7 @@ def make_predict_fn(model, cfg: KGDetConfig, canvas_hw):
     def predict(batch):
         with span('predict'):
             feed, outs = _forward(model, batch)
-            with span('decode'), plain_nms(model.plain):
+            with span('decode'):
                 return decode(outs, feed['img_hw'].float(),
                               feed['scale_factor'].float())
     return predict
@@ -268,12 +267,11 @@ class Detector:
         boxes = torch.from_numpy(np.concatenate(all_boxes)).to(dev)
         scores = torch.from_numpy(np.concatenate(all_scores)).to(dev)
         t = self.cfg.test
-        with plain_nms(self.model.plain):
-            det_b, det_l, _, valid = multiclass_nms_kp(
-                boxes, scores, boxes.new_zeros((len(boxes), 3)),
-                score_thr if score_thr is not None else t.score_thr,
-                t.nms_iou_thr, max_per_class=t.max_per_class,
-                max_per_img=t.max_per_img)
+        det_b, det_l, _, valid = multiclass_nms_kp(
+            boxes, scores, boxes.new_zeros((len(boxes), 3)),
+            score_thr if score_thr is not None else t.score_thr,
+            t.nms_iou_thr, max_per_class=t.max_per_class,
+            max_per_img=t.max_per_img)
         v = valid.cpu().numpy()
         return det_b.cpu().numpy()[v], det_l.cpu().numpy()[v]
 

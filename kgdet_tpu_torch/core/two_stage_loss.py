@@ -317,16 +317,15 @@ def grid_terms(fwd, batch):
                      fwd['grid_unfused'].flatten(0, 1), targets, wgt)
 
 
-def mask_terms(fwd, batch, cfg, aux, plain=False):
+def mask_terms(fwd, batch, cfg, aux):
     """Mask R-CNN's mask loss on the sampled positives and, with a
-    mask-IoU head, Mask Scoring R-CNN's IoU regression: a dict of terms.
-    ``plain``: the targets' gather in its plain version on the card too."""
+    mask-IoU head, Mask Scoring R-CNN's IoU regression: a dict of terms."""
     from kgdet_tpu_torch.models.mask_head import _pick_class, mask_loss, \
         mask_targets, maskiou_targets
     logits = fwd['mask_logits']
     targets = mask_targets(batch['gt_masks'], aux['assigned_gt'],
                            fwd['proposals'], cfg.train_data.mask_stride,
-                           out_size=logits.shape[2], plain=plain)
+                           out_size=logits.shape[2])
     pos_w = aux['pos_weights']
     out = {'loss_mask': mask_loss(logits, targets, aux['labels'], pos_w)}
     if 'maskiou_pred' in fwd:
@@ -343,11 +342,10 @@ def mask_terms(fwd, batch, cfg, aux, plain=False):
 
 
 def faster_rcnn_loss(fwd, batch, draw, cfg, valids_per_level,
-                     canvas_hw=None, plain=False):
+                     canvas_hw=None):
     """RPN (or GA-RPN) terms + RCNN terms, and the grid, mask and mask-IoU
     terms where the model has those heads (and the batch gt_masks):
-    (total, logs). ``plain``: the mask targets' gather in its plain
-    version on the card too, as the model's use_plain_kernels."""
+    (total, logs)."""
     total, logs = _rpn_terms(fwd, batch, draw, cfg, valids_per_level,
                              canvas_hw, ga=cfg.rpn_type == 'ga_rpn')
     l_cls, l_reg, aux = _rcnn_terms(fwd, batch, draw, cfg)
@@ -357,36 +355,34 @@ def faster_rcnn_loss(fwd, batch, draw, cfg, valids_per_level,
     if 'grid_fused' in fwd:
         extra['loss_grid'] = grid_terms(fwd, batch)
     if 'mask_logits' in fwd and 'gt_masks' in batch:
-        extra.update(mask_terms(fwd, batch, cfg, aux, plain=plain))
+        extra.update(mask_terms(fwd, batch, cfg, aux))
     for k, v in extra.items():
         total = total + v
         logs[k] = v
     return total, logs
 
 
-def rpn_only_loss(fwd, batch, draw, cfg, valids_per_level, canvas_hw=None,
-                  plain=False):
+def rpn_only_loss(fwd, batch, draw, cfg, valids_per_level, canvas_hw=None):
     """Standalone RPN (reference detectors/rpn.py forward_train): the RPN
-    terms only (no gather: ``plain`` changes nothing)."""
+    terms only."""
     return _rpn_terms(fwd, batch, draw, cfg, valids_per_level)
 
 
 def fast_rcnn_loss(fwd, batch, draw, cfg, valids_per_level,
-                   canvas_hw=None, plain=False):
+                   canvas_hw=None):
     """Fast R-CNN (reference detectors/fast_rcnn.py): the RCNN terms only;
-    the proposals are inputs (no gather: ``plain`` changes nothing)."""
+    the proposals are inputs."""
     l_cls, l_reg, aux = _rcnn_terms(fwd, batch, draw, cfg)
     return l_cls + l_reg, {'loss_cls': l_cls, 'loss_bbox': l_reg,
                            'acc': aux['acc']}
 
 
 def cascade_rcnn_loss(fwd, batch, draw, cfg, valids_per_level,
-                      canvas_hw=None, plain=False):
+                      canvas_hw=None):
     """RPN terms + each stage's RCNN terms with the cascade's IoU / std /
     weight schedule (cascade_rcnn.py forward_train); HTC adds the semantic
     loss and each stage's mask loss on the leading RoIs, weighted as the
-    stage. ``plain``: the mask targets' gather in its plain version on the
-    card too."""
+    stage."""
     total, logs = _rpn_terms(fwd, batch, draw, cfg, valids_per_level)
     if 'semantic_pred' in fwd and 'gt_semantic_seg' in batch:
         from kgdet_tpu_torch.models.mask_head import semantic_loss
@@ -410,7 +406,7 @@ def cascade_rcnn_loss(fwd, batch, draw, cfg, valids_per_level,
         stages = fwd['mask_logits_stages']
         targets = mask_targets(batch['gt_masks'], assigned, mprops,
                                cfg.train_data.mask_stride,
-                               out_size=stages[0].shape[2], plain=plain)
+                               out_size=stages[0].shape[2])
         for i, logits in enumerate(stages):
             l_mask = mask_loss(logits, targets, labels, pos.float()) \
                 * CASCADE_STAGE_WEIGHTS[i]
@@ -434,8 +430,8 @@ LOSSES = {
 
 def two_stage_loss_fn(detector_type: str):
     """The loss entry of cfg.detector_type (the forward_train
-    equivalents): fn(fwd, batch, draw, cfg, valids_per_level, canvas_hw,
-    plain) -> (total, logs), ``draw`` as ``sampler_draw`` returns it."""
+    equivalents): fn(fwd, batch, draw, cfg, valids_per_level, canvas_hw)
+    -> (total, logs), ``draw`` as ``sampler_draw`` returns it."""
     if detector_type not in LOSSES:
         raise KeyError(f'unknown two-stage detector {detector_type}')
     return LOSSES[detector_type]

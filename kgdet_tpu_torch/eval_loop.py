@@ -76,7 +76,6 @@ def run_inference_tta(model, cfg: KGDetConfig, dataset, scales=None,
     images outgrow every configured canvas gets its predict function built
     on first use."""
     from kgdet_tpu_torch.core.postprocess import nms_detections
-    from kgdet_tpu_torch.ops.nms import plain_nms
 
     rank, world_size = world()
     scales = [tuple(s) for s in scales] if scales \
@@ -121,7 +120,7 @@ def run_inference_tta(model, cfg: KGDetConfig, dataset, scales=None,
     dev = next(model.parameters()).device
     K3 = cfg.head.num_keypts * 3
     results: Dict[int, tuple] = {}
-    with torch.inference_mode(), plain_nms(model.plain):
+    with torch.inference_mode():
         for img_id, blist in per_img_boxes.items():
             boxes = torch.from_numpy(np.concatenate(blist))[None].to(dev)
             scores = torch.from_numpy(

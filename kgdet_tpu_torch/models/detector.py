@@ -18,10 +18,8 @@ from kgdet_tpu_torch.models.families import IDENTITY_NECKS, \
     get_head_family
 from kgdet_tpu_torch.models.fpn import FPN
 from kgdet_tpu_torch.models.hrnet import HRNet
-from kgdet_tpu_torch.models.kgdet_head import KpRepBlock
 from kgdet_tpu_torch.models.necks_extra import BFP, FPNBFP, HRFPN
-from kgdet_tpu_torch.models.resnet import DeformConv3x3, ResNet, ResNeXt
-from kgdet_tpu_torch.models.serial_head import SerialKpHead
+from kgdet_tpu_torch.models.resnet import ResNet, ResNeXt
 from kgdet_tpu_torch.models.vgg import SSDVGG
 from kgdet_tpu_torch.utils.trace import span
 
@@ -43,7 +41,6 @@ class KGDetDetector(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
-        self.plain = False
         self.backbone = build_backbone(cfg.backbone)
         self.neck = build_neck(cfg.neck)
         self.bbox_head = get_head_family(cfg.head.type).build(cfg)
@@ -54,20 +51,6 @@ class KGDetDetector(nn.Module):
         for part in (self.backbone, self.neck, self.bbox_head):
             if part is not None:
                 part.init_weights(gen)
-        return self
-
-    def use_plain_kernels(self, plain: bool = True):
-        """Swap the kernels of the path (the frozen prefix's, the DCN
-        stages', GA-Retina's feature adaption, the deformable head stages'
-        and, through api.make_predict_fn, the decode's NMS) for their plain
-        PyTorch versions, or back: the reference a kernel run is checked
-        against."""
-        if isinstance(self.backbone, ResNet):
-            self.backbone.plain_prefix = plain
-        for m in self.modules():
-            if isinstance(m, (KpRepBlock, SerialKpHead, DeformConv3x3)):
-                m.plain = plain
-        self.plain = plain
         return self
 
     def forward(self, images):

@@ -11,9 +11,8 @@ retina_reg).
 
 ``FeatureAdaption`` is a 3x3 deformable conv (``DeformConv3x3``, DCN v1)
 whose offsets a bias-free 1x1 conv makes from the detached shape
-prediction. On the card it samples through ops/deform.py::deform_conv:
-kernel K6 forward and K3 backward; ``plain`` (``use_plain_kernels``) runs
-their plain versions.
+prediction. It samples through ops/deform.py::deform_conv: kernel K6
+forward and K3 backward on the card.
 
 Where the JAX package departs from the published recipe, the port follows
 the JAX package: one deformable group (18 offset channels; the reference

@@ -105,7 +105,6 @@ class KpRepBlock(nn.Module):
         self.deform = deform
         self.gradient_mul = gradient_mul
         self.column_taps = tuple(column_taps)
-        self.plain = False
         n_rep = sum(self.column_taps)
         fch = feat_channels
         if deform:
@@ -151,8 +150,7 @@ class KpRepBlock(nn.Module):
         pos = absolute_positions(offs, H, W)
         cls_cat, kpt_cat = deform_columns_dual(
             cls_feat, pts_feat, pos, self.dfm_weights('cls', dt),
-            self.dfm_weights('keypts', dt), self.column_taps,
-            plain=self.plain)
+            self.dfm_weights('keypts', dt), self.column_taps)
         cls_out = dense_1x1(torch.relu(cls_cat), self.cls_out)
         keypts_out = dense_1x1(torch.relu(kpt_cat), self.keypts_out)
         reppts_out = dense_1x1(keypts_out, self.reppts_out)

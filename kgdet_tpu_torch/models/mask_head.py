@@ -229,16 +229,15 @@ def semantic_loss(logits, gt_seg, ignore_label=255, loss_weight=0.2):
 
 
 def mask_targets(gt_masks, assigned_gt, proposals, mask_stride,
-                 out_size=28, plain=False):
+                 out_size=28):
     """Each proposal's assigned ground-truth mask cropped to (out, out).
     gt_masks (B, G, Hm, Wm) in {0, 1} at 1 / mask_stride; assigned_gt
     (B, R) int; proposals (B, R, 4) in image coordinates. Returns (B, R,
-    out, out) soft targets in [0, 1]. ``plain``: the plain gather on the
-    card too."""
+    out, out) soft targets in [0, 1]."""
     with torch.no_grad():
         crops = roi_align(gt_masks.float().permute(0, 2, 3, 1), proposals,
                           out_size=out_size, spatial_scale=1.0 / mask_stride,
-                          sample_num=2, plain=plain)
+                          sample_num=2)
         idx = assigned_gt.long()[..., None, None, None].expand(
             *crops.shape[:-1], 1)
         return crops.gather(-1, idx)[..., 0]

@@ -44,10 +44,9 @@ from kgdet_tpu_torch.models.layers import FrozenBatchNorm, _conv, \
 from kgdet_tpu_torch.models.plugins import ContextBlock, \
     GeneralizedAttention, NonLocal2D
 from kgdet_tpu_torch.ops.deform import deform_conv, deform_sample
-from kgdet_tpu_torch.ops.resblock import bottleneck_reference, fold_bn, \
-    fused_bottleneck_prepared
+from kgdet_tpu_torch.ops.resblock import fold_bn, fused_bottleneck_prepared
 from kgdet_tpu_torch.ops.stem_kernels import prepare_block, prepare_stem, \
-    stem_layer1_prepared, stem_layer1_ref
+    stem_layer1_prepared
 
 ARCH_SETTINGS = {
     18: ('basic', (2, 2, 2, 2)),
@@ -76,15 +75,13 @@ class DeformConv3x3(DeformConvWeight):
     (``stride`` times the output index). With ``groups > 1`` (ResNeXt) the
     one column gather is contracted block-diagonally, channel group g of
     the columns with output group g (the grouped conv's layout), as one
-    batched matmul. ``plain`` runs the kernels' plain versions (the
-    comparison model)."""
+    batched matmul."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
                  groups: int = 1):
         super().__init__(in_channels // groups, out_channels, 3)
         self.stride = stride
         self.groups = groups
-        self.plain = False
         self.register_buffer('tap_grid', torch.tensor(_TAP_GRID),
                              persistent=False)
 
@@ -95,11 +92,9 @@ class DeformConv3x3(DeformConvWeight):
         feat, w = x.permute(0, 2, 3, 1), self.tap_major(x.dtype)
         g = self.groups
         if g == 1:
-            out = deform_conv(feat, rel, w, stride=self.stride,
-                              plain=self.plain)
+            out = deform_conv(feat, rel, w, stride=self.stride)
             return out.permute(0, 3, 1, 2)
-        cols = deform_sample(feat, rel, stride=self.stride,
-                             plain=self.plain)              # (B, P, 9, C)
+        cols = deform_sample(feat, rel, stride=self.stride)  # (B, P, 9, C)
         P, C, Fo = cols.shape[1], cols.shape[3], w.shape[2]
         cols = cols.reshape(B * P, 9, g, C // g).permute(2, 0, 1, 3) \
             .reshape(g, B * P, 9 * (C // g))
@@ -231,7 +226,6 @@ class ResNet(nn.Module):
         self.frozen_stages = frozen_stages
         self.num_stages = num_stages
         self.prefix_pipeline = prefix_pipeline
-        self.plain_prefix = False
         self._kept = None       # (key, folded, {dtype: prepared})
         extras = (dcn_stages, gcb_stages, nonlocal_stages,
                   gen_attention_stages)
@@ -334,20 +328,18 @@ class ResNet(nn.Module):
         (B,H/4,W/4,256) NHWC. The kernel chain K4 -> K5 x len(layer1), or
         per block (``prefix_pipeline=False``): the stem and maxpool in
         PyTorch, then one K8 launch per layer1 block. Both read the kept
-        weights of ``prefix_weights``; the plain chain (``plain_prefix``)
-        computes from their folded f32 form."""
+        prepared weights of ``prefix_weights``, as do their plain versions:
+        the folded f32 weights cast to the compute dtype, as the plain
+        versions would cast them."""
         with torch.no_grad():
-            ((sw, sb), folded), (stem, blocks) = self.prefix_weights(x.dtype)
+            _, (stem, blocks) = self.prefix_weights(x.dtype)
             if not self.prefix_pipeline:
                 y = torch.relu(self.bn1(_conv(x.permute(0, 3, 1, 2),
                                               self.conv1, 2, 3)))
                 y = F.max_pool2d(y, 3, 2, 1).permute(0, 2, 3, 1)
                 for blk in blocks:
-                    y = bottleneck_reference(y, *blk) if self.plain_prefix \
-                        else fused_bottleneck_prepared(y, blk)
+                    y = fused_bottleneck_prepared(y, blk)
                 return y
-            if self.plain_prefix:
-                return stem_layer1_ref(x, sw, sb, folded)
             return stem_layer1_prepared(x, stem, blocks)
 
     def forward(self, x):

@@ -68,7 +68,6 @@ class SerialKpHead(nn.Module):
         self.moment_mul = moment_mul
         self.with_keypoints = with_keypoints
         self.own_rep_branch = parallel or not with_keypoints
-        self.plain = False
         self._pts_weight = None     # (parts' layouts, their concat)
         for prefix in ('cls', 'reg'):
             setattr(self, f'{prefix}_convs', nn.ModuleList(
@@ -165,15 +164,13 @@ class SerialKpHead(nn.Module):
         cls_nhwc = cls_feat.permute(0, 2, 3, 1).contiguous()
         pts_nhwc = pts_feat.permute(0, 2, 3, 1).contiguous()
         cls_col = torch.relu(deform_conv_fused(
-            cls_nhwc, pos, self.cls_refine_dfmconv.tap_major(dt),
-            plain=self.plain))
+            cls_nhwc, pos, self.cls_refine_dfmconv.tap_major(dt)))
         # the two pts-feature branches (kpt, rep) share one call through a
         # weight concat: the columns are gathered once for both
         parts = ([self.keypts_refine_dfmconv] if self.with_keypoints else []) \
             + ([self.reppts_refine_dfmconv] if self.own_rep_branch else [])
         w_cat = self.pts_weight(parts, dt)
-        pts_col = torch.relu(deform_conv_fused(pts_nhwc, pos, w_cat,
-                                               plain=self.plain))
+        pts_col = torch.relu(deform_conv_fused(pts_nhwc, pos, w_cat))
         Fp = parts[0].weight.shape[0]
 
         def nhwc(t):

@@ -8,9 +8,8 @@ Proposals are fixed-size padded tensors (per level a top-``nms_pre`` by a
 stable descending sort, as jax.lax.top_k orders ties, then one greedy NMS
 over the levels for every image at once, ops/nms.py) and are detached. RoI
 features come from ops/roi.py::roi_align on each image's own map (no copy
-of the map per RoI): on the card through kernel K6 forward and K3 backward,
-on the CPU through the plain gather; ``use_plain_kernels`` selects the
-plain versions on the card too. Every level is gathered and each RoI's
+of the map per RoI), through kernel K6 forward and K3 backward on the card.
+Every level is gathered and each RoI's
 scale-matched level is picked with ``where``, as the JAX package does.
 
 Module and parameter names are the reference's (rpn_head.rpn_conv,
@@ -37,9 +36,9 @@ from kgdet_tpu_torch.core.two_stage_loss import CASCADE_STAGE_STDS, \
 from kgdet_tpu_torch.models.layers import head_out, init_he_normal_, \
     init_normal_, init_variance_scaling_, init_xavier_uniform_
 from kgdet_tpu_torch.models.resnet import ARCH_SETTINGS, Bottleneck, \
-    DeformConv3x3, ResNet
+    ResNet
 from kgdet_tpu_torch.ops.anchors import base_anchors, grid_anchors
-from kgdet_tpu_torch.ops.nms import NEG_INF, greedy_nms, plain_nms
+from kgdet_tpu_torch.ops.nms import NEG_INF, greedy_nms
 from kgdet_tpu_torch.ops.roi import roi_align
 from kgdet_tpu_torch.utils.trace import span
 
@@ -147,7 +146,7 @@ def map_rois_to_levels(rois_wh, num_levels, finest_scale=56):
 
 
 def extract_roi_feats(feats, strides, proposals, valid, out_size=7,
-                      sample_num=2, finest_scale=56, plain=False):
+                      sample_num=2, finest_scale=56):
     """Multi-level RoIAlign: each RoI takes its scale-matched level.
     feats: (B, H_l, W_l, C) maps; proposals (B, R, 4) in image
     coordinates; valid (B, R). Returns (B, R, out, out, C), zero for an
@@ -158,8 +157,7 @@ def extract_roi_feats(feats, strides, proposals, valid, out_size=7,
     out = None
     for li, (feat, stride) in enumerate(zip(feats, strides)):
         f = roi_align(feat, proposals, out_size=out_size,
-                      spatial_scale=1.0 / stride, sample_num=sample_num,
-                      plain=plain)
+                      spatial_scale=1.0 / stride, sample_num=sample_num)
         mask = ((lvl == li) & valid)[..., None, None, None]
         out = torch.where(mask, f, torch.zeros_like(f) if out is None
                           else out)
@@ -384,7 +382,6 @@ class TwoStageBase(nn.Module):
         self.dtype = compute_dtype(cfg)
         self.num_proposals_train = num_proposals_train
         self.num_proposals_test = num_proposals_test
-        self.plain = False
         self.backbone = build_backbone(cfg.backbone)
         self.neck = build_neck(cfg.neck)
         h, c = cfg.head, cfg.neck.out_channels
@@ -413,20 +410,6 @@ class TwoStageBase(nn.Module):
                     m.init_weights(gen)
             else:
                 part.init_weights(gen)
-        return self
-
-    def use_plain_kernels(self, plain: bool = True):
-        """Swap the kernels of the path (the frozen prefix's, the DCN
-        stages' and GA-RPN's feature adaption's, the RoI gathers', the
-        proposals' NMS, through make_loss_fn the mask targets' gather and
-        through api.make_predict_fn the decode's NMS) for their plain
-        PyTorch versions, or back."""
-        if isinstance(self.backbone, ResNet):
-            self.backbone.plain_prefix = plain
-        for m in self.modules():
-            if isinstance(m, DeformConv3x3):
-                m.plain = plain
-        self.plain = plain
         return self
 
     def features(self, images):
@@ -467,7 +450,7 @@ class TwoStageBase(nn.Module):
         with span('rpn'):
             rpn_outs = self.rpn_head(feats)
         n = self.num_proposals_train if train else self.num_proposals_test
-        with span('proposals'), plain_nms(self.plain):
+        with span('proposals'):
             if self.ga_rpn:
                 from kgdet_tpu_torch.core.ga_loss import ga_rpn_proposals
                 anchors = None
@@ -486,7 +469,7 @@ class TwoStageBase(nn.Module):
             return extract_roi_feats(
                 [f.permute(0, 2, 3, 1) for f in feats],
                 self.cfg.head.point_strides, proposals, valid,
-                out_size=out_size, plain=self.plain)
+                out_size=out_size)
 
     @staticmethod
     def _img_hw(images, img_hw):
@@ -674,8 +657,7 @@ class CascadeRCNN(TwoStageBase):
         if sem_feat is None:
             return roi_feats
         s = roi_align(sem_feat, rois, out_size=out_size,
-                      spatial_scale=1.0 / self.sem_stride, sample_num=2,
-                      plain=self.plain)
+                      spatial_scale=1.0 / self.sem_stride, sample_num=2)
         return roi_feats + torch.where(valid[..., None, None, None], s,
                                        torch.zeros_like(s))
 

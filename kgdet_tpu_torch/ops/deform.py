@@ -146,8 +146,7 @@ def absolute_positions(rel_offsets_yx, H: int, W: int):
         + centers[None, :, None, :]
 
 
-def deform_sample(feat, rel_offsets_yx, stride: int = 1,
-                  plain: bool = False):
+def deform_sample(feat, rel_offsets_yx, stride: int = 1):
     """Sample every output pixel's K taps at center + offset.
 
     feat (B, H, W, C); rel_offsets_yx (B, Ho, Wo, K, 2) tap offsets (y, x)
@@ -155,10 +154,9 @@ def deform_sample(feat, rel_offsets_yx, stride: int = 1,
     index), in feature-grid units, Ho/Wo = ceil(H/stride), ceil(W/stride).
     Returns the (B, Ho*Wo, K, C) columns, row-major over (Ho, Wo).
 
-    On CUDA tensors the column gather (K6) with the sampling backward (K3)
-    as its gradient (ops/deform_kernels.py::deform_sample_hybrid), or with
-    ``plain`` the same Function over their plain versions; on the CPU
-    ``bilinear_gather`` under autograd."""
+    The column gather (K6) with the sampling backward (K3) as its gradient
+    (ops/deform_kernels.py::deform_sample_hybrid), or the same Function
+    over their plain versions where ``ops.runs_kernel`` says so."""
     B, Ho, Wo, K, _ = rel_offsets_yx.shape
     pos_dtype = torch.promote_types(rel_offsets_yx.dtype, torch.float32)
     dev = rel_offsets_yx.device
@@ -167,10 +165,8 @@ def deform_sample(feat, rel_offsets_yx, stride: int = 1,
     centers = torch.stack([cy.repeat_interleave(Wo), cx.repeat(Ho)], dim=-1)
     pos = rel_offsets_yx.to(pos_dtype).reshape(B, Ho * Wo, K, 2) \
         + centers[None, :, None, :]
-    if feat.device.type == 'cpu':
-        return bilinear_gather(feat, pos)
     from kgdet_tpu_torch.ops.deform_kernels import deform_sample_hybrid
-    return deform_sample_hybrid(feat, pos, plain=plain)
+    return deform_sample_hybrid(feat, pos)
 
 
 def deform_conv_from_samples(samples, weight, bias=None):
@@ -188,12 +184,12 @@ def deform_conv_from_samples(samples, weight, bias=None):
 
 
 def deform_conv(feat, rel_offsets_yx, weight, bias=None, modulation=None,
-                stride: int = 1, plain: bool = False):
+                stride: int = 1):
     """Full deformable conv: sample + contract -> (B, Ho, Wo, Cout).
     modulation: optional (B, Ho, Wo, K) per-tap gates (the v2, "modulated",
     form); None is v1."""
     B, Ho, Wo, K, _ = rel_offsets_yx.shape
-    cols = deform_sample(feat, rel_offsets_yx, stride=stride, plain=plain)
+    cols = deform_sample(feat, rel_offsets_yx, stride=stride)
     if modulation is not None:
         cols = cols * modulation.reshape(B, Ho * Wo, K, 1).to(cols.dtype)
     out = deform_conv_from_samples(cols, weight, bias)

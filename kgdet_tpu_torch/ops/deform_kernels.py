@@ -21,8 +21,9 @@ over K2 and K3. The TPU tiling machinery (VMEM tiers, row pairing, the vw
 walk, the raw six-dimensional column layout) has no meaning here; the
 kernels compute the same functions.
 
-On a CPU tensor each wrapper runs its plain version (``*_ref``); on a CUDA
-tensor it launches its kernel or raises. Every kernel takes the absolute
+Each wrapper launches its kernel, or raises, where ``ops.runs_kernel``
+says so (a CUDA tensor outside ``ops.plain_kernels()``), and runs its plain
+version (``*_ref``) otherwise. Every kernel takes the absolute
 positions themselves and does the index math of ``ops/deform.py::
 prep_indices`` / ``prep_indices_bwd`` inside (csrc/tap_coeffs.h, held
 against both bit for bit by tests/test_torch_kernels.py): a call of K1, K2
@@ -35,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from kgdet_tpu_torch.ops import _build
+from kgdet_tpu_torch.ops import _build, plain_kernels, runs_kernel
 from kgdet_tpu_torch.ops.deform import bilinear_gather, pad_min2, \
     prep_indices_bwd
 from kgdet_tpu_torch.ops.kernel_cost import counted, nbytes, sample_ops
@@ -56,7 +57,7 @@ def deform_conv_fused_ref(feat, pos_yx, weight):
     return torch.einsum('bpkc,kcf->bpf', cols, weight.to(feat.dtype))
 
 
-def _k1_cost(feat, pos_yx, weight, plain=False):
+def _k1_cost(feat, pos_yx, weight):
     """The contraction, 2 a multiply-add, and the lerp of every sampled
     value; the map, f32 positions, the weight and the output in the map's
     dtype."""
@@ -68,7 +69,7 @@ def _k1_cost(feat, pos_yx, weight, plain=False):
 
 
 @counted('K1 deform_conv_fused', _k1_cost)
-def deform_conv_fused(feat, pos_yx, weight, plain: bool = False):
+def deform_conv_fused(feat, pos_yx, weight):
     """out[b,p,:] = sum_k sum_c bilinear(feat[b], pos[b,p,k])[c] *
     weight[k,c,:]. feat (B,H,W,C) f32|bf16, pos_yx (B,P,K,2) absolute
     (y, x), weight (K,C,F). Returns (B,P,F) in feat's dtype.
@@ -78,12 +79,11 @@ def deform_conv_fused(feat, pos_yx, weight, plain: bool = False):
     (f32 maps keep full-f32 arithmetic). A weight that is already contiguous
     in feat's dtype is passed as it is. Under differentiation, the autograd
     Function over the column gather (K6) and the sampling backward (K3),
-    which keeps the columns for the weight gradient. ``plain`` runs the
-    kernels' plain versions instead, whatever the device."""
+    which keeps the columns for the weight gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (feat, pos_yx, weight)):
-        return _FusedConvGrad.apply(feat, pos_yx, weight, plain)
-    if plain or feat.device.type == 'cpu':
+        return _FusedConvGrad.apply(feat, pos_yx, weight)
+    if not runs_kernel(feat):
         return deform_conv_fused_ref(feat, pos_yx, weight)
     feat = pad_min2(feat).contiguous()
     B, H, W, C = feat.shape
@@ -185,7 +185,7 @@ def deform_sample_split(cls_feat, pts_feat, pos_yx, taps):
         raise ValueError(f'shape mismatch: cls {tuple(cls_feat.shape)}, pts '
                          f'{tuple(pts_feat.shape)}, pos '
                          f'{tuple(pos_yx.shape)}, taps {taps}')
-    if cls_feat.device.type == 'cpu':
+    if not runs_kernel(cls_feat):
         return deform_sample_split_ref(cls_feat, pts_feat, pos_yx, taps)
     cls_feat = pad_min2(cls_feat).contiguous()
     pts_feat = pad_min2(pts_feat).contiguous()
@@ -265,7 +265,7 @@ def deform_sample_bwd(feat, pos_yx, g):
         raise ValueError(f'shape mismatch: feat {tuple(feat.shape)}, pos '
                          f'{tuple(pos_yx.shape)}, g {tuple(g.shape)} '
                          f'{g.dtype} vs {feat.dtype}')
-    if feat.device.type == 'cpu':
+    if not runs_kernel(feat):
         return deform_sample_bwd_ref(feat, pos_yx, g)
     H0, W0 = feat.shape[1], feat.shape[2]
     feat = pad_min2(feat).contiguous()
@@ -313,7 +313,7 @@ def deform_sample_cols(feat, pos_yx):
     """The bilinear columns of one map: feat (B,H,W,C) f32|bf16, pos_yx
     (B,P,K,2) absolute (y, x) -> (B,P,K,C) in feat's dtype; out-of-bounds
     corners weigh 0."""
-    if feat.device.type == 'cpu':
+    if not runs_kernel(feat):
         return deform_sample_cols_ref(feat, pos_yx)
     feat = pad_min2(feat).contiguous()
     B, H, W, C = feat.shape
@@ -339,30 +339,34 @@ def deform_sample_cols(feat, pos_yx):
 deform_sample_cols.launches = 0
 
 
+def _sample_bwd(kernel, feat, pos_yx, g):
+    """The sampling backward of a Function's ``backward``, on K3 or its
+    plain version as ``kernel``, the forward's ``runs_kernel``, says."""
+    with plain_kernels(not kernel):
+        return deform_sample_bwd(feat, pos_yx, g)
+
+
 class _SampleGrad(torch.autograd.Function):
     """Column gather with a kernel on both sides (``deform_sample_hybrid``
-    of the JAX package): K6 forward, K3 backward. ``plain`` selects their
-    plain versions."""
+    of the JAX package): K6 forward, K3 backward."""
 
     @staticmethod
-    def forward(ctx, feat, pos_yx, plain):
-        ctx.plain = plain
+    def forward(ctx, feat, pos_yx):
+        ctx.kernel = runs_kernel(feat)
         ctx.save_for_backward(feat, pos_yx)
-        sample = deform_sample_cols_ref if plain else deform_sample_cols
-        return sample(feat, pos_yx)
+        return deform_sample_cols(feat, pos_yx)
 
     @staticmethod
     def backward(ctx, g):
         feat, pos_yx = ctx.saved_tensors
-        bwd = deform_sample_bwd_ref if ctx.plain else deform_sample_bwd
-        grad_feat, grad_pos = bwd(feat, pos_yx, g.to(feat.dtype).contiguous())
-        return grad_feat, grad_pos, None
+        return _sample_bwd(ctx.kernel, feat, pos_yx,
+                           g.to(feat.dtype).contiguous())
 
 
-def deform_sample_hybrid(feat, pos_yx, plain: bool = False):
+def deform_sample_hybrid(feat, pos_yx):
     """Differentiable ``deform_sample_cols``: the gradients of the map and
     of the positions come from the sampling backward (K3)."""
-    return _SampleGrad.apply(feat, pos_yx, plain)
+    return _SampleGrad.apply(feat, pos_yx)
 
 
 class _FusedConvGrad(torch.autograd.Function):
@@ -374,16 +378,14 @@ class _FusedConvGrad(torch.autograd.Function):
     cotangent g @ w^T rounded to the map's dtype, ONE sampling backward
     (K3), and the weight gradient cols^T @ g from the saved columns, cast to
     the weight's dtype. The contractions are library matmuls, as the JAX
-    package leaves them to XLA. ``plain`` selects the plain versions of K6
-    and K3 (the comparison model)."""
+    package leaves them to XLA."""
 
     @staticmethod
-    def forward(ctx, feat, pos_yx, weight, plain):
-        sample = deform_sample_cols_ref if plain else deform_sample_cols
-        cols = sample(feat, pos_yx)
+    def forward(ctx, feat, pos_yx, weight):
+        cols = deform_sample_cols(feat, pos_yx)
         B, P, K, C = cols.shape
         w = weight.to(feat.dtype).reshape(K * C, -1)
-        ctx.plain, ctx.weight_dtype = plain, weight.dtype
+        ctx.kernel, ctx.weight_dtype = runs_kernel(feat), weight.dtype
         ctx.save_for_backward(feat, pos_yx, w, cols)
         return (cols.reshape(B * P, K * C) @ w).view(B, P, -1)
 
@@ -395,9 +397,8 @@ class _FusedConvGrad(torch.autograd.Function):
         g_w = (cols.reshape(B * P, K * C).t() @ gc).view(K, C, -1) \
             .to(ctx.weight_dtype)
         g_cols = (gc @ w.t()).view(B, P, K, C)
-        bwd = deform_sample_bwd_ref if ctx.plain else deform_sample_bwd
-        grad_feat, grad_pos = bwd(feat, pos_yx, g_cols)
-        return grad_feat, grad_pos, g_w, None
+        grad_feat, grad_pos = _sample_bwd(ctx.kernel, feat, pos_yx, g_cols)
+        return grad_feat, grad_pos, g_w
 
 
 # ---------------------------------------------- the cascade block's dual path
@@ -411,13 +412,11 @@ class _ColumnsDualGrad(torch.autograd.Function):
     the column cotangents of every (column, branch), rounded to the maps'
     dtype, assembled into one (B, P, K, 2C) tensor; then ONE sampling
     backward (K3) over the cls|pts concat. The contractions are library
-    matmuls, as the JAX package leaves them to XLA. ``plain`` selects the
-    plain versions of K2 and K3 (the comparison model)."""
+    matmuls, as the JAX package leaves them to XLA."""
 
     @staticmethod
-    def forward(ctx, cls_feat, pts_feat, pos_yx, taps, plain, *weights):
-        split = deform_sample_split_ref if plain else deform_sample_split
-        cols = split(cls_feat, pts_feat, pos_yx, taps)
+    def forward(ctx, cls_feat, pts_feat, pos_yx, taps, *weights):
+        cols = deform_sample_split(cls_feat, pts_feat, pos_yx, taps)
         B, P = pos_yx.shape[:2]
         n = len(taps)
         dt = cls_feat.dtype
@@ -432,7 +431,7 @@ class _ColumnsDualGrad(torch.autograd.Function):
                              for i in range(n)], dim=-1)
         kpt_cat = torch.cat([contract(cols[i][1], weights[n + i])
                              for i in range(n)], dim=-1)
-        ctx.taps, ctx.plain = taps, plain
+        ctx.taps, ctx.kernel = taps, runs_kernel(cls_feat)
         ctx.save_for_backward(cls_feat, pts_feat, pos_yx, *weights,
                               *[c for pair in cols for c in pair])
         return cls_cat, kpt_cat
@@ -461,15 +460,13 @@ class _ColumnsDualGrad(torch.autograd.Function):
                 g_all[:, :, lo:lo + t, br * C:(br + 1) * C] = \
                     (gc @ w.reshape(t * C, F).t()).view(B, P, t, C)
             lo += t
-        bwd = deform_sample_bwd_ref if ctx.plain else deform_sample_bwd
-        grad_cat, grad_pos = bwd(torch.cat([cls_feat, pts_feat], dim=-1),
-                                 pos_yx, g_all)
-        return (grad_cat[..., :C], grad_cat[..., C:], grad_pos, None, None,
-                *gw)
+        grad_cat, grad_pos = _sample_bwd(
+            ctx.kernel, torch.cat([cls_feat, pts_feat], dim=-1), pos_yx,
+            g_all)
+        return (grad_cat[..., :C], grad_cat[..., C:], grad_pos, None, *gw)
 
 
-def deform_columns_dual(cls_feat, pts_feat, pos_yx, w_cls, w_pts, taps,
-                        plain: bool = False):
+def deform_columns_dual(cls_feat, pts_feat, pos_yx, w_cls, w_pts, taps):
     """The cascade block's multi-column, two-branch deformable convs.
 
     cls_feat/pts_feat: (B, H, W, C); pos_yx: (B, P, K, 2), K == sum(taps);
@@ -479,19 +476,17 @@ def deform_columns_dual(cls_feat, pts_feat, pos_yx, w_cls, w_pts, taps,
     When no gradient is wanted (inference), one fused gather + contraction
     (K1) per (column, branch): the columns never reach device memory. Under
     differentiation, the autograd Function over the shared split gather (K2)
-    and the one sampling backward (K3). ``plain`` runs the kernels' plain
-    versions instead, whatever the device."""
+    and the one sampling backward (K3)."""
     taps = tuple(int(t) for t in taps)
     operands = (cls_feat, pts_feat, pos_yx, *w_cls, *w_pts)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         return _ColumnsDualGrad.apply(cls_feat, pts_feat, pos_yx, taps,
-                                      plain, *w_cls, *w_pts)
-    conv = deform_conv_fused_ref if plain else deform_conv_fused
+                                      *w_cls, *w_pts)
     cls_out, pts_out = [], []
     lo = 0
     for ci, t in enumerate(taps):
         pcol = pos_yx[:, :, lo:lo + t]
         lo += t
-        cls_out.append(conv(cls_feat, pcol, w_cls[ci]))
-        pts_out.append(conv(pts_feat, pcol, w_pts[ci]))
+        cls_out.append(deform_conv_fused(cls_feat, pcol, w_cls[ci]))
+        pts_out.append(deform_conv_fused(pts_feat, pcol, w_pts[ci]))
     return torch.cat(cls_out, dim=-1), torch.cat(pts_out, dim=-1)

@@ -11,7 +11,7 @@ version, reaches a FlopCounterMode. The count is then the same on the CPU
 and on the card. A wrapper called from inside another counted wrapper (a
 prepared entry under its unprepared one) adds nothing. Under
 torch.profiler a call of a plain version is also a range named after its
-kernel (tools/profile.py); on the card the kernel names itself.
+kernel (tools/profile.py); a kernel names itself.
 
 The formulas are the bound arithmetic of PERF.md section 6: the operations
 of the function (a bilinear sample is 7 operations a value, its backward
@@ -26,6 +26,8 @@ from collections import defaultdict
 
 import torch
 from torch.utils._python_dispatch import _disable_current_modes
+
+from kgdet_tpu_torch.ops import runs_kernel
 
 _TALLIES = []
 _DEPTH = [0]
@@ -61,8 +63,9 @@ def tally():
 def counted(name, cost):
     """Decorate a kernel wrapper with its cost(*args, **kwargs) -> (ops,
     bytes), added to every open tally a call. Under torch.profiler a call
-    on CPU tensors (the plain version) is also a ``record_function`` range
-    named ``name``; on the card the kernel's own name is in the trace."""
+    that runs the plain version (``runs_kernel`` false) is also a
+    ``record_function`` range named ``name``; a kernel's own name is in the
+    trace."""
     def wrap(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
@@ -79,10 +82,10 @@ def counted(name, cost):
             # a range only around a plain version: on the card the kernel
             # names itself, and a range would add an annotation to the
             # device's timeline beside the one kernel a call
-            on_cpu = args[0].device.type == 'cpu'
+            plain = not runs_kernel(args[0])
             _DEPTH[0] += 1
             try:
-                with (torch.profiler.record_function(name) if on_cpu
+                with (torch.profiler.record_function(name) if plain
                       else contextlib.nullcontext()), \
                         _disable_current_modes():
                     return fn(*args, **kwargs)

@@ -9,15 +9,16 @@ Port of kgdet_tpu/ops/misc_ops.py.
   (mmdet/ops/dcn/deform_pool.py): RoIAlign bins moved by learned offsets,
   scaled by ``gamma`` times the box's size, with an optional modulation.
   Its samples take ``ops/roi.py``'s route: one (B, R, n * n, 2) position
-  tensor an image, kernel K6 forward and K3 backward on the card, the plain
-  gather on the CPU; the offsets get their gradient through the positions.
+  tensor an image, kernel K6 forward and K3 backward (or their plain
+  versions); the offsets get their gradient through the positions.
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
 
 from kgdet_tpu_torch.models.layers import same_pad
-from kgdet_tpu_torch.ops.roi import _bin_mean, _gather, roi_positions
+from kgdet_tpu_torch.ops.deform_kernels import deform_sample_hybrid
+from kgdet_tpu_torch.ops.roi import _bin_mean, roi_positions
 
 
 def masked_conv2d(x, mask, weight, bias=None, stride=1):
@@ -37,8 +38,7 @@ def masked_conv2d(x, mask, weight, bias=None, stride=1):
 
 
 def deform_roi_pooling(feat, boxes, offsets, out_size=7, spatial_scale=1.0,
-                       sample_num=2, gamma=0.1, modulation=None,
-                       plain: bool = False):
+                       sample_num=2, gamma=0.1, modulation=None):
     """Deformable RoI pooling of a (B, H, W, C) map over per-image boxes
     (B, R, 4): each bin's samples moved by offsets (B, R, out, out, 2), the
     normalized (dy, dx) of the bin, times gamma times the box's height /
@@ -46,7 +46,7 @@ def deform_roi_pooling(feat, boxes, offsets, out_size=7, spatial_scale=1.0,
     (B, R, out, out, C)."""
     pos = roi_positions(boxes, out_size, spatial_scale, sample_num,
                         offsets=offsets, gamma=gamma)
-    out = _bin_mean(_gather(feat, pos, plain), out_size, sample_num)
+    out = _bin_mean(deform_sample_hybrid(feat, pos), out_size, sample_num)
     if modulation is not None:
         out = out * modulation[..., None].to(out.dtype)
     return out

@@ -10,36 +10,21 @@ one loop).
 K9 ``greedy_nms`` (csrc/greedy_nms.cu): hard NMS on CUDA tensors is one
 launch for every row at once, a thread block a row; it replaces no TPU
 kernel (the JAX package's loop is a ``lax.scan``). ``_greedy``, the Python
-loop of ``max_out`` steps, is its plain version: it runs on the CPU, under
-``plain=True`` or inside ``plain_nms()`` (where a model's
-``use_plain_kernels`` reaches its decode), and for ``soft_nms``, whose
-update K9 does not compute. K9's kept indices and scores equal the loop's
+loop of ``max_out`` steps, is its plain version: it runs where
+``ops.runs_kernel`` says so (on the CPU, inside ``ops.plain_kernels()``),
+and for ``soft_nms``, whose update K9 does not compute. K9's kept indices and scores equal the loop's
 on the card bit for bit.
 """
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import math
 
 import torch
 
-from kgdet_tpu_torch.ops import _build
+from kgdet_tpu_torch.ops import _build, runs_kernel
 from kgdet_tpu_torch.ops.kernel_cost import counted, nbytes
 
 NEG_INF = -1e10
-_PLAIN = contextvars.ContextVar('kgdet_plain_nms', default=False)
-
-
-@contextlib.contextmanager
-def plain_nms(plain: bool = True):
-    """Inside the block ``greedy_nms`` runs its plain version on every
-    device (``plain`` False: as outside it)."""
-    token = _PLAIN.set(plain)
-    try:
-        yield
-    finally:
-        _PLAIN.reset(token)
 
 
 def pairwise_iou(box, boxes, offset=1.0):
@@ -79,7 +64,7 @@ def _greedy(boxes, scores, max_out, offset, update):
     return torch.stack(keep_idx, -1), torch.stack(keep_scores, -1)
 
 
-def _k9_cost(boxes, scores, iou_thr, max_out, offset=1.0, plain=False):
+def _k9_cost(boxes, scores, iou_thr, max_out, offset=1.0):
     """At most 17 operations a candidate a step (the IoU, its comparison);
     boxes and scores read once, an int64 index and an f32 score written a
     slot."""
@@ -89,13 +74,11 @@ def _k9_cost(boxes, scores, iou_thr, max_out, offset=1.0, plain=False):
 
 
 @counted('K9 greedy_nms', _k9_cost)
-def greedy_nms(boxes, scores, iou_thr, max_out, offset=1.0,
-               plain: bool = False):
+def greedy_nms(boxes, scores, iou_thr, max_out, offset=1.0):
     """Greedy NMS over boxes (..., N, 4) / scores (..., N) -> fixed
     (..., max_out) (keep_idx, keep_scores). Scores <= NEG_INF/2 are
-    absent. On CUDA tensors kernel K9, unless ``plain`` or ``plain_nms()``,
-    which run the loop whatever the device."""
-    if plain or _PLAIN.get() or scores.device.type == 'cpu':
+    absent. Kernel K9 where ``runs_kernel(scores)``, else the loop."""
+    if not runs_kernel(scores):
         return _greedy(boxes, scores, max_out, offset,
                        lambda s, iou: torch.where(iou > iou_thr, NEG_INF, s))
     return _greedy_nms_k9(boxes, scores, iou_thr, max_out, offset)

@@ -9,8 +9,9 @@ kernel K5 (ops/stem_kernels.py::frozen_bottleneck, width 64 only, inside the
 whole-prefix chain). In bf16 K8 and K5 run one tensor-core body
 (csrc/prefix_mma.cuh); f32 runs an FMA body.
 
-On a CPU tensor ``fused_bottleneck`` runs the plain version; on a CUDA tensor
-it launches its kernel or raises. There is no gradient: the block is frozen.
+``fused_bottleneck`` launches its kernel, or raises, where
+``ops.runs_kernel`` says so, and runs the plain version otherwise. There is
+no gradient: the block is frozen.
 
 Two levels of entry, as for K5: ``fused_bottleneck`` takes folded weights
 and prepares them on every call; ``fused_bottleneck_prepared`` takes what
@@ -28,7 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from kgdet_tpu_torch.ops import _build
+from kgdet_tpu_torch.ops import _build, runs_kernel
 from kgdet_tpu_torch.ops.kernel_cost import bottleneck_cost, counted
 
 # dynamic shared memory a block can ask for on the H100 (227 KB)
@@ -89,7 +90,7 @@ def fused_bottleneck_prepared(x, blk):
     """fused_bottleneck on weights from ``prepare_resblock(.., x.dtype)``:
     one K8 launch. Raises on shapes the kernel does not take and on a width
     whose tiles fit neither body's shared memory."""
-    if x.device.type == 'cpu':
+    if not runs_kernel(x):
         return bottleneck_reference(x, *blk)
     w1, b1, w2, b2, w3, b3, wd, bd = blk
     B, H, W, cin = x.shape
@@ -141,7 +142,7 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None):
     (B,H,W,cout) in x's dtype. cin and width are multiples of 8, as for the
     TPU kernel; any H, W and cout. Raises on a width whose tiles do not fit a
     block's shared memory."""
-    if x.device.type == 'cpu':
+    if not runs_kernel(x):
         return bottleneck_reference(x, w1, b1, w2, b2, w3, b3, wd, bd)
     blk = dict(zip(BLOCK_KEYS, (w1, b1, w2, b2, w3, b3, wd, bd)))
     return fused_bottleneck_prepared(x, prepare_resblock(blk, x.dtype))

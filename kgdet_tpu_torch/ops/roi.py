@@ -15,11 +15,10 @@ TPU; eager PyTorch would materialize it (about 92 GB for Faster R-CNN's
 and the samples of every RoI of an image are gathered from that image's map
 as one (B, R, n * n, 2) position tensor, n = out_size * sample_num: the
 function of kernel K6 (ops/deform_kernels.py::deform_sample_cols, one map's
-bilinear columns), which serves it on a CUDA tensor through
-``deform_sample_hybrid`` (K6 forward, the sampling backward K3 as its
-gradient). On a CPU tensor the plain ``bilinear_gather`` runs under
-autograd; ``plain`` selects the plain versions on the card too (the
-comparison model). Positions are f32 whatever the map's dtype.
+bilinear columns), which serves it through ``deform_sample_hybrid`` (K6
+forward, the sampling backward K3 as its gradient; their plain versions
+where ``ops.runs_kernel`` says so). Positions are f32 whatever the map's
+dtype.
 
 ``roi_pool`` has no caller in either package. It takes the max over each
 bin's rectangle from a two-dimensional table of power-of-two block maxima
@@ -30,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from kgdet_tpu_torch.ops.deform import bilinear_gather
+from kgdet_tpu_torch.ops.deform_kernels import deform_sample_hybrid
 
 
 def _scaled_corners(boxes, spatial_scale):
@@ -75,14 +74,6 @@ def roi_positions(boxes, out_size=7, spatial_scale=1.0, sample_num=2,
     return torch.stack([yy, xx], dim=-1).flatten(-3, -2)
 
 
-def _gather(feat, pos, plain):
-    """(B, H, W, C) map at (B, R, K, 2) positions -> (B, R, K, C)."""
-    if feat.device.type == 'cpu':
-        return bilinear_gather(feat, pos)
-    from kgdet_tpu_torch.ops.deform_kernels import deform_sample_hybrid
-    return deform_sample_hybrid(feat, pos, plain=plain)
-
-
 def _bin_mean(samples, out_size, sample_num):
     """(B, R, n * n, C) samples -> (B, R, out, out, C) bin means."""
     B, R, _, C = samples.shape
@@ -90,12 +81,11 @@ def _bin_mean(samples, out_size, sample_num):
     return samples.reshape(B, R, out_size, s, out_size, s, C).mean((3, 5))
 
 
-def roi_align(feat, boxes, out_size=7, spatial_scale=1.0, sample_num=2,
-              plain: bool = False):
+def roi_align(feat, boxes, out_size=7, spatial_scale=1.0, sample_num=2):
     """RoIAlign of a (B, H, W, C) map over per-image boxes (B, R, 4) xyxy in
     image coordinates -> (B, R, out, out, C) in the map's dtype."""
     pos = roi_positions(boxes, out_size, spatial_scale, sample_num)
-    return _bin_mean(_gather(feat, pos, plain), out_size, sample_num)
+    return _bin_mean(deform_sample_hybrid(feat, pos), out_size, sample_num)
 
 
 def roi_pool(feat, boxes, out_size=7, spatial_scale=1.0):

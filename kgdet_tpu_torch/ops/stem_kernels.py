@@ -7,8 +7,8 @@ Port of kgdet_tpu/ops/pallas_stem.py: ``stem_pool`` replaces
 ``stem_layer1_pipeline``. The TPU's transposed interior layout has no
 meaning here: activations stay NHWC.
 
-On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises. Weights arrive with FrozenBatchNorm folded
+Each wrapper launches its kernel, or raises, where ``ops.runs_kernel``
+says so, and runs its plain version otherwise. Weights arrive with FrozenBatchNorm folded
 (ops/resblock.py::fold_bn); there is no gradient, as the prefix is frozen.
 
 Two levels of entry: ``stem_pool``, ``frozen_bottleneck`` and
@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from kgdet_tpu_torch.ops import _build
+from kgdet_tpu_torch.ops import _build, runs_kernel
 from kgdet_tpu_torch.ops.kernel_cost import bottleneck_cost, counted, \
     nbytes
 from kgdet_tpu_torch.ops.resblock import BLOCK_KEYS, bottleneck_reference, \
@@ -92,7 +92,7 @@ def stem_pool_prepared(x, stem):
     """stem_pool on weights from ``prepare_stem(w, b, x.dtype)``: one K4
     launch."""
     w, b, kernel_w = stem
-    if x.device.type == 'cpu':
+    if not runs_kernel(x):
         return stem_pool_ref(x, w, b)
     B, H, W, Cin = x.shape
     if Cin != 3 or w.dtype != x.dtype:
@@ -116,7 +116,7 @@ def stem_pool_prepared(x, stem):
 def stem_pool(x, w, b):
     """7x7/2 conv (pad 3) with folded BN, ReLU and 3x3/2 maxpool (pad 1,
     -inf). x (B,H,W,3) f32|bf16; w (7,7,3,64); b (64,) -> (B,H4,W4,64)."""
-    if x.device.type == 'cpu':
+    if not runs_kernel(x):
         return stem_pool_ref(x, w, b)
     return stem_pool_prepared(x, prepare_stem(w, b, x.dtype))
 
@@ -135,7 +135,7 @@ prepare_block = prepare_resblock
 def frozen_bottleneck_prepared(x, blk):
     """frozen_bottleneck on weights from ``prepare_block(.., x.dtype)``: one
     K5 launch."""
-    if x.device.type == 'cpu':
+    if not runs_kernel(x):
         return frozen_bottleneck_ref(x, *blk)
     w1, b1, w2, b2, w3, b3, wd, bd = blk
     B, H, W, Cin = x.shape
@@ -174,7 +174,7 @@ def frozen_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None):
     """One frozen stride-1 bottleneck, BN folded, in one launch.
     x (B,H,W,Cin); w1 (Cin,64); w2 (3,3,64,64) HWIO; w3 (64,Cout); wd
     (Cin,Cout) or None (then Cin == Cout); f32 biases -> (B,H,W,Cout)."""
-    if x.device.type == 'cpu':
+    if not runs_kernel(x):
         return frozen_bottleneck_ref(x, w1, b1, w2, b2, w3, b3, wd, bd)
     blk = dict(zip(BLOCK_KEYS, (w1, b1, w2, b2, w3, b3, wd, bd)))
     return frozen_bottleneck_prepared(x, prepare_block(blk, x.dtype))

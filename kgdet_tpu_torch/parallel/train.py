@@ -289,7 +289,7 @@ def make_loss_fn(model, cfg: KGDetConfig, canvas_hw):
                 draw = sampler_draw(int(batch.get('seed', 0)), len(image),
                                     dev)
                 return loss(fwd, feed, draw, cfg, valids,
-                            canvas_hw=tuple(canvas_hw), plain=model.plain)
+                            canvas_hw=tuple(canvas_hw))
         if dev not in grids:
             grids[dev] = build_level_geometry(cfg, canvas_hw, device=dev)
         with span('forward'):

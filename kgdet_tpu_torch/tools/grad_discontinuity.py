@@ -39,7 +39,7 @@ def main():
 
     import chip_smoke as cs
     from kgdet_tpu_torch.api import init_trainer, load_config
-    from kgdet_tpu_torch.ops import _build
+    from kgdet_tpu_torch.ops import _build, plain_kernels
     from kgdet_tpu_torch.ops.image import device_normalize
     from kgdet_tpu_torch.parallel.train import make_loss_fn
 
@@ -57,7 +57,6 @@ def main():
     first = cs.make_train_batches(1, 123, cfg.head.num_keypts)[0]
     image = device_normalize(torch.as_tensor(first['image']).cuda(),
                              torch.as_tensor(first['valid_hw']).cuda())
-    model.backbone.plain_prefix = False
     for dtype in (torch.float32, torch.bfloat16):
         want = model.backbone.frozen_prefix(image.to(dtype))
         differing = sum(
@@ -68,10 +67,9 @@ def main():
 
     def loss_and_grads(plain, batch):
         model.dtype = torch.float32
-        model.use_plain_kernels(plain)
-        model.backbone.plain_prefix = False
         optimizer.zero_grad()
-        total, _ = loss_fn(batch)
+        with plain_kernels(plain), cs.prefix_on_its_kernels(model):
+            total, _ = loss_fn(batch)
         total.backward()
         return total.item(), {n: p.grad.float().clone()
                               for n, p in params.items()
@@ -101,7 +99,6 @@ def main():
                   f'{top}', flush=True)
         if i % 4 == 3:
             model.dtype = torch.bfloat16
-            model.use_plain_kernels(False)
             train_step(batch)
     worst_all.sort()
     n = len(worst_all)

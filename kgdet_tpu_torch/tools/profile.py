@@ -21,7 +21,9 @@ unless ``--device`` says otherwise:
       --mode infer [--trace-dir DIR] [--steps 5] [--batch-size 1] \
       [--device cpu]
 
-``main(argv)`` also returns the trace's path.
+``main(argv)`` also returns the trace's path. ``device_profile(fn)``
+counts what one call of ``fn`` puts on the card (the GPU tests and
+chip_smoke.py read it).
 """
 from __future__ import annotations
 
@@ -30,6 +32,64 @@ import os
 import tempfile
 
 import numpy as np
+
+
+def short_name(kernel):
+    """A kernel of the port as the profiler names it, without namespaces
+    and arguments but with its template arguments (the tile or the dtype)."""
+    return kernel.replace('(anonymous namespace)::', '').split('(')[0] \
+        .split('::')[-1]
+
+
+def device_profile(fn, reps=10, names=None):
+    """What one call of ``fn`` puts on the device, under torch.profiler over
+    ``reps`` calls: (device ms a call of the port's own kernels, the
+    ``kgdet::`` ones; device activities a call: every kernel, copy and
+    memset, the library's included; the port's own kernels a call). With a
+    dict ``names``, also names['own'], the port's kernels by short name,
+    and names['device_ms'], the device time a call of every activity. Short
+    recordings in quick succession now and then come back with device
+    records missing, at a recording's edges more than inside it: the calls
+    are bracketed by four short spin kernels on each side, which are not
+    counted, and a recording counts when it holds the port's kernels and
+    all device activities each in a multiple of ``reps`` (every call puts
+    the same ones on the device), else it is taken again."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def bracket():
+        for _ in range(4):
+            torch.cuda._sleep(1000)
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bracket()
+            for _ in range(reps):
+                fn()
+            bracket()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and 'spin_kernel' not in e.name]
+        own = [e.time_range.end - e.time_range.start for e in dev
+               if 'kgdet::' in e.name]
+        if own and len(own) % reps == 0 and len(dev) % reps == 0:
+            if names is not None:
+                names['own'] = sorted({short_name(e.name) for e in dev
+                                       if 'kgdet::' in e.name})
+                names['device_ms'] = sum(
+                    e.time_range.end - e.time_range.start
+                    for e in dev) / 1e3 / reps
+            return sum(own) / 1e3 / reps, len(dev) / reps, len(own) / reps
+        order = [short_name(e.name) for e in
+                 sorted(dev, key=lambda e: e.time_range.start)]
+        print(f'device_profile: {len(own)} records of the port\'s kernels '
+              f'in {reps} calls, recording {attempt + 1} taken again; in '
+              f'order: {order}', flush=True)
+    raise RuntimeError('the profiler lost device records in five '
+                       'recordings')
 
 
 def parse_args(argv=None):

@@ -35,7 +35,9 @@ from kgdet_tpu.utils.torch_convert import (convert_state_dict,
                                            merge_into_variables)
 from kgdet_tpu_torch.api import build_model, make_predict_fn
 from kgdet_tpu_torch.models.detector import build_backbone
+import kgdet_tpu_torch.models.resnet as resnet_mod
 from kgdet_tpu_torch.models.resnet import Bottleneck, DeformConv3x3, ResNet
+from kgdet_tpu_torch.ops import plain_kernels, runs_kernel
 from kgdet_tpu_torch.ops.deform import deform_conv
 from kgdet_tpu_torch.parallel import train as ttrain
 from kgdet_tpu_torch.utils.convert import (load_reference_state,
@@ -364,8 +366,8 @@ def test_dcn_pth_route_accepts_and_refuses_as_jax(cascade):
     assert load_reference_state(fresh, ok) == []
 
 
-def test_dcn_plain_switch_prefix_and_refusals():
-    """use_plain_kernels reaches the DCN blocks; a DCN in stage 0 runs the
+def test_dcn_plain_switch_prefix_and_refusals(monkeypatch):
+    """plain_kernels() reaches the DCN blocks; a DCN in stage 0 runs the
     stem and layer1 without the frozen prefix (and equals the prefix route
     with zero offsets); the DCN backbone with grouped DCN (ResNeXt widths,
     groups 32), with the context block in stage 1, or in caffe style builds
@@ -375,10 +377,21 @@ def test_dcn_plain_switch_prefix_and_refusals():
     model = build_model(cfg, device='cpu').init_weights(0)
     blocks = [m for m in model.modules() if isinstance(m, DeformConv3x3)]
     assert len(blocks) == 13
-    model.use_plain_kernels(True)
-    assert all(b.plain for b in blocks) and model.backbone.plain_prefix
-    model.use_plain_kernels(False)
-    assert not any(b.plain for b in blocks)
+    seen, real = [], resnet_mod.deform_conv
+    card = torch.empty(0, device='meta')
+
+    def recording(*a, **k):
+        seen.append(runs_kernel(card))
+        return real(*a, **k)
+    monkeypatch.setattr(resnet_mod, 'deform_conv', recording)
+    with torch.no_grad():
+        for plain in (True, False):
+            with plain_kernels(plain):
+                for b in blocks:
+                    s = b.stride
+                    b(torch.zeros(1, b.weight.shape[1], 3, 4),
+                      torch.zeros(1, 18, -(-3 // s), -(-4 // s)))
+    assert seen == [False] * 13 + [True] * 13
 
     net0 = ResNet(depth=50, frozen_stages=1, dcn_stages=(0, 1))
     net1 = ResNet(depth=50, frozen_stages=1, dcn_stages=(1,))

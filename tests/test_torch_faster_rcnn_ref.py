@@ -23,6 +23,7 @@ from kgbench.reference import rcnn_decode
 from kgdet_tpu_torch.api import build_model, make_predict_fn
 from kgdet_tpu_torch.config import load_config
 from kgdet_tpu_torch.models import two_stage
+from kgdet_tpu_torch.ops import plain_kernels
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANVAS = (128, 192)
@@ -79,9 +80,10 @@ def run():
     w = weights.make(ref.param_specs(m), SEED, torch.device('cpu'))
     model = build_model(cfg, device='cpu')
     model.load_state_dict(w, strict=True)
-    model.eval().use_plain_kernels(True)
+    model.eval()
     batch = _batch()
-    fwd, dets = _program(model, cfg, batch)
+    with plain_kernels():
+        fwd, dets = _program(model, cfg, batch)
     x = serving.normalized(batch['image'], batch['img_hw'], m['img_mean'],
                            m['img_std'])
     with torch.no_grad():

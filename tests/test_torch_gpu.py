@@ -39,9 +39,11 @@ import torch
 
 from kgdet_tpu_torch.ops import deform
 from kgdet_tpu_torch.ops import deform_kernels as dk
-from kgdet_tpu_torch.ops import nms
+from kgdet_tpu_torch.ops import nms, plain_kernels
 from kgdet_tpu_torch.ops import resblock as rb
 from kgdet_tpu_torch.ops import stem_kernels as sk
+from kgdet_tpu_torch.tools.profile import device_profile
+from tests.kernel_inputs import nms_boxes
 
 pytestmark = pytest.mark.gpu
 TOL = dict(rtol=1e-5, atol=1e-4)
@@ -585,8 +587,9 @@ def test_deform_sample_and_conv_on_the_card(gen, stride):
 
     def run(plain):
         xs = [x.clone().requires_grad_(True) for x in leaves]
-        out = deform.deform_conv(xs[0], xs[1], xs[2], modulation=mod,
-                                 stride=stride, plain=plain)
+        with plain_kernels(plain):
+            out = deform.deform_conv(xs[0], xs[1], xs[2], modulation=mod,
+                                     stride=stride)
         return [out, *torch.autograd.grad(out, xs, ct)]
 
     k6, k3 = dk.deform_sample_cols.launches, dk.deform_sample_bwd.launches
@@ -611,7 +614,8 @@ def test_fused_conv_function_on_the_card(gen):
 
     def run(plain):
         xs = [x.clone().requires_grad_(True) for x in leaves]
-        out = dk.deform_conv_fused(*xs, plain=plain)
+        with plain_kernels(plain):
+            out = dk.deform_conv_fused(*xs)
         return [out, *torch.autograd.grad(out, xs, ct)]
 
     k1, k6, k3 = (dk.deform_conv_fused.launches,
@@ -794,8 +798,8 @@ def test_resnet_per_block_route_matches_the_chain(gen):
         per_block = net(x)
         assert rb.fused_bottleneck.launches == k8 + 3
         assert sk.frozen_bottleneck.launches == k5
-        net.plain_prefix = True
-        plain = net(x)
+        with plain_kernels():
+            plain = net(x)
         assert rb.fused_bottleneck.launches == k8 + 3
     for got, a, b in zip(per_block, chain, plain):
         scale = b.abs().max().item()
@@ -816,8 +820,9 @@ def test_columns_dual_function_on_the_card(gen):
 
     def run(plain):
         xs = [x.clone().requires_grad_(True) for x in leaves]
-        outs = dk.deform_columns_dual(xs[0], xs[1], xs[2], xs[3:5], xs[5:7],
-                                      taps, plain=plain)
+        with plain_kernels(plain):
+            outs = dk.deform_columns_dual(xs[0], xs[1], xs[2], xs[3:5],
+                                          xs[5:7], taps)
         grads = torch.autograd.grad(outs, xs, ct)
         return list(outs) + list(grads)
 
@@ -1074,9 +1079,9 @@ def test_grouped_dcn_module_on_the_card(gen):
     off = _randn(gen, 2, 18, 10, 17) * 0.5
 
     def run(plain):
-        conv.plain = plain
         leaves = [t.clone().requires_grad_() for t in (x, off)]
-        out = conv(*leaves)
+        with plain_kernels(plain):
+            out = conv(*leaves)
         grads = torch.autograd.grad(out.square().sum(),
                                     leaves + [conv.weight])
         return [out, *grads]
@@ -1206,7 +1211,8 @@ def test_roi_align_on_k6_k3_at_the_rcnn_shapes(gen, H, W, C, stride, out,
 
     def run(dtype, plain):
         f = feat.to(dtype).requires_grad_(True)
-        y = roi_align(f, boxes, out, 1.0 / stride, 2, plain=plain)
+        with plain_kernels(plain):
+            y = roi_align(f, boxes, out, 1.0 / stride, 2)
         g, = torch.autograd.grad((y.float() * cot).sum(), f)
         return y.detach().float(), g.float()
     k6, k3 = dk.deform_sample_cols.launches, dk.deform_sample_bwd.launches
@@ -1301,7 +1307,8 @@ def test_roi_align_on_k6_k3_at_the_mask_shapes(gen, H, W, C, out, R):
 
     def run(dtype, plain):
         f = feat.to(dtype).requires_grad_(True)
-        y = roi_align(f, boxes, out, 1.0 / stride, 2, plain=plain)
+        with plain_kernels(plain):
+            y = roi_align(f, boxes, out, 1.0 / stride, 2)
         g, = torch.autograd.grad((y.float() * cot).sum(), f)
         return y.detach().float(), g.float()
     k6, k3 = dk.deform_sample_cols.launches, dk.deform_sample_bwd.launches
@@ -1333,7 +1340,8 @@ def test_mask_targets_on_k6_match_the_plain_gather(gen):
     k6 = dk.deform_sample_cols.launches
     got = mask_targets(masks, assigned, boxes, 4)
     assert dk.deform_sample_cols.launches == k6 + 1
-    want = mask_targets(masks, assigned, boxes, 4, plain=True)
+    with plain_kernels():
+        want = mask_targets(masks, assigned, boxes, 4)
     assert got.shape == (2, 512, 28, 28)
     torch.testing.assert_close(got, want, **TOL)
 
@@ -1368,7 +1376,9 @@ def test_calibrated_prefix_on_k4_k5_matches_the_plain_prefix(gen, tmp_path):
     """calibrate_frozen_bn on the card (CONFIG_TEXT's R-50, two batches of 2
     at 64x96): every FrozenBatchNorm set; the prefix then refolds, and on
     K4 / K5 it matches the plain prefix on the same weights (f32 within
-    TOL of the output's scale, bf16 within 2x the plain bf16 error)."""
+    TOL of the output's scale, bf16 within 2x the plain bf16 error). The
+    plain prefix inside plain_kernels(), on the kept prepared weights,
+    equals stem_layer1_ref on the folded f32 ones bit for bit."""
     from kgdet_tpu_torch.api import build_model
     from kgdet_tpu_torch.models.layers import FrozenBatchNorm
     from kgdet_tpu_torch.ops.image import device_normalize
@@ -1384,19 +1394,17 @@ def test_calibrated_prefix_on_k4_k5_matches_the_plain_prefix(gen, tmp_path):
     n = calibrate_frozen_bn(model, images)
     assert n == sum(isinstance(m, FrozenBatchNorm) for m in model.modules())
     outs = {}
-    try:
-        for dtype in (torch.float32, torch.bfloat16):
-            for plain in (False, True):
-                bb.plain_prefix = plain
-                before = (sk.stem_pool.launches,
-                          sk.frozen_bottleneck.launches)
+    for dtype in (torch.float32, torch.bfloat16):
+        for plain in (False, True):
+            before = (sk.stem_pool.launches, sk.frozen_bottleneck.launches)
+            with plain_kernels(plain):
                 outs[dtype, plain] = bb.frozen_prefix(x.to(dtype))
-                after = (sk.stem_pool.launches,
-                         sk.frozen_bottleneck.launches)
-                assert after == (before if plain else
-                                 (before[0] + 1, before[1] + 3))
-    finally:
-        bb.plain_prefix = False
+            after = (sk.stem_pool.launches, sk.frozen_bottleneck.launches)
+            assert after == (before if plain else
+                             (before[0] + 1, before[1] + 3))
+        (sw, sb), folded = bb.prefix_weights(dtype)[0]
+        assert torch.equal(outs[dtype, True],
+                           sk.stem_layer1_ref(x.to(dtype), sw, sb, folded))
     assert bb._kept[0] != kept
     ref = outs[torch.float32, True]
     scale = max(1.0, ref.abs().max().item())
@@ -1421,22 +1429,6 @@ def test_get_flops_counts_the_same_on_both_devices(gen, tmp_path):
 
 
 # ------------------------------------------------------- K9: greedy NMS
-def _chip_smoke():
-    import os
-    import sys
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    import chip_smoke
-    return chip_smoke
-
-
-def _nms_boxes(gen, B, N):
-    """chip_smoke.py's boxes for K9 (its phase 1 shapes): the served
-    decode's range at 800x1344, clustered so that rows overlap heavily."""
-    return _chip_smoke().nms_boxes(torch, gen, B, N)
-
-
 def _ulp_rows(thr):
     """Rows of two boxes, a pick and a candidate whose f32 IoU with it
     (pairwise_iou's arithmetic) is f32(thr), one ulp below or one above:
@@ -1477,7 +1469,7 @@ def _nms_case(gen, case):
               'max_out_over_n': (2, 3, 50, 100, 0.3),
               'nan': (2, 13, 1000, 100, 0.5)}
     B, C, N, max_out, thr = shapes[case]
-    boxes = _nms_boxes(gen, B, N)
+    boxes = nms_boxes(gen, B, N)
     scores = torch.rand((B, N, max(C, 1)), generator=gen)
     if case == 'ties':                  # five levels: ties in every row
         scores = (scores * 4).round() / 4
@@ -1502,7 +1494,8 @@ def _k9_against_the_loop(boxes, scores, thr, max_out):
     before = nms.greedy_nms.launches
     idx, sc = nms.greedy_nms(boxes, scores, thr, max_out)
     assert nms.greedy_nms.launches == before + 1
-    ref_idx, ref_sc = nms.greedy_nms(boxes, scores, thr, max_out, plain=True)
+    with plain_kernels():
+        ref_idx, ref_sc = nms.greedy_nms(boxes, scores, thr, max_out)
     assert nms.greedy_nms.launches == before + 1
     assert idx.dtype == ref_idx.dtype == torch.int64
     assert sc.dtype == ref_sc.dtype == torch.float32
@@ -1550,16 +1543,15 @@ def test_k9_equals_the_loop(gen, case):
 def test_k9_is_one_kernel_a_call(gen):
     """One greedy_nms call on CUDA tensors puts one kernel on the device
     and nothing else: the staged body at the served shapes, the body on
-    the global copy at 16,384 candidates. Counted by chip_smoke.py's
+    the global copy at 16,384 candidates. Counted by tools/profile.py's
     device_profile (ten calls between spin kernels; a recording whose
     counts are not a multiple of the calls, having lost device records at
     its edges, is taken again)."""
-    cs = _chip_smoke()
     for case, body in (('served', 'greedy_nms_kernel<true>'),
                        ('global', 'greedy_nms_kernel<false>')):
         boxes, scores, thr, max_out = _nms_case(gen, case)
         names = {}
-        _, activities, own = cs.device_profile(
+        _, activities, own = device_profile(
             lambda: nms.greedy_nms(boxes, scores, thr, max_out), names=names)
         assert (activities, own) == (1, 1), names
         assert names['own'] == [body]
@@ -1570,7 +1562,7 @@ def test_cascade_served_decode_launch_counts(gen):
     batch 8, test.score_thr 0 (as kgbench's serve_b8): the decode (head
     outputs to padded detections) calls K9 once and puts fewer than 150
     activities on the device (the loop put 3,967); detections equal to
-    the same decode on the loop (inside nms.plain_nms())."""
+    the same decode on the loop (inside plain_kernels())."""
     import dataclasses
     import os
 
@@ -1599,7 +1591,7 @@ def test_cascade_served_decode_launch_counts(gen):
         assert sum('greedy_nms' in n for n in names) == 1
         assert len(names) < 150, len(names)
         before = nms.greedy_nms.launches
-        with nms.plain_nms():
+        with plain_kernels():
             plain = decode(outs, img_hw, sf)
         assert nms.greedy_nms.launches == before
     for key in ('det_bboxes', 'det_labels', 'det_kpts', 'valid'):

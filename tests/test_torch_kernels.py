@@ -36,6 +36,7 @@ import kgdet_tpu.ops.pallas_deform as pd
 from kgdet_tpu.ops.pallas_stem import (
     bottleneck_transposed, from_interior, stem_pool_transposed, to_interior,
     transpose_folded)
+from kgdet_tpu_torch.ops import plain_kernels
 from kgdet_tpu_torch.ops.deform import bilinear_gather
 from kgdet_tpu.ops.pallas_resblock import fused_bottleneck as \
     jfused_bottleneck
@@ -757,10 +758,9 @@ def test_prefix_weights_are_kept_once_per_dtype():
     x = torch.randn(1, 40, 24, 3, generator=torch.Generator().manual_seed(4))
     sw, sb, fb = fresh()
     want = stem_layer1_ref(x, sw, sb, fb)
-    net.plain_prefix = True
-    assert torch.equal(net.frozen_prefix(x), want)
-    net.plain_prefix = False                  # the prepared chain on a CPU
-    assert torch.equal(net.frozen_prefix(x), want)
+    with plain_kernels():
+        assert torch.equal(net.frozen_prefix(x), want)
+    assert torch.equal(net.frozen_prefix(x), want)    # plain on a CPU too
 
     changes = [lambda: net.load_state_dict(net.state_dict()),
                lambda: net.conv1.weight.add_(0.01),

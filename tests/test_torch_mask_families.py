@@ -483,29 +483,30 @@ def test_trainer_steps_and_frozen_prefix(both):
 
 @pytest.mark.parametrize('kind', ('mask', 'htc'))
 def test_plain_kernels_reach_every_roi_gather(kind, monkeypatch):
-    """use_plain_kernels reaches every RoI gather of a training loss, the
-    mask targets' through make_loss_fn too, and use_plain_kernels(False)
-    takes it back."""
+    """plain_kernels() reaches every RoI gather of a training loss, the
+    mask targets' through make_loss_fn too, and the kernels come back after
+    the block."""
     from kgdet_tpu_torch.models import mask_head
+    from kgdet_tpu_torch.ops import plain_kernels, runs_kernel
     cfg = kind_cfg(kind)
     model = build_model(cfg, device='cpu')
     seen = []
+    card = torch.empty(0, device='meta')
 
     def spy(module):
         real = module.roi_align
 
-        def roi_align(*a, plain=False, **k):
-            seen.append((module.__name__, plain))
-            return real(*a, plain=plain, **k)
+        def roi_align(*a, **k):
+            seen.append((module.__name__, not runs_kernel(card)))
+            return real(*a, **k)
         monkeypatch.setattr(module, 'roi_align', roi_align)
     spy(ts)
     spy(mask_head)
     loss_fn = ttrain.make_loss_fn(model, cfg, CANVAS)
     batch = dict(mask_batch(cfg), seed=np.int32(SEED))
     for plain in (True, False):
-        model.use_plain_kernels(plain)
         seen.clear()
-        with torch.no_grad():
+        with torch.no_grad(), plain_kernels(plain):
             loss_fn(batch)
         assert (mask_head.__name__, plain) in seen
         assert {p for _, p in seen} == {plain}

@@ -32,6 +32,7 @@ from kgdet_tpu.config import load_config as jload_config
 from kgdet_tpu_torch import config as tconfig
 from kgdet_tpu_torch.api import Detector, build_model, init_detector, \
     make_predict_fn
+from kgdet_tpu_torch.ops import plain_kernels, runs_kernel
 from kgdet_tpu_torch.utils.convert import state_dict_from_jax
 
 torch.set_num_threads(1)
@@ -123,33 +124,30 @@ def test_predict_matches_jax(models):
 @pytest.mark.parametrize('entry,plain', [
     ('predict', False), ('predict', True), ('aug_call', False),
     ('aug_call', True)])
-def test_use_plain_kernels_reaches_the_decode_nms(models, monkeypatch,
-                                                  entry, plain):
-    """use_plain_kernels is the one switch for every kernel: the decode's
-    greedy NMS, under make_predict_fn and Detector.aug_call, runs inside
-    ops/nms.py::plain_nms(model.plain), so on the card K9 gives way to
-    its loop with the model's other kernels."""
+def test_plain_kernels_reach_the_decode_nms(models, monkeypatch, entry,
+                                            plain):
+    """plain_kernels() is the one switch for every kernel: the decode's
+    greedy NMS, under make_predict_fn and Detector.aug_call inside the
+    block, finds the rule saying plain (on the card K9 gives way to its
+    loop with the model's other kernels), and kernel after it."""
     from kgdet_tpu_torch.ops import nms
     cfg, _, _, port = models
     seen, greedy = [], nms.greedy_nms
+    card = torch.empty(0, device='meta')
 
     def recording(*a, **kw):
-        seen.append(nms._PLAIN.get())
+        seen.append(runs_kernel(card))
         return greedy(*a, **kw)
     monkeypatch.setattr(nms, 'greedy_nms', recording)
-    port.use_plain_kernels(plain)
-    try:
+    with plain_kernels(plain):
         if entry == 'predict':
             make_predict_fn(port, cfg, CANVAS)(_batch())
         else:
             img = np.random.RandomState(3).randint(0, 256, (40, 60, 3))
             Detector(cfg, port).aug_call(img.astype(np.uint8), flip=False,
                                          score_thr=0.0)
-    finally:
-        port.use_plain_kernels(False)
-    assert port.plain is False
-    assert seen == [plain]
-    assert nms._PLAIN.get() is False
+    assert seen == [not plain]
+    assert runs_kernel(card)
 
 
 def test_state_dict_round_trip(models):
@@ -473,8 +471,9 @@ def test_resnet_per_block_route_runs_on_the_kept_weights(monkeypatch):
     kept = net.prefix_weights(torch.float32)[1][1]
     assert len(seen) == 6 and all(b is kept[i % 3] for i, b in
                                   enumerate(seen))
-    net.plain_prefix = True
-    assert torch.equal(first, second) and torch.equal(first, net(x)[0])
+    with plain_kernels():
+        plain = net(x)[0]
+    assert torch.equal(first, second) and torch.equal(first, plain)
 
 
 @pytest.mark.parametrize('extra_convs', [True, False])

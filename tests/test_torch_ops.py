@@ -24,8 +24,10 @@ from kgdet_tpu.ops.pallas_deform import _prep_indices_bwd_vw
 from kgdet_tpu_torch.core import iou_assign as tiou
 from kgdet_tpu_torch.core import loss as tloss
 from kgdet_tpu_torch.core import targets as ttargets
-from kgdet_tpu_torch.ops import deform, image, losses, nms, points
+from kgdet_tpu_torch.ops import deform, image, losses, nms, plain_kernels, \
+    points
 from kgdet_tpu_torch.ops import deform_kernels as dk
+from kgdet_tpu_torch.ops import resblock as rb
 from kgdet_tpu_torch.ops import stem_kernels as sk
 
 torch.set_num_threads(1)
@@ -228,44 +230,173 @@ def test_greedy_nms_broadcast_boxes_equal_expanded(lead):
         assert torch.equal(s, e)
 
 
-class _LoadedK9(Exception):
+class _LoadedLibrary(Exception):
     pass
 
 
 @pytest.mark.parametrize('device,route,loads', [
     ('cpu', 'nms', False), ('cpu', 'soft_nms', False), ('cpu', 'plain', False),
     ('meta', 'soft_nms', False), ('meta', 'plain', False),
-    ('meta', 'nms', True), ('meta', 'plain_nms', False),
-    ('meta', 'plain_nms_off', True)])
+    ('meta', 'nms', True), ('meta', 'plain_kernels', False),
+    ('meta', 'plain_kernels_off', True)])
 def test_hard_nms_off_the_cpu_routes_to_k9(monkeypatch, device, route,
                                            loads):
     """Only hard NMS on a tensor off the CPU (here a meta tensor standing in
-    for a CUDA one) loads K9's library; CPU tensors, soft_nms,
-    greedy_nms(plain=True) and hard NMS inside plain_nms() run the loop,
-    and plain_nms(False) leaves hard NMS on K9."""
+    for a CUDA one) loads K9's library; CPU tensors, soft_nms, greedy_nms
+    and hard NMS inside plain_kernels() run the loop, and
+    plain_kernels(False) inside a block leaves hard NMS on K9."""
     loaded = []
 
     def load(name):
         loaded.append(name)
-        raise _LoadedK9(name)
+        raise _LoadedLibrary(name)
     monkeypatch.setattr(nms._build, 'load', load)
     boxes, scores, kpts = (_t(a).to(device) for a in _nms_case(24))
 
     def run():
         if route == 'plain':
-            return nms.greedy_nms(boxes[None], scores.T, 0.4, 6, plain=True)
-        with nms.plain_nms(route == 'plain_nms'):
+            with plain_kernels():
+                return nms.greedy_nms(boxes[None], scores.T, 0.4, 6)
+        with plain_kernels(route.startswith('plain_kernels')), \
+                plain_kernels(route == 'plain_kernels'):
             return nms.multiclass_nms_kp(
                 boxes, scores, kpts, score_thr=0.2, iou_thr=0.4,
                 max_per_class=6, max_per_img=12,
                 nms_type='soft_nms' if route == 'soft_nms' else 'nms')
     if loads:
-        with pytest.raises(_LoadedK9):
+        with pytest.raises(_LoadedLibrary):
             run()
         assert loaded == ['greedy_nms']
     else:
         run()
         assert loaded == []
+
+
+def _meta(*shape, grad=False):
+    return torch.empty(shape, device='meta', requires_grad=grad)
+
+
+def _rule_cases():
+    """Per kernel entry: (call(grad) -> (outputs, leaves), the library its
+    kernel loads, the plain versions it runs as (module, name)). With
+    ``grad`` the call takes leaves that want a gradient."""
+    B, H, W, C, P, F = 1, 4, 5, 8, 6, 4
+    taps = (1, 2)
+    K = sum(taps)
+
+    def deform(fn, *shapes):
+        def call(grad):
+            leaves = [_meta(*s, grad=grad) for s in shapes]
+            return fn(*leaves), leaves
+        return call
+
+    def plain(call):
+        return lambda grad: (call(), [])
+
+    # a frozen bottleneck 64 -> 64 -> 256 with a downsample
+    blk = dict(w1=_meta(64, 64), b1=_meta(64), w2=_meta(3, 3, 64, 64),
+               b2=_meta(64), w3=_meta(64, 256), b3=_meta(256),
+               wd=_meta(64, 256), bd=_meta(256))
+    args = [blk[k] for k in rb.BLOCK_KEYS]
+    x64 = _meta(B, H, W, 64)
+    stem = (_meta(7, 7, 3, 64), _meta(64))
+    img = _meta(B, 16, 20, 3)
+    feat, pos = (B, H, W, C), (B, P, K, 2)
+    dual_w = [(t, C, F) for t in taps] * 2
+
+    def dual(cls_feat, pts_feat, pos_yx, *ws):
+        return dk.deform_columns_dual(cls_feat, pts_feat, pos_yx,
+                                      ws[:len(taps)], ws[len(taps):], taps)
+    cols, bwd = (dk, 'deform_sample_cols_ref'), (dk, 'deform_sample_bwd_ref')
+    return {
+        'K1': (plain(lambda: dk.deform_conv_fused(
+            _meta(*feat), _meta(*pos), _meta(K, C, F))), 'deform_fused',
+            [(dk, 'deform_conv_fused_ref')]),
+        'K2': (plain(lambda: dk.deform_sample_split(
+            _meta(*feat), _meta(*feat), _meta(*pos), taps)), 'deform_split',
+            [(dk, 'deform_sample_split_ref')]),
+        'K3': (plain(lambda: dk.deform_sample_bwd(
+            _meta(*feat), _meta(*pos), _meta(B, P, K, C))), 'deform_bwd',
+            [bwd]),
+        'K4': (plain(lambda: sk.stem_pool(img, *stem)), 'stem_layer1',
+               [(sk, 'stem_pool_ref')]),
+        'K4 prepared': (plain(lambda: sk.stem_pool_prepared(
+            img, sk.prepare_stem(*stem, torch.float32))), 'stem_layer1',
+            [(sk, 'stem_pool_ref')]),
+        'K5': (plain(lambda: sk.frozen_bottleneck(x64, *args)),
+               'stem_layer1', [(sk, 'frozen_bottleneck_ref')]),
+        'K5 prepared': (plain(lambda: sk.frozen_bottleneck_prepared(
+            x64, sk.prepare_block(blk, torch.float32))), 'stem_layer1',
+            [(sk, 'frozen_bottleneck_ref')]),
+        'K6': (plain(lambda: dk.deform_sample_cols(_meta(*feat),
+                                                   _meta(*pos))),
+               'deform_sample', [cols]),
+        'K8': (plain(lambda: rb.fused_bottleneck(x64, *args)), 'resblock',
+               [(rb, 'bottleneck_reference')]),
+        'K8 prepared': (plain(lambda: rb.fused_bottleneck_prepared(
+            x64, rb.prepare_resblock(blk, torch.float32))), 'resblock',
+            [(rb, 'bottleneck_reference')]),
+        'K9': (plain(lambda: nms.greedy_nms(_meta(2, 7, 4), _meta(2, 7), 0.5,
+                                            3)), 'greedy_nms',
+               [(nms, '_greedy')]),
+        'K6+K3 hybrid': (deform(dk.deform_sample_hybrid, feat, pos),
+                         'deform_sample', [cols, bwd]),
+        'K6+K3 fused conv': (deform(dk.deform_conv_fused, feat, pos,
+                                    (K, C, F)), 'deform_sample', [cols, bwd]),
+        'K2+K3 dual': (deform(dual, feat, feat, pos, *dual_w), 'deform_split',
+                       [(dk, 'deform_sample_split_ref'), bwd]),
+    }
+
+
+def _shaped_like_plain(name, args):
+    """What the plain version ``name`` returns, as meta tensors."""
+    if name == 'deform_sample_split_ref':
+        cls_feat, _, pos_yx, taps = args
+        B, P, C = pos_yx.shape[0], pos_yx.shape[1], cls_feat.shape[-1]
+        return [(_meta(B, P, t, C), _meta(B, P, t, C)) for t in taps]
+    if name == 'deform_sample_bwd_ref':
+        return torch.zeros_like(args[0]), torch.zeros_like(args[1])
+    if name == 'deform_sample_cols_ref':
+        feat, pos_yx = args
+        return _meta(*pos_yx.shape[:3], feat.shape[-1])
+    return None
+
+
+@pytest.mark.parametrize('entry', list(_rule_cases()))
+def test_plain_kernels_is_the_one_rule_of_every_kernel_entry(monkeypatch,
+                                                             entry):
+    """ops.runs_kernel decides for every kernel entry (a meta tensor stands
+    in for a CUDA one): outside plain_kernels() the entry asks for its
+    kernel's library; inside it loads nothing and calls its plain version.
+    An autograd Function's forward taken inside the block and its backward
+    taken after the block has closed load nothing either: the Function
+    keeps the forward's decision."""
+    call, library, plains = _rule_cases()[entry]
+    loaded, ran = [], []
+
+    def load(name):
+        loaded.append(name)
+        raise _LoadedLibrary(name)
+    monkeypatch.setattr(dk._build, 'load', load)
+    monkeypatch.setattr(dk._build, 'require_cuda', lambda *ts: None)
+    for module, name in plains:
+        def spy(*a, name=name, **k):
+            ran.append(name)
+            return _shaped_like_plain(name, a)
+        monkeypatch.setattr(module, name, spy)
+    grad = '+' in entry
+    with pytest.raises(_LoadedLibrary):
+        call(grad)
+    assert loaded == [library] and ran == []
+    loaded.clear()
+    with plain_kernels():
+        outs, leaves = call(grad)
+    if grad:
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        torch.autograd.grad(outs, leaves, [torch.empty_like(o)
+                                           for o in outs])
+    assert loaded == []
+    assert ran == [name for _, name in plains]
 
 
 def test_cascade_decode_counts_one_k9_call():
@@ -579,7 +710,8 @@ def test_fused_conv_function_matches_jax_vjp():
     assert fused.grad_fn is None
     np.testing.assert_allclose(fused.numpy(), got.detach().numpy(),
                                atol=1e-5)
-    plain = dk.deform_conv_fused(*leaves, plain=True)
+    with plain_kernels():
+        plain = dk.deform_conv_fused(*leaves)
     np.testing.assert_array_equal(plain.detach().numpy(),
                                   got.detach().numpy())
 

@@ -323,10 +323,24 @@ def test_entry_points_take_the_family(head_type):
     assert not torch.equal(params[free].detach(), before[free])
 
 
-def test_use_plain_kernels_reaches_the_serial_head():
-    model = build_model(family_cfg('ParallelKpHead'), device='cpu')
-    assert model.bbox_head.plain is False
-    model.use_plain_kernels(True)
-    assert model.bbox_head.plain is True and model.backbone.plain_prefix
-    model.use_plain_kernels(False)
-    assert model.bbox_head.plain is False
+def test_plain_kernels_reach_the_serial_head(monkeypatch):
+    """Every deformable conv of the serial head (K1 under autograd: K6
+    forward, K3 backward) finds the rule saying plain inside
+    plain_kernels(), and kernel outside it."""
+    import kgdet_tpu_torch.models.serial_head as serial_head
+    from kgdet_tpu_torch.ops import plain_kernels, runs_kernel
+    head = build_model(family_cfg('ParallelKpHead'),
+                       device='cpu').bbox_head
+    seen, fused = [], serial_head.deform_conv_fused
+    card = torch.empty(0, device='meta')
+
+    def recording(*a):
+        seen.append(runs_kernel(card))
+        return fused(*a)
+    monkeypatch.setattr(serial_head, 'deform_conv_fused', recording)
+    x = torch.zeros(1, 64, 2, 3)
+    with torch.no_grad():
+        for plain in (True, False):
+            with plain_kernels(plain):
+                head.run_level(x)
+    assert seen == [False, False, True, True]
