@@ -45,7 +45,13 @@ against its loop (inside plain_kernels()), kept indices and scores bit for
 bit, at K9_SHAPES (the benchmark's served cascade batch of 8 x 13 rows of
 1,000 candidates over 100 steps, batch 1, the RPN's 2 rows of 4,800 over
 1,000 steps, one row of 16,384 on the global copy), one kernel a call,
-with its wrapper, device and loop ms and its bound. After the
+with its wrapper, device and loop ms and its bound. K10 bn_epilogue
+against its plain version (the PyTorch chain it replaces) bit for bit in
+bf16 and f32 at K10_SHAPES (every epilogue of the served R-50 at the
+benchmark's batch of 8, 800x1344: the shift and ReLU, the identity, the
+identity with the downsample's shift), one kernel a call, each shape's
+wrapper, device and plain ms and bound, and their sum over a forward's 39
+launches. After the
 build, ptxas's registers and spills a kernel and, by cuobjdump, the bf16
 tensor-core instructions and local-memory accesses in the SASS of the
 bottleneck bodies of K5 and K8 (fails if a tensor-core instance has none).
@@ -268,10 +274,13 @@ Every launch check above counts K9 too: once a served batch (the decode's
 NMS), twice a two-stage forward (the proposals', the detections'; once
 for RPN and Fast R-CNN), once a two-stage train step (the proposals), once
 an image under TTA (one NMS over the merged variants), never in a
-single-stage train step, and never inside plain_kernels().
+single-stage train step, and never inside plain_kernels(). And K10: 39 a
+served forward of every R-50 trunk (26 with DCN in c3-c5, 99 on
+ResNeXt-101, 220 on HRNet-W32, 39 on C4 with res5), per batch and per TTA
+variant, never in a train step, a BN calibration or plain_kernels().
 
 Prints the card's name and power limit, one line per check, a JSON line of
-the eight kernels (launches on each main path, the evaluation CLI's
+the nine kernels (launches on each main path, the evaluation CLI's
 and phases 12 to 16 included, error, wrapper and device times, bound), and as
 its last line {"ok": true, "device": {...}}. Exits
 nonzero, with no result line, when a check fails or no CUDA device is
@@ -344,6 +353,30 @@ K9_SHAPES = {'served': (8, 13, 1000, 100, 0.5),
              'batch1': (1, 13, 1000, 100, 0.5),
              'rpn': (2, 0, 4800, 1000, 0.7),
              'global': (1, 1, 16384, 100, 0.5)}
+# K10's shapes in phase 1: every epilogue of a served R-50 forward at the
+# benchmark's batch of 8 on the 800x1344 canvas, by case: channels, map,
+# what it adds (shift alone with the ReLU; the identity; the identity with
+# the downsample's shift) and its calls a forward. A layer's block 0 runs
+# conv1 at the layer's input map, its conv3 with the downsample; conv1 of
+# the other blocks and every conv2 at the output map, 13 x 3 = 39 calls
+K10_BATCH = 8
+K10_SHAPES = {
+    f'layer{i}_{case}': (c, hw, mode, n)
+    for i, planes, blocks, hw_in, hw_out in (
+        (2, 128, 4, (200, 336), (100, 168)),
+        (3, 256, 6, (100, 168), (50, 84)),
+        (4, 512, 3, (50, 84), (25, 42)))
+    for case, c, hw, mode, n in (
+        ('0_conv1', planes, hw_in, 'shift', 1),
+        ('conv1_conv2', planes, hw_out, 'shift', 2 * blocks - 1),
+        ('0_conv3', 4 * planes, hw_out, 'identity_shift', 1),
+        ('conv3', 4 * planes, hw_out, 'identity', blocks - 1))}
+# the epilogues of a served forward, each block's conv1, conv2 and conv3:
+# R-50 (and every trunk built on it) 13 blocks in layers 2 to 4 behind the
+# frozen prefix; with DCN in c3-c5 conv2's BN stays a BN; ResNeXt-101 33
+# blocks and HRNet-W32 every block (no prefix); C4 layers 2 and 3 in the
+# backbone and res5 over the RoI features
+R50_EPILOGUES = 39
 
 
 def fail(msg):
@@ -987,8 +1020,10 @@ def phase_kernels(torch, gen):
         k9[label] = entry(m, *bound(n_bytes, ops, 'f32'))
     results['greedy_nms'] = k9.pop('served')
     results['greedy_nms'].update(k9)
+    results['bn_epilogue'] = k10_served(torch, one_launch)
     for name, r in results.items():
-        b = K9_SHAPES['served'][0] if name == 'greedy_nms' else B
+        b = {'greedy_nms': K9_SHAPES['served'][0],
+             'bn_epilogue': K10_BATCH}.get(name, B)
         print(f'bound {name}: {r["bound_ms"]:.4f} ms by {r["bound_by"]} '
               f'(wrapper calls {r["ms"]:.4f} ms, kernel on the device '
               f'{r["device_ms"]:.4f} ms, per forward or step of batch {b})',
@@ -996,7 +1031,8 @@ def phase_kernels(torch, gen):
         for case in ('near', 'b8_42x25', 'serial', 'serial_near',
                      'width128', 'dcn_layer2_0', 'dcn_layer4_0', 'dcn_ga_p3',
                      'dcn_x101_layer2_0', 'dcn_x101_layer4_0', 'roi_p2',
-                     'roi_c4', 'mask_p2', 'mask_targets', *K9_SHAPES):
+                     'roi_c4', 'mask_p2', 'mask_targets', *K9_SHAPES,
+                     *K10_SHAPES):
             if case in r:
                 q = r[case]
                 lib = '' if q.get('library_ms') is None \
@@ -1006,6 +1042,73 @@ def phase_kernels(torch, gen):
                       f'kernel on the device {q["device_ms"]:.4f} ms{lib})',
                       flush=True)
     return results
+
+
+def k10_served(torch, one_launch):
+    """K10 against bn_epilogue_ref at K10_SHAPES: bit for bit in bf16 and
+    f32 (the same roundings, NaN and signed zeros as the chain's), in place;
+    one kernel a call; in bf16, as served, the wrapper's, the device's and
+    the plain chain's ms and the bound by bytes of each shape, and their sum
+    over a forward's calls. Returns the forward's entry with each shape's
+    under its case."""
+    from kgdet_tpu_torch.ops import bn_epilogue as be
+
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 40)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device='cuda').to(dtype)
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16
+                      else torch.int32)
+
+    cases, per_forward = {}, []
+    for label, (C, (h, w), mode, calls) in K10_SHAPES.items():
+        shift = 0.1 * randn(C)
+        id_shift = 0.1 * randn(C) if mode == 'identity_shift' else None
+        for dtype in (torch.float32, torch.bfloat16):
+            y = randn(K10_BATCH, C, h, w, dtype=dtype).to(
+                memory_format=torch.channels_last)
+            identity = None if mode == 'shift' else randn(
+                K10_BATCH, C, h, w, dtype=dtype).to(
+                memory_format=torch.channels_last)
+            args = (shift, identity, id_shift)
+            want = be.bn_epilogue_ref(y.clone(), *args)
+            got = y.clone()
+            if be.bn_epilogue(got, *args) is not got or \
+                    not torch.equal(bits(got), bits(want)):
+                fail(f'K10 bn_epilogue {label} ({mode}, {dtype}): not in '
+                     f'place or not the plain chain\'s bits')
+        # bf16, as served: timed in place on y (the shift adds up from
+        # call to call; the time does not depend on the values)
+        m = {'max_abs_err': 0.0,
+             'ms': median_ms(lambda: be.bn_epilogue(y, *args)),
+             'plain_ms': median_ms(lambda: be.bn_epilogue_ref(y, *args))}
+        m['device_ms'], m['device_kernels'], m['own_kernels'] = \
+            device_profile(lambda: be.bn_epilogue(y, *args))
+        name = f'K10 bn_epilogue {label} ({K10_BATCH}x{C}x{h}x{w} bf16, ' \
+            f'{mode}, {calls} a forward)'
+        one_launch(name, m)
+        _, n_bytes = be._cost(y, *args)
+        cases[label] = entry(m, *bound(n_bytes, 0, 'bf16'))
+        per_forward += [cases[label]] * calls
+        print(f'{name}: the plain chain\'s bits in bf16 and f32 | median '
+              f'ms: kernel {m["ms"]:.4f} (on the device '
+              f'{m["device_ms"]:.4f}, {m["device_kernels"]:g} device '
+              f'activities a call), plain {m["plain_ms"]:.4f}, bound '
+              f'{cases[label]["bound_ms"]:.4f}', flush=True)
+        del y, identity, want, got
+    if len(per_forward) != R50_EPILOGUES:
+        fail(f'K10_SHAPES hold {len(per_forward)} calls a forward')
+    result = merge(per_forward)
+    print(f'K10 bn_epilogue, a served R-50 forward at batch {K10_BATCH} '
+          f'({R50_EPILOGUES} calls): on the device '
+          f'{result["device_ms"]:.4f} ms, bound {result["bound_ms"]:.4f} ms '
+          f'({result["bound_ms"] / result["device_ms"]:.1%} of it), wrapper '
+          f'calls {result["ms"]:.4f} ms, plain chain {result["plain_ms"]:.4f} '
+          f'ms', flush=True)
+    result.update(cases)
+    return result
 
 
 def make_requests(n, seed):
@@ -1026,6 +1129,7 @@ def wrappers():
     from kgdet_tpu_torch.ops.deform_kernels import (
         deform_conv_fused, deform_sample_bwd, deform_sample_cols,
         deform_sample_split)
+    from kgdet_tpu_torch.ops.bn_epilogue import bn_epilogue
     from kgdet_tpu_torch.ops.nms import greedy_nms
     from kgdet_tpu_torch.ops.resblock import fused_bottleneck
     from kgdet_tpu_torch.ops.stem_kernels import frozen_bottleneck, stem_pool
@@ -1034,7 +1138,8 @@ def wrappers():
             'deform_sample_bwd': deform_sample_bwd, 'stem_pool': stem_pool,
             'frozen_bottleneck': frozen_bottleneck,
             'deform_sample_cols': deform_sample_cols,
-            'fused_bottleneck': fused_bottleneck, 'greedy_nms': greedy_nms}
+            'fused_bottleneck': fused_bottleneck, 'greedy_nms': greedy_nms,
+            'bn_epilogue': bn_epilogue}
 
 
 def launch_counts(**per_kernel):
@@ -1707,7 +1812,7 @@ def phase_per_block_backbone(torch, model, req, gpu):
         reset_launches()
         k16 = c2(torch.bfloat16, True, False)
         got = read_launches()
-        want = launch_counts(fused_bottleneck=3)
+        want = launch_counts(fused_bottleneck=3, bn_epilogue=R50_EPILOGUES)
         if got != want:
             fail(f'per-block backbone: launch counts {got} != {want}')
         ref = c2(torch.float32, True, True)
@@ -3156,7 +3261,8 @@ def phase_retina(torch, gpu):
     prefix = launch_counts(stem_pool=1, frozen_bottleneck=3)
     config = retina_config()
     model, cfg, req, served = phase_serving(
-        torch, gpu, config, {**prefix, 'greedy_nms': 1})
+        torch, gpu, config,
+        {**prefix, 'greedy_nms': 1, 'bn_epilogue': R50_EPILOGUES})
     phase_profile(torch, model, cfg, req, gpu)
     del model
     torch.cuda.empty_cache()
@@ -3512,9 +3618,9 @@ def phase_dcn(torch, gpu):
     n_dcn = sum((4, 6, 3)[s - 1] for s in DCN_STAGES)
     config = dcn_config()
     model, cfg, req, served = phase_serving(
-        torch, gpu, config, launch_counts(deform_fused=12,
-                                          deform_sample_cols=n_dcn,
-                                          greedy_nms=1, **prefix),
+        torch, gpu, config, launch_counts(
+            deform_fused=12, deform_sample_cols=n_dcn, greedy_nms=1,
+            bn_epilogue=R50_EPILOGUES - n_dcn, **prefix),
         compare=False,
         prepare=lambda m, r: calibrate_offsets(torch, m, r))
     hold_dcn_against_plain(torch, model, req)
@@ -3664,7 +3770,9 @@ def phase_ga(torch, gpu):
     n_fa = 2 * len(config[1].head.point_strides)
     model, cfg, req, served = phase_serving(
         torch, gpu, config, launch_counts(deform_sample_cols=n_fa,
-                                          greedy_nms=1, **prefix))
+                                          greedy_nms=1,
+                                          bn_epilogue=R50_EPILOGUES,
+                                          **prefix))
     phase_profile(torch, model, cfg, req, gpu)
     del model
     torch.cuda.empty_cache()
@@ -3699,7 +3807,8 @@ def phase_fcos(torch, gpu):
     prefix = launch_counts(stem_pool=1, frozen_bottleneck=3)
     config = fcos_config()
     model, cfg, req, served = phase_serving(
-        torch, gpu, config, {**prefix, 'greedy_nms': 1})
+        torch, gpu, config,
+        {**prefix, 'greedy_nms': 1, 'bn_epilogue': R50_EPILOGUES})
     phase_profile(torch, model, cfg, req, gpu)
     del model
     torch.cuda.empty_cache()
@@ -3892,16 +4001,18 @@ def two_stage_path(name):
 FASTER_CONFIG = two_stage_path('faster_rcnn_r50_fpn')
 # by the name of their launch path: the config file, whether the frozen
 # K4 + K5 prefix runs (R-50, not ResNeXt or HRNet), K6 launches a forward
-# (one a FPN level a RoI stage: Faster 5, the cascade 3 x 5, C4 1)
+# (one a FPN level a RoI stage: Faster 5, the cascade 3 x 5, C4 1), K10
+# launches a forward (R50_EPILOGUES; ResNeXt-101's 33 blocks x 3; HRNet's
+# 112 after a conv and 108 with an identity)
 TWO_STAGE = {
-    'faster_rcnn': ('faster_rcnn_r50_fpn', True, 5),
-    'rpn': ('rpn_r50_fpn', True, 0),
-    'fast_rcnn': ('fast_rcnn_r50_fpn', True, 5),
-    'cascade': ('cascade_rcnn_r50_fpn', True, 15),
-    'c4': ('faster_rcnn_r50_caffe_c4', True, 1),
-    'libra': ('libra_faster_rcnn_r50_fpn', True, 5),
-    'x101': ('faster_rcnn_x101_32x4d_fpn', False, 5),
-    'hrnet': ('faster_rcnn_hrnetv2p_w32', False, 5),
+    'faster_rcnn': ('faster_rcnn_r50_fpn', True, 5, R50_EPILOGUES),
+    'rpn': ('rpn_r50_fpn', True, 0, R50_EPILOGUES),
+    'fast_rcnn': ('fast_rcnn_r50_fpn', True, 5, R50_EPILOGUES),
+    'cascade': ('cascade_rcnn_r50_fpn', True, 15, R50_EPILOGUES),
+    'c4': ('faster_rcnn_r50_caffe_c4', True, 1, R50_EPILOGUES),
+    'libra': ('libra_faster_rcnn_r50_fpn', True, 5, R50_EPILOGUES),
+    'x101': ('faster_rcnn_x101_32x4d_fpn', False, 5, 99),
+    'hrnet': ('faster_rcnn_hrnetv2p_w32', False, 5, 220),
 }
 TWO_STAGE_GRAD_GROUPS = ('backbone.layer2.', 'backbone.layer3.',
                          'backbone.layer4.', 'neck.', 'rpn_head.',
@@ -3919,13 +4030,15 @@ def two_stage_launches(name, step):
     path ``name``: K4 1 / K5 3 where the frozen prefix runs, K6 a RoI
     gather and, in a step, K3 as many; K9 for the RPN's proposals (not
     Fast R-CNN's, which come with the batch) and, in a forward, for the
-    detections (not the RPN's, which are its ranked proposals)."""
-    _, prefix, k6 = TWO_STAGE[name]
+    detections (not the RPN's, which are its ranked proposals); K10 in a
+    forward alone."""
+    _, prefix, k6, k10 = TWO_STAGE[name]
     per = dict(stem_pool=1, frozen_bottleneck=3) if prefix else {}
     k9 = (name != 'fast_rcnn') + (not step and name != 'rpn')
     return launch_counts(deform_sample_cols=k6,
                          deform_sample_bwd=k6 if step else 0,
-                         greedy_nms=k9, **per)
+                         greedy_nms=k9, bn_epilogue=0 if step else k10,
+                         **per)
 
 
 def jittered_proposals(rng, boxes, hw, n=ROI_COUNT):
@@ -4478,12 +4591,13 @@ def mask_config(name):
 
 def mask_launches(name, step):
     """K4 1 / K5 3, the path's K6 and K3; K9 for the proposals and, in a
-    forward, for the detections."""
+    forward, for the detections; K10 in a forward alone."""
     _, _, fwd, k6, k3 = MASK_PATHS[name]
     return launch_counts(stem_pool=1, frozen_bottleneck=3,
                          deform_sample_cols=k6 if step else fwd,
                          deform_sample_bwd=k3 if step else 0,
-                         greedy_nms=1 if step else 2)
+                         greedy_nms=1 if step else 2,
+                         bn_epilogue=0 if step else R50_EPILOGUES)
 
 
 def mask_train_batches(cfg, n):
@@ -4850,7 +4964,7 @@ def phase_calibration(torch, gpu):
     torch.cuda.synchronize()
     got = read_launches()
     want = launch_counts(deform_fused=12, stem_pool=1, frozen_bottleneck=3,
-                         greedy_nms=1)
+                         greedy_nms=1, bn_epilogue=R50_EPILOGUES)
     if got != want:
         fail(f'calibrated serving: launches {got} != {want}')
     if backbone._kept[0] == kept_before:
@@ -4907,7 +5021,8 @@ def phase_robustness(torch, gpu, root):
     secs = time.perf_counter() - t0
     got = read_launches()
     want = launch_counts(deform_fused=12 * batches, stem_pool=batches,
-                         frozen_bottleneck=3 * batches, greedy_nms=batches)
+                         frozen_bottleneck=3 * batches, greedy_nms=batches,
+                         bn_epilogue=R50_EPILOGUES * batches)
     if got != want or batches < 5:
         fail(f'robustness CLI: launches {got} != {want} for {batches} '
              'forwards')
@@ -4926,7 +5041,8 @@ def phase_robustness(torch, gpu, root):
 
 PROFILE_NAMES = {
     'infer': {'K1': 'deform_fused', 'K4': 'stem_pool',
-              'K5': 'bottleneck', 'K9': 'greedy_nms'},
+              'K5': 'bottleneck', 'K9': 'greedy_nms',
+              'K10': 'bn_epilogue'},
     'train': {'K2': 'deform_split', 'K3': 'deform_bwd', 'K4': 'stem_pool',
               'K5': 'bottleneck'},
 }
@@ -4942,7 +5058,8 @@ def phase_profile_cli(torch, gpu, root):
     steps, launches = 2, {}
     per_run = {
         'infer': launch_counts(deform_fused=12, stem_pool=1,
-                               frozen_bottleneck=3, greedy_nms=1),
+                               frozen_bottleneck=3, greedy_nms=1,
+                               bn_epilogue=R50_EPILOGUES),
         'train': launch_counts(deform_sample_split=2, deform_sample_bwd=2,
                                stem_pool=1, frozen_bottleneck=3)}
     for mode in ('infer', 'train'):
@@ -4984,7 +5101,7 @@ def phase_flops(torch, gpu):
     out = get_flops.main([CONFIG])
     got = read_launches()
     if got != launch_counts(deform_fused=12, stem_pool=1,
-                            frozen_bottleneck=3):
+                            frozen_bottleneck=3, bn_epilogue=R50_EPILOGUES):
         fail(f'get_flops: launches {got}')
     cfg = load_config(CONFIG)
     _, H, W, _ = out['shape']
@@ -5019,7 +5136,8 @@ def phase_visualize(torch, gpu, root):
                                '--score-thr', '0.0'])
     got = read_launches()
     if got != launch_counts(deform_fused=12, stem_pool=1,
-                            frozen_bottleneck=3, greedy_nms=1):
+                            frozen_bottleneck=3, greedy_nms=1,
+                            bn_epilogue=R50_EPILOGUES):
         fail(f'visualize: launches {got}')
     if not os.path.exists(out_png) or \
             not np.array_equal(imread(out_png), drawn):
@@ -5146,7 +5264,7 @@ def main(argv=None):
     if '9' in phases:
         launches['eval'] = phase_eval(
             torch, gpu, launch_counts(deform_fused=12, greedy_nms=1,
-                                      **prefix))
+                                      bn_epilogue=R50_EPILOGUES, **prefix))
 
     # the training loop: tools/train.py, resume, --validate, --checkpoint
     if '10' in phases:
@@ -5154,7 +5272,8 @@ def main(argv=None):
             phase_train_loop(
                 torch, gpu, launch_counts(deform_sample_split=2,
                                           deform_sample_bwd=2, **prefix),
-                launch_counts(deform_fused=12, greedy_nms=1, **prefix))
+                launch_counts(deform_fused=12, greedy_nms=1,
+                              bn_epilogue=R50_EPILOGUES, **prefix))
 
     # data parallel: two ranks on the card, one over NCCL, the learning
     # proof
@@ -5163,7 +5282,8 @@ def main(argv=None):
             launches['learning_proof'] = phase_data_parallel(
                 torch, gpu, launch_counts(deform_sample_split=2,
                                           deform_sample_bwd=2, **prefix),
-                launch_counts(deform_fused=12, greedy_nms=1, **prefix))
+                launch_counts(deform_fused=12, greedy_nms=1,
+                              bn_epilogue=R50_EPILOGUES, **prefix))
 
     # RetinaNet, SSD300, the DCN backbone, tools/benchmark.py
     if '12' in phases:
@@ -5198,6 +5318,7 @@ def cascade_phases(torch, gpu, launches):
     prefix = dict(stem_pool=1, frozen_bottleneck=3)
     model, cfg, req, launches['serving'] = phase_serving(
         torch, gpu, CONFIG, launch_counts(deform_fused=12, greedy_nms=1,
+                                          bn_epilogue=R50_EPILOGUES,
                                           **prefix))
     phase_profile(torch, model, cfg, req, gpu)
     phase_profile(torch, model, cfg, req, gpu, plain=True)
@@ -5215,7 +5336,8 @@ def serial_phases(torch, gpu, launches):
     5-level FPN, served and trained, and the per-block backbone."""
     prefix = dict(stem_pool=1, frozen_bottleneck=3)
     serial_fwd = launch_counts(deform_fused=2 * len(SERIAL_LEVELS),
-                               greedy_nms=1, **prefix)
+                               greedy_nms=1, bn_epilogue=R50_EPILOGUES,
+                               **prefix)
     model, cfg, req, launches['serial_serving'] = phase_serving(
         torch, gpu, SERIAL_CONFIG, serial_fwd)
     phase_profile(torch, model, cfg, req, gpu)
@@ -5255,6 +5377,8 @@ def print_result(torch, kernels, launches):
                              ref + 'pallas_resblock.py:103'),
         # the JAX package's greedy NMS is a lax.scan, no Pallas kernel
         'greedy_nms': (src + 'greedy_nms.cu', 'none'),
+        # XLA fuses the JAX package's BN, ReLU and sum into the conv
+        'bn_epilogue': (src + 'bn_epilogue.cu', 'none'),
     }
     rows = []
     for name, (source, replaces) in meta.items():

@@ -7,11 +7,14 @@ dtype at call time (bf16 compute, f32 master weights, as in the JAX
 reference). Activations are NCHW.
 
 ``conv_frozen_bn`` runs a conv and the FrozenBatchNorm that follows it (the
-ResNet blocks' pairs). In a forward that records no gradient, with no hook
-on the BN, it folds the BN into the conv on the BN's kept per-channel pair
-(``FrozenBatchNorm.scale_shift``). Its counter: ``conv_frozen_bn.folded``
-counts the convolutions run folded, ``conv_frozen_bn.built`` the pairs
-made (one a BN the first time, none again until its tensors change).
+ResNet blocks' pairs), with the ReLU and the residual sum after it where
+asked. In a forward that records no gradient, with no hook on the BN, it
+folds the BN into the conv on the BN's kept per-channel pair
+(``FrozenBatchNorm.scale_shift``), and K10 (``ops/bn_epilogue.py``) runs
+the shift, the sum and the ReLU as one pass. Its counter:
+``conv_frozen_bn.folded`` counts the convolutions run folded,
+``conv_frozen_bn.built`` the pairs made (one a BN the first time, none
+again until its tensors change); ``bn_epilogue.launches`` counts K10's.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from kgdet_tpu_torch.ops.bn_epilogue import bn_epilogue
 from kgdet_tpu_torch.ops.resblock import bn_scale_shift
 
 
@@ -76,18 +80,17 @@ def _conv(x, conv, stride=1, padding=0):
                     padding=padding, groups=conv.groups)
 
 
-def conv_frozen_bn(x, conv, bn, stride=1, padding=0):
-    """``bn(_conv(x, conv, stride, padding))`` for a bias-free conv and the
-    FrozenBatchNorm ``bn`` that follows it. In a forward that records no
-    gradient and with no forward hook or pre-hook on ``bn``, the BN is
-    folded in: the weight times bn's kept ``inv``, made in x's dtype and
-    memory format by one op (the cast the unfolded conv makes), the conv,
-    and ``shift`` added in place, summed in f32 and rounded once; no folded
-    weight is kept. Otherwise (training, where the BN's affine parameters
-    learn, and BN calibration, whose hooks read the BN's input) the conv
-    and then ``bn``."""
-    if torch.is_grad_enabled() or bn._forward_hooks or bn._forward_pre_hooks:
-        return bn(_conv(x, conv, stride, padding))
+def _folds(bn):
+    """Whether conv_frozen_bn folds ``bn``: a forward that records no
+    gradient, and no forward hook or pre-hook on ``bn``."""
+    return not (torch.is_grad_enabled() or bn._forward_hooks
+                or bn._forward_pre_hooks)
+
+
+def _folded_conv(x, conv, bn, stride=1, padding=0):
+    """The conv on its weight times bn's kept ``inv``, made in x's dtype and
+    memory format by one op (the cast the unfolded conv makes; no folded
+    weight is kept), and bn's ``shift``, not yet added."""
     inv, shift = bn.scale_shift()
     # in x's memory format, which the conv would otherwise copy it to
     w = torch.empty_like(conv.weight, dtype=x.dtype, memory_format=(
@@ -96,7 +99,40 @@ def conv_frozen_bn(x, conv, bn, stride=1, padding=0):
     torch.mul(conv.weight, inv[:, None, None, None], out=w)
     conv_frozen_bn.folded += 1
     return F.conv2d(x, w, stride=stride, padding=padding,
-                    groups=conv.groups).add_(shift[:, None, None])
+                    groups=conv.groups), shift
+
+
+def conv_frozen_bn(x, conv, bn, stride=1, padding=0, relu=False,
+                   identity=None):
+    """``bn(_conv(x, conv, stride, padding))`` for a bias-free conv and the
+    FrozenBatchNorm ``bn`` that follows it, then ``+ identity`` where given
+    and the ReLU where ``relu``: a ResNet block's conv, BN and ReLU, or its
+    last conv, BN, residual sum and ReLU. ``identity`` is a tensor, or the
+    downsample that makes it as the arguments ``(x, conv, bn, stride)`` of
+    its own conv_frozen_bn.
+
+    Where ``bn`` folds (``_folds``: no gradient recorded, no hook on it) the
+    BN is folded into the conv (``_folded_conv``) and K10
+    (``ops/bn_epilogue.py``) adds the shift, the identity and the ReLU in
+    one pass in place in the conv's output, each sum in f32 rounded once;
+    a downsample whose BN folds too is passed as its raw conv output and
+    its shift, added in the same pass. Otherwise (training, where the BN's
+    affine parameters learn, and BN calibration, whose hooks read the BN's
+    input) the conv, ``bn``, the sum and the ReLU, op for op."""
+    if not _folds(bn):
+        y = bn(_conv(x, conv, stride, padding))
+        if identity is not None:
+            y = y + (identity if torch.is_tensor(identity)
+                     else conv_frozen_bn(*identity))
+        return torch.relu(y) if relu else y
+    y, shift = _folded_conv(x, conv, bn, stride, padding)
+    identity_shift = None
+    if identity is not None and not torch.is_tensor(identity):
+        if _folds(identity[2]):
+            identity, identity_shift = _folded_conv(*identity)
+        else:
+            identity = conv_frozen_bn(*identity)
+    return bn_epilogue(y, shift, identity, identity_shift, relu)
 
 
 conv_frozen_bn.folded = 0

@@ -28,9 +28,13 @@ and K3 backward on the card, then one contraction, block-diagonal by group
 for ResNeXt; ``gcb_stages``, ``nonlocal_stages`` and
 ``gen_attention_stages`` insert the plugins of models/plugins.py where the
 JAX blocks do. A PyTorch block runs each conv and the FrozenBatchNorm after
-it through ``models/layers.py::conv_frozen_bn``: folded into one conv in a
-forward that records no gradient, the conv then the BN in training; the
-BN after a deformable 3x3 stays a BN.
+it, with the ReLU or the residual sum and ReLU that follow, through
+``models/layers.py::conv_frozen_bn``: in a forward that records no
+gradient the BN folded into the conv and the shift, sum and ReLU one K10
+pass; the conv, the BN, the sum and the ReLU in training. The BN after a
+deformable 3x3 stays a BN, and its ReLU a ReLU; with the context block
+between bn3 and the sum, conv3 takes the shift alone and the sum and ReLU
+stay PyTorch ops.
 """
 from __future__ import annotations
 
@@ -122,12 +126,12 @@ class BasicBlock(nn.Module):
             FrozenBatchNorm(planes)) if downsample else None
 
     def forward(self, x):
-        out = torch.relu(conv_frozen_bn(x, self.conv1, self.bn1,
-                                        self.stride, 1))
-        out = conv_frozen_bn(out, self.conv2, self.bn2, 1, 1)
-        identity = x if self.downsample is None else conv_frozen_bn(
+        out = conv_frozen_bn(x, self.conv1, self.bn1, self.stride, 1,
+                             relu=True)
+        identity = x if self.downsample is None else (
             x, *self.downsample, self.stride)
-        return torch.relu(out + identity)
+        return conv_frozen_bn(out, self.conv2, self.bn2, 1, 1, relu=True,
+                              identity=identity)
 
 
 class Bottleneck(nn.Module):
@@ -172,23 +176,29 @@ class Bottleneck(nn.Module):
                                     else out_ch))
 
     def forward(self, x):
-        out = torch.relu(conv_frozen_bn(x, self.conv1, self.bn1, self.c1s))
+        out = conv_frozen_bn(x, self.conv1, self.bn1, self.c1s, relu=True)
         if self.use_dcn:
             off = self.conv2_offset
-            out = self.bn2(self.conv2(out, F.conv2d(
+            out = torch.relu(self.bn2(self.conv2(out, F.conv2d(
                 out, off.weight.to(out.dtype), off.bias.to(out.dtype),
-                self.c2s, 1)))
+                self.c2s, 1))))
         else:
-            out = conv_frozen_bn(out, self.conv2, self.bn2, self.c2s, 1)
-        out = torch.relu(out)
+            out = conv_frozen_bn(out, self.conv2, self.bn2, self.c2s, 1,
+                                 relu=True)
         if self.plugin == 'gen_attention':
             out = self.gen_attention_block(out)
-        out = conv_frozen_bn(out, self.conv3, self.bn3)
-        if self.plugin == 'gcb':
-            out = self.context_block(out)
-        identity = x if self.downsample is None else conv_frozen_bn(
+        identity = x if self.downsample is None else (
             x, *self.downsample, self.stride)
-        out = torch.relu(out + identity)
+        if self.plugin == 'gcb':
+            # the context block comes between bn3 and the sum
+            out = self.context_block(conv_frozen_bn(out, self.conv3,
+                                                    self.bn3))
+            if self.downsample is not None:
+                identity = conv_frozen_bn(*identity)
+            out = torch.relu(out + identity)
+        else:
+            out = conv_frozen_bn(out, self.conv3, self.bn3, relu=True,
+                                 identity=identity)
         if self.plugin == 'nonlocal':
             out = self.nonlocal_block(out)
         return out

@@ -1,13 +1,13 @@
 """Tensor ops of the port: plain PyTorch functions and the kernel wrappers.
 
-Every kernel wrapper (K1 to K6, K8, K9 in ops/deform_kernels.py,
-ops/stem_kernels.py, ops/resblock.py and ops/nms.py) decides by one rule
-whether a call launches its CUDA kernel or runs its plain PyTorch version,
-the reference a kernel is checked against: ``runs_kernel(t)``. A call runs
-its kernel if and only if its tensor is off the CPU and no
-``plain_kernels()`` block is open. The comparison model is the same model
-run inside ``with plain_kernels(): ...``; no layer above ops/ knows the
-choice.
+Every kernel wrapper (K1 to K6, K8 to K10 in ops/deform_kernels.py,
+ops/stem_kernels.py, ops/resblock.py, ops/nms.py and ops/bn_epilogue.py)
+decides by one rule whether a call launches its CUDA kernel or runs its
+plain PyTorch version, the reference a kernel is checked against:
+``runs_kernel(t)``. A call runs its kernel if and only if its tensor is off
+the CPU and no ``plain_kernels()`` block is open. The comparison model is
+the same model run inside ``with plain_kernels(): ...``; no layer above
+ops/ knows the choice.
 
 An autograd Function decides at its forward and keeps the decision on
 ``ctx`` for its backward (ops/deform_kernels.py): autograd runs a CUDA

@@ -27,7 +27,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / 'csrc'
 BUILD = PKG / 'build'
 SOURCES = ('deform_fused', 'deform_split', 'deform_bwd', 'deform_sample',
-           'stem_layer1', 'resblock', 'greedy_nms')
+           'stem_layer1', 'resblock', 'greedy_nms', 'bn_epilogue')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -75,6 +75,9 @@ SIGNATURES = {
     'greedy_nms': {
         'kgdet_greedy_nms': [_P] * 5 + [_I] * 4 + [_L] * 3 + [_I, _F, _F, _P],
         'kgdet_greedy_nms_scratch': [_I],
+    },
+    'bn_epilogue': {
+        'kgdet_bn_epilogue': [_P] * 4 + [_L] + [_I] * 4 + [_P],
     },
 }
 

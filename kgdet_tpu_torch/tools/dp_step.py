@@ -38,6 +38,7 @@ def kernel_launches():
     from kgdet_tpu_torch.ops.deform_kernels import (
         deform_conv_fused, deform_sample_bwd, deform_sample_cols,
         deform_sample_split)
+    from kgdet_tpu_torch.ops.bn_epilogue import bn_epilogue
     from kgdet_tpu_torch.ops.nms import greedy_nms
     from kgdet_tpu_torch.ops.resblock import fused_bottleneck
     from kgdet_tpu_torch.ops.stem_kernels import frozen_bottleneck, stem_pool
@@ -48,7 +49,8 @@ def kernel_launches():
             'frozen_bottleneck': frozen_bottleneck.launches,
             'deform_sample_cols': deform_sample_cols.launches,
             'fused_bottleneck': fused_bottleneck.launches,
-            'greedy_nms': greedy_nms.launches}
+            'greedy_nms': greedy_nms.launches,
+            'bn_epilogue': bn_epilogue.launches}
 
 
 def _since(before):

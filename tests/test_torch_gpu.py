@@ -25,7 +25,10 @@ launch counts, and K9 (greedy NMS) against its plain loop bit for bit at
 the served, RPN and edge shapes, one kernel a call, the cascade's
 served decode in fewer than 150 device activities, and the served R-50
 backbone with the FrozenBatchNorms of layers 2 to 4 folded into their
-convs (launches, kernels and bf16 error against the unfolded path). f32
+convs (launches, kernels and bf16 error against the unfolded path), and
+K10, their epilogue, against its plain version bit for bit at edge shapes
+and at every call of a served batch of each block family (DCN, the
+context block, ResNeXt-101, HRNet, C4's res5). f32
 tolerance rtol 1e-5, atol 1e-4 (chip_smoke.py's); K3's gradient map is
 summed with f32 atomics in an order that changes from run to run, which that
 tolerance covers. bf16: the kernel's error against the plain version in
@@ -1425,7 +1428,8 @@ def test_get_flops_counts_the_same_on_both_devices(gen, tmp_path):
     gpu = get_flops.main([path, '--shape', '64', '96'])
     assert gpu == cpu
     assert sorted(gpu['kernels']) == ['K1 deform_conv_fused',
-                                      'K4 stem_pool', 'K5 frozen_bottleneck']
+                                      'K10 bn_epilogue', 'K4 stem_pool',
+                                      'K5 frozen_bottleneck']
 
 
 # ------------------------------------------------------- K9: greedy NMS
@@ -1606,10 +1610,11 @@ def test_served_backbone_folds_its_frozen_bns(gen):
     FrozenBatchNorms folded in (models/layers.py::conv_frozen_bn). Stage
     outputs within the unfolded path's (the same module with grad enabled)
     bf16 distance from an f32 run; at least 250 fewer device activities
-    than the unfolded path; no elementwise pass in f32 over an activation:
-    the only float elementwise kernels are the 42 weight scales and the 42
-    shift adds; and no copy kernel, neither a cast nor a 3x3 weight's copy
-    into the activations' channels_last layout."""
+    than the unfolded path; no PyTorch elementwise pass over an
+    activation: the only elementwise kernels are the 42 weight scales, and
+    the shifts, ReLUs and residual sums are 39 K10 launches; and no copy
+    kernel, neither a cast nor a 3x3 weight's copy into the activations'
+    channels_last layout."""
     from kgdet_tpu_torch.models.layers import FrozenBatchNorm, conv_frozen_bn
     from kgdet_tpu_torch.models.resnet import ResNet
     net = ResNet(depth=50, frozen_stages=1)
@@ -1644,6 +1649,205 @@ def test_served_backbone_folds_its_frozen_bns(gen):
     folded = _device_kernels(lambda: served(xb))
     plain = _device_kernels(lambda: unfolded(xb))
     assert len(plain) - len(folded) >= 250, (len(plain), len(folded))
-    floats = [n for n in folded if 'elementwise' in n and 'float' in n]
-    assert len(floats) == 84, floats
+    elementwise = [n for n in folded if 'elementwise' in n]
+    assert len(elementwise) == 42 and all('float' in n
+                                          for n in elementwise), elementwise
+    assert sum('bn_epilogue' in n for n in folded) == 39, folded
     assert not any('direct_copy' in n for n in folded), folded
+
+
+# ------------------------------- K10: the epilogue of the served folded convs
+def _bits(t):
+    """A tensor's bits, so that NaN payloads and signed zeros compare."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _special(t):
+    """t (channels-last) with NaN, +-inf and +-0 lanes spread through its
+    memory."""
+    flat = t.permute(0, 2, 3, 1).view(-1)
+    for start, every, value in ((0, 7, float('nan')), (1, 11, float('inf')),
+                                (2, 13, -float('inf')), (3, 5, -0.0),
+                                (4, 9, 0.0)):
+        flat[start::every] = value
+    return t
+
+
+def _k10_inputs(gen, N, C, H, W, dtype, mode):
+    def a_map():
+        return _special(_randn(gen, N, C, H, W).to(
+            dtype, memory_format=torch.channels_last))
+    shift = _randn(gen, C)
+    shift[::6] = -0.0
+    shift[1::6] = 0.0
+    identity = a_map() if mode.startswith('identity') else None
+    id_shift = _randn(gen, C) if mode == 'identity_shift' else None
+    return a_map(), shift, identity, id_shift
+
+
+@pytest.mark.parametrize('mode,relu', [('shift', False), ('shift', True),
+                                       ('identity', True),
+                                       ('identity_shift', True),
+                                       ('identity_shift', False)])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('N,C,H,W', [
+    (2, 8, 5, 7), (2, 24, 9, 13), (1, 2048, 3, 4),
+    (2, 12, 6, 5),          # C % 8 != 0: bf16 takes the scalar body
+    (2, 13, 4, 3),          # odd C: both dtypes scalar
+    (3, 64, 1, 1),          # 1x1 maps
+    (4, 512, 100, 168)])    # many waves of blocks
+def test_k10_equals_its_plain_version(gen, N, C, H, W, dtype, mode, relu):
+    """K10 against bn_epilogue_ref (the PyTorch chain) on the card, bit for
+    bit with NaN, +-inf and +-0 lanes: in place in y, returning y, leaving
+    the identity and the shifts as they were; one launch."""
+    from kgdet_tpu_torch.ops import bn_epilogue as be
+    y, shift, identity, id_shift = _k10_inputs(gen, N, C, H, W, dtype, mode)
+    inputs = [t for t in (shift, identity, id_shift) if t is not None]
+    kept = [t.clone() for t in inputs]
+    want = be.bn_epilogue_ref(y.clone(), shift, identity, id_shift, relu)
+    ptr, launches = y.data_ptr(), be.bn_epilogue.launches
+    got = be.bn_epilogue(y, shift, identity, id_shift, relu)
+    torch.cuda.synchronize()
+    assert be.bn_epilogue.launches == launches + 1
+    assert got is y and y.data_ptr() == ptr
+    assert torch.equal(_bits(got.contiguous()), _bits(want.contiguous()))
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(kept, inputs))
+
+
+def test_k10_refuses_what_it_does_not_take(gen):
+    """float16, contiguous NCHW, a strided view, an identity in another
+    layout or overlapping the map, a shape or shift that does not match,
+    more channels than the shared memory holds, 2**31 elements: ValueError
+    or TypeError, no launch."""
+    from kgdet_tpu_torch.ops import bn_epilogue as be
+    y = _randn(gen, 2, 16, 6, 8).to(memory_format=torch.channels_last)
+    shift = _randn(gen, 16)
+    wide = _randn(gen, 1, be.MAX_CHANNELS + 8, 1, 2)
+    cases = [
+        (TypeError, (y.half(), shift)),
+        (ValueError, (y.contiguous(), shift)),
+        (ValueError, (y[:, :, :, ::2], shift)),
+        (ValueError, (y, shift, y.contiguous())),
+        (ValueError, (y, shift, y)),
+        (ValueError, (y, shift, y[:1].clone())),
+        (ValueError, (y, shift.bfloat16())),
+        (ValueError, (y, shift[:8])),
+        (ValueError, (y, shift, None, shift)),
+        (ValueError, (wide, _randn(gen, be.MAX_CHANNELS + 8))),
+        # 2**31 elements: past the kernel's 32-bit indices (4 GiB)
+        (ValueError, (torch.empty((1, 8, 2 ** 14, 2 ** 14),
+                                  dtype=torch.bfloat16, device='cuda',
+                                  memory_format=torch.channels_last),
+                      _randn(gen, 8))),
+    ]
+    launches = be.bn_epilogue.launches
+    for error, args in cases:
+        with pytest.raises(error):
+            be.bn_epilogue(*args)
+    assert be.bn_epilogue.launches == launches
+
+
+def test_served_r50_batch_of_8_on_k10_equals_the_plain_epilogue(
+        gen, monkeypatch):
+    """R-50 with its frozen prefix, bf16, served at batch 8 on an 800x1344
+    canvas (the serve_b8 cells' trunk): every stage output equals, to the
+    bit, the same forward with the epilogue wrapper alone swapped for its
+    plain version; 39 K10 launches a forward, each on a channels-last map,
+    and kernel_cost's K10 tally the 4,627,761,152 bytes counted from the
+    shapes."""
+    from kgdet_tpu_torch.models import layers
+    from kgdet_tpu_torch.models.resnet import ResNet
+    from kgdet_tpu_torch.ops import bn_epilogue as be
+    from kgdet_tpu_torch.ops import kernel_cost
+    net = ResNet(depth=50, frozen_stages=1)
+    net.init_weights(gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, layers.FrozenBatchNorm):
+                c = m.weight.shape
+                m.weight.copy_(torch.rand(c, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(c, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(c, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+    net = net.cuda()
+    x = _randn(gen, 8, 800, 1344, 3).bfloat16()
+    maps = []
+    real = be.bn_epilogue
+
+    def kernel(y, *args, **kwargs):
+        maps.append(y.is_contiguous(memory_format=torch.channels_last))
+        return real(y, *args, **kwargs)
+    monkeypatch.setattr(layers, 'bn_epilogue', kernel)
+    launches = be.bn_epilogue.launches
+    with torch.inference_mode(), kernel_cost.tally() as t:
+        got = net(x)
+    assert be.bn_epilogue.launches == launches + 39
+    assert maps == [True] * 39
+    assert t.kernels['K10 bn_epilogue'] == {
+        'calls': 39, 'flops': 0, 'bytes': 4_627_761_152}
+    monkeypatch.setattr(layers, 'bn_epilogue', be.bn_epilogue_ref)
+    with torch.inference_mode():
+        want = net(x)
+    assert be.bn_epilogue.launches == launches + 39
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g.contiguous()), _bits(w.contiguous()))
+
+
+# path: (config file, fields of its backbone replaced, K10 launches a
+# served forward). DCN in c3-c5: conv2 of those 13 blocks keeps its BN and
+# ReLU; the context block in c3-c5: conv3 and the 3 downsamples take the
+# shift alone, 13 x 3 + 3; ResNeXt-101 and HRNet run every block through
+# the fold (no frozen prefix); C4: layers 2 and 3 in the backbone, res5
+# over the RoI features in the shared head
+K10_FAMILIES = {
+    'dcn': ('kgdet_moment_r50_fpn_1x', dict(dcn_stages=(1, 2, 3)), 26),
+    'gcb': ('kgdet_moment_r50_fpn_1x', dict(gcb_stages=(1, 2, 3)), 42),
+    'x101': ('faster_rcnn_x101_32x4d_fpn_1x', {}, 99),
+    'hrnet': ('faster_rcnn_hrnetv2p_w32_1x', {}, 220),
+    'c4': ('faster_rcnn_r50_caffe_c4_1x', {}, 39),
+}
+
+
+@pytest.mark.parametrize('path', list(K10_FAMILIES))
+def test_served_block_families_run_k10_as_their_plain_epilogue(
+        gen, monkeypatch, path):
+    """One served bf16 batch of 2 at 256x384 through make_predict_fn on the
+    card, for each block family the served models hold beside the plain
+    R-50: every K10 call takes the map in the layout the model gives it
+    (channels-last; the wrapper raises on any other), gives bit for bit
+    what its plain version gives on a copy of the same inputs, and the
+    forward launches K10 the path's number of times."""
+    import dataclasses
+    import os
+
+    from kgdet_tpu_torch.api import build_model, load_config, \
+        make_predict_fn
+    from kgdet_tpu_torch.models import layers
+    from kgdet_tpu_torch.ops import bn_epilogue as be
+    file, backbone, want = K10_FAMILIES[path]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, 'configs',
+                                   f'{file}_deepfashion2.py'))
+    cfg = cfg.replace(compute_dtype='bfloat16',
+                      backbone=dataclasses.replace(cfg.backbone, **backbone),
+                      test=dataclasses.replace(cfg.test, score_thr=0.0))
+    canvas = (256, 384)
+    batch = {'image': torch.randint(0, 256, (2, *canvas, 3),
+                                    generator=gen).to(torch.uint8),
+             'img_hw': torch.tensor([[256.0, 380.0], [240.0, 384.0]]),
+             'scale_factor': torch.tensor([1.0, 0.5])}
+    real, calls = be.bn_epilogue, []
+
+    def checked(y, shift, identity=None, identity_shift=None, relu=True):
+        plain = be.bn_epilogue_ref(y.clone(), shift, identity,
+                                   identity_shift, relu)
+        got = real(y, shift, identity, identity_shift, relu)
+        calls.append(torch.equal(_bits(got.contiguous()),
+                                 _bits(plain.contiguous())))
+        return got
+    model = build_model(cfg).init_weights(0).eval()
+    monkeypatch.setattr(layers, 'bn_epilogue', checked)
+    launches = be.bn_epilogue.launches
+    make_predict_fn(model, cfg, canvas)(batch)
+    assert be.bn_epilogue.launches - launches == want
+    assert calls == [True] * want

@@ -26,6 +26,7 @@ from kgdet_tpu_torch.core import loss as tloss
 from kgdet_tpu_torch.core import targets as ttargets
 from kgdet_tpu_torch.ops import deform, image, losses, nms, plain_kernels, \
     points
+from kgdet_tpu_torch.ops import bn_epilogue as be
 from kgdet_tpu_torch.ops import deform_kernels as dk
 from kgdet_tpu_torch.ops import resblock as rb
 from kgdet_tpu_torch.ops import stem_kernels as sk
@@ -339,6 +340,9 @@ def _rule_cases():
         'K9': (plain(lambda: nms.greedy_nms(_meta(2, 7, 4), _meta(2, 7), 0.5,
                                             3)), 'greedy_nms',
                [(nms, '_greedy')]),
+        'K10': (plain(lambda: be.bn_epilogue(
+            _meta(B, C, H, W), _meta(C), _meta(B, C, H, W), _meta(C))),
+            'bn_epilogue', [(be, 'bn_epilogue_ref')]),
         'K6+K3 hybrid': (deform(dk.deform_sample_hybrid, feat, pos),
                          'deform_sample', [cols, bwd]),
         'K6+K3 fused conv': (deform(dk.deform_conv_fused, feat, pos,

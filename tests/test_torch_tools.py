@@ -206,7 +206,8 @@ def test_flops_are_library_ops_plus_kernel_formulas():
 def test_get_flops_on_the_tiny_cascade(eval_set, monkeypatch, capsys):
     """The tiny R-50 cascade: the parameter count and the padded shape
     equal the JAX tool's, the kernels the forward runs (K1 x12 at the
-    stride-32 map, K4, K5 x3) counted by their formulas."""
+    stride-32 map, K4, K5 x3, K10 x39 with no operation) counted by their
+    formulas."""
     from kgdet_tpu.tools import get_flops as jget_flops
     _, _, cfg_path = eval_set
     out = get_flops.main([cfg_path, '--shape', '60', '90', '--device',
@@ -228,7 +229,8 @@ def test_get_flops_on_the_tiny_cascade(eval_set, monkeypatch, capsys):
     assert out['shape'] == (1, 64, 96, 3)
     calls = {k: v['calls'] for k, v in out['kernels'].items()}
     assert calls == {'K1 deform_conv_fused': 12, 'K4 stem_pool': 1,
-                     'K5 frozen_bottleneck': 3}
+                     'K5 frozen_bottleneck': 3, 'K10 bn_epilogue': 39}
+    assert out['kernels']['K10 bn_epilogue']['flops'] == 0
     # K1 on the 2x3 stride-32 map: t = 9 / 25 / 49, C = F = 64, 4 calls
     # each (2 deformable stages x 2 branches)
     P, C = 6, 64
