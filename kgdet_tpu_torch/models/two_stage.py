@@ -668,7 +668,8 @@ class CascadeRCNN(TwoStageBase):
         boxes, valid = out['proposals'], out['proposal_valid']
         sem = None
         if hasattr(self, 'semantic_head'):
-            out['semantic_pred'], sem = self.semantic_head(feats)
+            with span('semantic'):
+                out['semantic_pred'], sem = self.semantic_head(feats)
         stages = []
         for i, head in enumerate(self.bbox_head):
             roi = self.add_semantic(self.roi_feats(feats, boxes, valid),
@@ -713,9 +714,10 @@ class CascadeRCNN(TwoStageBase):
                                    sem, mprops, mvalid, 14)
         flat = mfeats.flatten(0, 1)
         feat, logits = None, []
-        for head in self.mask_head:
-            lg, feat = head(flat, res_feat=feat, return_feat=True)
-            logits.append(lg.reshape(*mprops.shape[:2], *lg.shape[1:]))
+        with span('mask_head'):
+            for head in self.mask_head:
+                lg, feat = head(flat, res_feat=feat, return_feat=True)
+                logits.append(lg.reshape(*mprops.shape[:2], *lg.shape[1:]))
         if train:
             res['mask_logits_stages'] = logits
         else:

@@ -160,7 +160,8 @@ def all_reduce_grads(params):
     """Sum the gradients of ``params`` over the processes, one all_reduce
     a dtype (each parameter's ``grad`` becomes a view of the sum). A
     parameter without a gradient contributes zeros, which is what the
-    optimizer takes a missing gradient for."""
+    optimizer takes a missing gradient for. ``all_reduce_grads.bytes``
+    counts the bytes reduced."""
     import torch.distributed as dist
     params = list(params)
     for p in params:
@@ -169,5 +170,9 @@ def all_reduce_grads(params):
     for group in _flat_groups([p.grad for p in params]):
         flat = torch.cat([g.reshape(-1) for g in group])
         dist.all_reduce(flat)
+        all_reduce_grads.bytes += flat.numel() * flat.element_size()
         for g, v in zip(group, _unflatten(flat, group)):
             g.copy_(v)
+
+
+all_reduce_grads.bytes = 0

@@ -327,7 +327,8 @@ def make_train_step(model, cfg: KGDetConfig, canvas_hw, optimizer):
             logs = {k: v.detach() for k, v in logs.items()}
             logs['loss'] = total.detach()
             if world()[1] > 1:
-                all_reduce_grads(optimizer.all_params)
+                with span('allreduce'):
+                    all_reduce_grads(optimizer.all_params)
                 terms = [k for k in logs if not k.startswith('num_pos')]
                 summed = global_sum(torch.stack([logs[k] for k in terms]))
                 logs.update(zip(terms, summed.unbind()))

@@ -14,9 +14,11 @@ then infers that config's validation set in f32 from the same weights, in
 its stride of the batches, and gathers the detections
 (eval_loop.py::infer_dataset). Each process writes DIR/rank<r>.pt: per
 dtype the logs, the gradients as the optimizer took them, the parameters
-and optimizer momentum after the step, the kernels' launches and the
+and optimizer momentum after the step, the kernels' launches, the
 step's ms (on a card after a step that is undone, so that the timed step
-finds cuDNN's plans and the kernels loaded); and the detections, the
+finds cuDNN's plans and the kernels loaded), the names of the program's
+spans the step recorded and the gradient bytes it all-reduced
+(``all_reduce_grads.bytes``); and the detections, the
 launches and the batches of inference. TF32 is off: a float32 step
 computes in f32.
 
@@ -80,8 +82,10 @@ def take_step(cfg, state, batch, device, dtype, steps_per_epoch=1000):
     ``batch`` (numpy arrays) from the weights ``state``. Returns logs,
     gradients, parameters and momentum after the step (on the CPU),
     launches and ms."""
-    from kgdet_tpu_torch.parallel.dist import shard_batch, world
+    from kgdet_tpu_torch.parallel.dist import all_reduce_grads, \
+        shard_batch, world
     from kgdet_tpu_torch.parallel.train import make_optimizer, make_train_step
+    from kgdet_tpu_torch.utils import trace
     device = torch.device(device)
     rank, world_size = world()
     share = shard_batch(batch, rank, world_size)
@@ -94,7 +98,9 @@ def take_step(cfg, state, batch, device, dtype, steps_per_epoch=1000):
         step = make_train_step(model, cfg, canvas, optimizer)
         _sync(device)
         before, t0 = kernel_launches(), time.perf_counter()
-        logs = step(feed)
+        reduced = all_reduce_grads.bytes
+        with trace.recording() as rec:
+            logs = step(feed)
         _sync(device)
         ms = 1e3 * (time.perf_counter() - t0)
         if warm:
@@ -108,7 +114,9 @@ def take_step(cfg, state, batch, device, dtype, steps_per_epoch=1000):
            'params': {n: p.detach().cpu().clone()
                       for n, p in model.named_parameters()},
            'momentum': {n: m.cpu().clone() for n, m in momentum.items()},
-           'launches': launches, 'ms': ms}
+           'launches': launches, 'ms': ms,
+           'spans': [r.name for r in rec.records],
+           'reduced_bytes': all_reduce_grads.bytes - reduced}
     return out
 
 

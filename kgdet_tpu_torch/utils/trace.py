@@ -29,10 +29,13 @@ in a two-stage detector (``models/two_stage.py``, every ``TwoStageBase``)
 with ``backbone`` and ``neck`` (``features``), ``rpn`` (the RPN head),
 ``proposals`` (their decode and NMS), ``roi_extract`` (each
 ``extract_roi_feats``, the RoI gathers) and ``roi_head`` (the box head,
-each stage's in Cascade R-CNN); ``step``
-(``parallel/train.py::make_train_step``) with ``forward``,
-``loss``, ``backward`` and ``optimizer``; ``data.fetch`` and
-``data.stage`` (``runner.Runner._device_prefetch``, ``_to_device``).
+each stage's in Cascade R-CNN), and in HTC ``semantic`` (the semantic
+branch) and ``mask_head`` (the three mask heads; their RoI gather is a
+``roi_extract``); ``step`` (``parallel/train.py::make_train_step``) with
+``forward``, ``loss``, ``backward``, in a process group ``allreduce``
+(``parallel/dist.py::all_reduce_grads``), and ``optimizer``;
+``data.fetch`` and ``data.stage`` (``runner.Runner._device_prefetch``,
+``_to_device``).
 """
 from __future__ import annotations
 

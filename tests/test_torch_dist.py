@@ -253,6 +253,21 @@ def test_processes_are_bit_equal(dp):
     assert a['launches'] == b['launches']
 
 
+def test_a_process_step_records_one_allreduce_of_its_gradients(dp):
+    """Each process's step records the ``allreduce`` span once, after the
+    backward and before the optimizer, and all-reduces every parameter's
+    gradient once (f32: 4 bytes an element); one process records none."""
+    for got in dp['two']:
+        names = got['spans']
+        assert names.count('allreduce') == 1
+        assert names.index('backward') < names.index('allreduce') \
+            < names.index('optimizer')
+        assert got['reduced_bytes'] == 4 * sum(
+            p.numel() for p in got['params'].values())
+    assert 'allreduce' not in dp['one']['spans']
+    assert dp['one']['reduced_bytes'] == 0
+
+
 # ------------------------------------------------------------------- gather
 GATHER = '''
 import sys

@@ -2,7 +2,9 @@
 recorded, no clock read and no profiler range entered without a
 recording; inside one, the span tree of a predict call, a train step, a
 ``Detector`` call and the Runner's device prefetch on the tiny R-50 model
-of tests/test_torch_model.py; threads apart; and the profiler's
+of tests/test_torch_model.py, of a two-stage and an HTC predict call, and
+no ``allreduce`` in a step outside a process group (a two-process step's
+is in tests/test_torch_dist.py); threads apart; and the profiler's
 ``kgdet.<name>`` ranges on the records' clock shifted by ``anchor_ns``.
 """
 import threading
@@ -92,20 +94,20 @@ def test_predict_spans_nest_under_one_root(trainer):
     assert s['forward'].end_ns <= s['decode'].start_ns
 
 
-def _tiny_faster_rcnn():
+def _tiny_faster_rcnn(detector_type='faster_rcnn', **extra):
     from kgdet_tpu_torch.api import build_model
     from kgdet_tpu_torch.config import (
         BackboneConfig, HeadConfig, KGDetConfig, NeckConfig, TestConfig)
     cfg = KGDetConfig(
-        detector_type='faster_rcnn', backbone=BackboneConfig(depth=18),
+        detector_type=detector_type, backbone=BackboneConfig(depth=18),
         neck=NeckConfig(in_channels=(64, 128, 256, 512), out_channels=64,
                         start_level=1, num_outs=3, add_extra_convs=False,
                         select_out=None, norm=None),
         head=HeadConfig(num_classes=13, point_strides=(8, 16, 32),
-                        anchor_ratios=(0.5, 1.0, 2.0)),
+                        anchor_ratios=(0.5, 1.0, 2.0), num_stuff_classes=7),
         test=TestConfig(nms_pre=50, max_per_class=10, max_per_img=20),
         num_proposals_train=64, num_proposals_test=64,
-        compute_dtype='float32')
+        compute_dtype='float32', **extra)
     return cfg, build_model(cfg, device='cpu').init_weights(0).eval()
 
 
@@ -139,6 +141,23 @@ def test_two_stage_predict_spans_nest_under_the_forward(monkeypatch):
                 if e.name.startswith('kgdet.')]
 
 
+def test_htc_forward_records_the_semantic_and_mask_head_spans_once():
+    cfg, model = _tiny_faster_rcnn('htc', with_semantic=True)
+    predict = make_predict_fn(model, cfg, CANVAS)
+    predict(_batch())               # anchors cached; nothing recorded
+    with trace.recording() as rec:
+        predict(_batch())
+    names = [r.name for r in rec.records]
+    assert names.count('semantic') == 1 and names.count('mask_head') == 1
+    assert names.count('roi_head') == 3 and names.count('roi_extract') == 4
+    s = {r.name: r for r in rec.records
+         if r.name in ('forward', 'semantic', 'mask_head', 'decode')}
+    _inside(s['semantic'], s['forward'])
+    _inside(s['mask_head'], s['forward'])
+    assert s['semantic'].end_ns <= s['mask_head'].start_ns
+    assert s['forward'].end_ns <= s['decode'].start_ns
+
+
 def test_train_step_spans_nest_under_one_root(trainer):
     cfg, _, step = trainer
     batch = synth_batch(canvas=CANVAS, B=1, G=2, K=cfg.head.num_keypts)
@@ -152,6 +171,18 @@ def test_train_step_spans_nest_under_one_root(trainer):
         _inside(s[child], s['step'])
     order = [s[n] for n in ('forward', 'loss', 'backward', 'optimizer')]
     assert all(a.end_ns <= b.start_ns for a, b in zip(order, order[1:]))
+
+
+def test_train_step_at_world_one_records_no_allreduce(trainer):
+    from kgdet_tpu_torch.parallel.dist import all_reduce_grads
+    cfg, _, step = trainer
+    batch = synth_batch(canvas=CANVAS, B=1, G=2, K=cfg.head.num_keypts)
+    before = all_reduce_grads.bytes
+    with trace.recording() as rec:
+        step(batch)
+    names = [r.name for r in rec.records]
+    assert 'step' in names and 'allreduce' not in names
+    assert all_reduce_grads.bytes == before
 
 
 def test_detector_call_spans_nest_under_the_request(trainer):
